@@ -1,0 +1,47 @@
+"""Per-uid dataset layout of the stage-3 serving path.
+
+A copy of the parts of ``drawingspinup_tpu/core/contract.py`` that stage 3
+reads, so both packages read and write the same files
+(``<root>/<uid>/mesh/blender_render/<action>/<pass>/NNNN.png``,
+``<root>/<uid>/gif/<action>.gif``). ``tests/test_torch_stage3.py`` pins
+each path to the original.
+"""
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import List
+
+
+@dataclass(frozen=True)
+class UidPaths:
+    """File locations for one character uid."""
+
+    root: str
+    uid: str
+
+    @property
+    def mesh_dir(self) -> str:
+        return os.path.join(self.root, self.uid, "mesh")
+
+    @property
+    def render_dir(self) -> str:
+        return os.path.join(self.mesh_dir, "blender_render")
+
+    def action_dir(self, action: str) -> str:
+        return os.path.join(self.render_dir, action)
+
+    @property
+    def gif_dir(self) -> str:
+        return os.path.join(self.root, self.uid, "gif")
+
+    def gif(self, action: str) -> str:
+        return os.path.join(self.gif_dir, f"{action}.gif")
+
+
+def list_actions(paths: UidPaths) -> List[str]:
+    """Action subdirectories present under blender_render/."""
+    d = paths.render_dir
+    if not os.path.isdir(d):
+        return []
+    return sorted(x for x in os.listdir(d) if os.path.isdir(os.path.join(d, x)))
