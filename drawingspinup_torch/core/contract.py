@@ -1,8 +1,9 @@
-"""Per-uid dataset layout of the stage-3 serving path.
+"""Per-uid dataset layout of stage 3.
 
 A copy of the parts of ``drawingspinup_tpu/core/contract.py`` that stage 3
 reads, so both packages read and write the same files
-(``<root>/<uid>/mesh/blender_render/<action>/<pass>/NNNN.png``,
+(``<root>/<uid>/char/<drawing>.png``,
+``<root>/<uid>/mesh/blender_render/<action>/<pass>/NNNN.png``,
 ``<root>/<uid>/gif/<action>.gif``). ``tests/test_torch_stage3.py`` pins
 each path to the original.
 """
@@ -19,6 +20,18 @@ class UidPaths:
 
     root: str
     uid: str
+
+    @property
+    def char_dir(self) -> str:
+        return os.path.join(self.root, self.uid, "char")
+
+    @property
+    def texture_with_bg(self) -> str:
+        return os.path.join(self.char_dir, "texture_with_bg.png")
+
+    @property
+    def inpainted(self) -> str:
+        return os.path.join(self.char_dir, "ffc_resnet_inpainted.png")
 
     @property
     def mesh_dir(self) -> str:

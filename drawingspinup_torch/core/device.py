@@ -7,6 +7,10 @@ raises; nothing falls back to the CPU.
 TF32 is switched off for matmuls and cuDNN convolutions. cuDNN's TF32
 default would run GeneratorJ's convs and the 1×1 head at about three
 decimal digits, while the JAX reference computes them in full f32.
+
+cuDNN is held to deterministic algorithms (and not autotuned): some of its
+backward convolutions sum with atomics, and the JAX pipeline gives the
+same bits from run to run. The RIC kernels are deterministic by design.
 """
 from __future__ import annotations
 
@@ -27,4 +31,6 @@ def setup(device: Union[str, torch.device] = "cuda") -> torch.device:
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
     return dev

@@ -12,7 +12,8 @@ import threading
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (_CSRC / "bindings.cpp", _CSRC / "ric_conv_fwd.cu")
+SOURCES = (_CSRC / "bindings.cpp", _CSRC / "ric_conv_fwd.cu",
+           _CSRC / "ric_conv_bwd.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
 _lock = threading.Lock()

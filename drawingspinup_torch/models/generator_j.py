@@ -1,23 +1,26 @@
-"""Style-translator generators GeneratorJ and GeneratorJ_RIC, eval-mode
-forward (counterpart of ``drawingspinup_tpu/models/generator_j.py``).
+"""Style-translator model zoo: GeneratorJ, GeneratorJ_RIC, DiscriminatorN_IN
+and the PerceptualVGG19 taps (counterpart of
+``drawingspinup_tpu/models/generator_j.py``), in training and eval mode.
 
 Public layout is the JAX one: images enter and leave as NHWC f32.
 GeneratorJ_RIC stays NHWC throughout, because its convs are the RIC conv
-kernel, which takes NHWC. GeneratorJ runs NCHW inside, on ``F.conv2d``.
+kernel, which takes NHWC. GeneratorJ, the discriminator and the VGG taps
+run NCHW inside, on ``F.conv2d`` (cuDNN), as the JAX package leaves them to
+XLA.
 
 Parameter names follow the flax module tree (``conv0.kernel``,
-``res0_bn.running_mean``, ``smooth_bn.weight`` ...), so
-``utils/jax_params.py`` converts a JAX checkpoint by renaming leaves.
-Only inference is ported: batch norm uses its running statistics and
-raises in training mode. DiscriminatorN_IN and the VGG19 taps come with
-stage-3 training.
+``res0_bn.running_mean``, ``smooth_bn.weight``, ``conv_1.weight``,
+``vggconv2.bias`` ...), so ``utils/jax_params.py`` converts JAX variables
+by renaming leaves. Batch norm follows flax: batch statistics with the
+biased variance in training, running averages with momentum 0.9.
 """
 from __future__ import annotations
 
 import functools
 import math
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -26,10 +29,15 @@ from drawingspinup_torch.kernels import ric_conv as ric_kernels
 from drawingspinup_torch.models.ric_tables import ric_shifted_weights
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9       # flax's: running = 0.9 * running + 0.1 * batch
 
 
 def _leaky(x: torch.Tensor) -> torch.Tensor:
-    return F.leaky_relu(x, 0.2)
+    """Leaky ReLU, slope 0.2, in ``jax.nn.leaky_relu``'s form: at exactly 0
+    its gradient is 1. ``F.leaky_relu``'s is 0.2 there, and exact zeros are
+    common: a zero-initialised bias on a masked-out (all-zero) patch
+    region."""
+    return torch.where(x >= 0, x, 0.2 * x)
 
 
 def _he_normal(shape, fan_in: int, device, generator) -> nn.Parameter:
@@ -43,8 +51,12 @@ def _he_normal(shape, fan_in: int, device, generator) -> nn.Parameter:
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode batch norm over dimension ``dim`` (flax ``nn.BatchNorm``
-    with ``use_running_average=True``, eps 1e-5)."""
+    """Batch norm over channel dimension ``dim`` with flax ``nn.BatchNorm``'s
+    semantics (momentum 0.9, eps 1e-5). Training mode normalises with the
+    batch mean and the biased batch variance, ``E[x²] − E[x]²`` clipped at
+    0 as flax computes it, and folds both into the running statistics
+    (torch's ``F.batch_norm`` would fold in the unbiased variance). Eval
+    mode uses the running statistics."""
 
     def __init__(self, features: int, dim: int = -1, device=None):
         super().__init__()
@@ -57,14 +69,29 @@ class BatchNorm(nn.Module):
                              torch.ones(features, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "training-mode batch norm is not ported; call .eval()")
         shape = [1] * x.dim()
         shape[self.dim] = -1
-        mul = torch.rsqrt(self.running_var + BN_EPS) * self.weight
-        return ((x - self.running_mean.view(shape)) * mul.view(shape)
-                + self.bias.view(shape))
+        if self.training:
+            dims = [d for d in range(x.dim()) if d != self.dim % x.dim()]
+            mean = x.mean(dim=dims)
+            var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
+            with torch.no_grad():
+                self.running_mean.mul_(BN_MOMENTUM).add_(
+                    (1.0 - BN_MOMENTUM) * mean)
+                self.running_var.mul_(BN_MOMENTUM).add_(
+                    (1.0 - BN_MOMENTUM) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + BN_EPS) * self.weight
+        return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+
+
+def instance_norm(x: torch.Tensor) -> torch.Tensor:
+    """Per-sample, per-channel normalisation over H and W of an NCHW tensor,
+    biased variance, eps 1e-5, no affine (the JAX ConvBlock's)."""
+    mean = x.mean(dim=(2, 3), keepdim=True)
+    var = x.var(dim=(2, 3), keepdim=True, unbiased=False)
+    return (x - mean) * torch.rsqrt(var + BN_EPS)
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
@@ -75,13 +102,15 @@ def upsample2x(x: torch.Tensor) -> torch.Tensor:
 
 
 def _maxpool2x(x: torch.Tensor) -> torch.Tensor:
-    """2×2 max pool, stride 2, of an NHWC tensor with even H and W."""
-    n, h, w, c = x.shape
-    return x.view(n, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
+    """2×2 max pool, stride 2, of an NHWC tensor with even H and W. Its
+    gradient goes to the first maximum of each window, as flax's
+    ``max_pool`` sends it."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
 
 
 class ConvBlock(nn.Module):
-    """conv → optional batch norm → optional activation (NCHW, OIHW)."""
+    """conv → optional batch or instance norm → optional activation (NCHW,
+    OIHW)."""
 
     def __init__(self, in_features: int, features: int, kernel: int,
                  stride: int = 1, padding: int = 0, use_bias: bool = False,
@@ -89,10 +118,11 @@ class ConvBlock(nn.Module):
                  act: Optional[str] = "leaky", device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if norm not in ("batch_norm", None) or act not in ("leaky", "relu",
-                                                           None):
+        if norm not in ("batch_norm", "instance_norm", None) \
+                or act not in ("leaky", "relu", None):
             raise ValueError(f"unsupported norm {norm!r} / act {act!r}")
         self.stride, self.padding, self.act = stride, padding, act
+        self.instance_norm = norm == "instance_norm"
         self.weight = _he_normal((features, in_features, kernel, kernel),
                                  in_features * kernel * kernel, device,
                                  generator)
@@ -106,6 +136,8 @@ class ConvBlock(nn.Module):
                      padding=self.padding)
         if self.norm is not None:
             y = self.norm(y)
+        elif self.instance_norm:
+            y = instance_norm(y)
         if self.act == "leaky":
             y = _leaky(y)
         elif self.act == "relu":
@@ -176,8 +208,10 @@ class GeneratorJ(nn.Module):
 
 
 @functools.lru_cache(maxsize=16)
-def _swf(h: int, w: int, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(ric_shifted_weights(h, w).copy()).to(device)
+def _swf(h: int, w: int, device: torch.device,
+         dtype: torch.dtype) -> torch.Tensor:
+    return torch.from_numpy(ric_shifted_weights(h, w).copy()).to(device,
+                                                                 dtype)
 
 
 class RICConv(nn.Module):
@@ -190,7 +224,9 @@ class RICConv(nn.Module):
                                  9 * in_features, device, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        swf = _swf(x.shape[1], x.shape[2], x.device)
+        # in x's dtype: a float64 model runs the plain twin in float64 (the
+        # kernels take float32 and refuse anything else)
+        swf = _swf(x.shape[1], x.shape[2], x.device, x.dtype)
         return ric_kernels.ric_conv(x.contiguous(), self.kernel, swf)
 
 
@@ -199,10 +235,12 @@ class GeneratorJ_RIC(nn.Module):
     downsampling. NHWC throughout.
 
     The JAX module runs ``smooth0`` and ``smooth_bn`` and then drops their
-    output: ``smooth1`` reads ``h``, as the original model does. XLA removes
-    that dead branch; here it is skipped in the forward, and the two
-    modules stay only so checkpoints convert. One forward is 21 RIC convs
-    (7 resnet blocks, smoothers on)."""
+    output: ``smooth1`` reads ``h``, as the original model does. In eval
+    mode the branch is dead (XLA removes it) and is skipped here: 21 RIC
+    convs per forward (7 resnet blocks, smoothers on). In training mode it
+    runs, because ``smooth_bn``'s running statistics change every step: 22
+    RIC convs per forward, and still no gradient reaches ``smooth0`` or
+    ``smooth_bn``."""
 
     def __init__(self, filters: Sequence[int] = (32, 64, 128, 128, 128, 64),
                  resnet_blocks: int = 7, tanh: bool = True,
@@ -226,8 +264,8 @@ class GeneratorJ_RIC(nn.Module):
         self.upconv1, self.up1_bn = conv(f[4] + f[1], f[4]), bn(f[4])
         self.conv_11 = conv(f[4] + f[0] + input_channels, f[5])
         if append_smoothers:
-            self.smooth0 = conv(f[5], f[5])       # dead branch, see above
-            self.smooth_bn = bn(f[5])             # dead branch, see above
+            self.smooth0 = conv(f[5], f[5])       # output dropped, see above
+            self.smooth_bn = bn(f[5])             # output dropped, see above
             self.smooth1 = conv(f[5], f[5])
         self.head = ConvBlock(f[5], 3, 1, use_bias=True, norm=None, act=None,
                               device=device, generator=generator)
@@ -247,7 +285,83 @@ class GeneratorJ_RIC(nn.Module):
         h = F.relu(self.up1_bn(self.upconv1(h)))
         h = F.relu(self.conv_11(torch.cat([h, out0, x], dim=-1)))
         if self.append_smoothers:
+            if self.training:
+                self.smooth_bn(F.relu(self.smooth0(h)))
             h = F.relu(self.smooth1(h))
         # 1×1 head as a plain matmul over the channel dim
         y = F.linear(h, self.head.weight.flatten(1), self.head.bias)
         return torch.tanh(y) if self.tanh else y
+
+
+class DiscriminatorN_IN(nn.Module):
+    """PatchGAN with instance norm: 4×4 convs with bias, stride 2 then 1.
+    Takes NHWC images and returns NHWC f32 logits (the JAX module returns
+    them with a ``None`` beside)."""
+
+    def __init__(self, num_filters: int = 12, n_layers: int = 2, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        blk = functools.partial(ConvBlock, kernel=4, padding=1, use_bias=True,
+                                device=device, generator=generator)
+        self.n_layers = n_layers
+        self.conv0 = blk(3, num_filters, stride=2, norm=None)
+        ch = num_filters
+        for l in range(1, n_layers):
+            mult = min(2 ** l, 8)
+            self.add_module(f"conv_{l}", blk(ch, num_filters * mult,
+                                             stride=2, norm="instance_norm"))
+            ch = num_filters * mult
+        mult = min(2 ** n_layers, 8)
+        self.add_module(f"conv_{n_layers}", blk(ch, num_filters * mult,
+                                                norm="instance_norm"))
+        self.conv_out = blk(num_filters * mult, 1, norm=None, act=None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.conv0(x.permute(0, 3, 1, 2))
+        for l in range(1, self.n_layers + 1):
+            h = getattr(self, f"conv_{l}")(h)
+        return self.conv_out(h).permute(0, 2, 3, 1)
+
+
+class PerceptualVGG19(nn.Module):
+    """The VGG19 prefix the perceptual loss reads, with its maps at feature
+    indices (0, 3, 5): conv1_1 before its ReLU, conv1_2 after its ReLU, and
+    conv2_1 (after a 2×2 pool) before its ReLU. Weights are a fixed random
+    init unless ``load_vgg_weights_npz`` overlays real ones. Frozen by its
+    users: it has no optimizer."""
+
+    def __init__(self, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        blk = functools.partial(ConvBlock, kernel=3, padding=1, use_bias=True,
+                                norm=None, act=None, device=device,
+                                generator=generator)
+        self.vggconv0 = blk(3, 64)       # features.0
+        self.vggconv1 = blk(64, 64)      # features.2
+        self.vggconv2 = blk(64, 128)     # features.5
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """NHWC images → the three NHWC feature maps."""
+        tap0 = self.vggconv0(x.permute(0, 3, 1, 2))
+        tap3 = F.relu(self.vggconv1(F.relu(tap0)))
+        tap5 = self.vggconv2(F.max_pool2d(tap3, 2, 2))
+        return [t.permute(0, 2, 3, 1) for t in (tap0, tap3, tap5)]
+
+
+def load_vgg_weights_npz(vgg: PerceptualVGG19, npz_path: str
+                         ) -> PerceptualVGG19:
+    """Overlay real VGG19 conv weights from an npz with keys
+    ``features.N.weight`` / ``features.N.bias`` in torch OIHW layout (what
+    ``scripts/export_vgg19_npz.py`` writes) onto ``vgg``'s convs, in place.
+    Convs whose keys the npz lacks are left alone."""
+    data = np.load(npz_path)
+    with torch.no_grad():
+        for conv_i, torch_idx in enumerate((0, 2, 5)):
+            key = f"features.{torch_idx}"
+            if f"{key}.weight" in data:
+                conv = getattr(vgg, f"vggconv{conv_i}")
+                conv.weight.copy_(torch.from_numpy(
+                    np.asarray(data[f"{key}.weight"], np.float32)))
+                conv.bias.copy_(torch.from_numpy(
+                    np.asarray(data[f"{key}.bias"], np.float32)))
+    return vgg

@@ -1,9 +1,10 @@
-"""Convert a flax ``{params, batch_stats}`` tree of the stage-3 generators
+"""Convert a flax ``{params, batch_stats}`` tree of the stage-3 models
 into the port's ``state_dict``.
 
 The input is nested dicts of numpy arrays (``np.asarray`` of each leaf of
-a flax checkpoint); no JAX is needed. Rules, for GeneratorJ and
-GeneratorJ_RIC alike:
+flax variables); no JAX is needed. Rules, for GeneratorJ, GeneratorJ_RIC,
+DiscriminatorN_IN and PerceptualVGG19 alike (the last two have no batch
+statistics, and their ConvBlocks' ``kernel``/``bias`` map as below):
 
 * conv kernels (4-d, flax HWIO) → ``<module>.weight`` in torch OIHW; this
   covers ``head_kernel`` (1, 1, C, 3) → ``head.weight`` (3, C, 1, 1);
@@ -15,7 +16,7 @@ GeneratorJ_RIC alike:
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Mapping, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,10 +36,11 @@ def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()
 
 
 def to_state_dict(params: Mapping[str, Any],
-                  batch_stats: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """flax generator variables → torch ``state_dict`` (CPU, f32)."""
+                  batch_stats: Optional[Mapping[str, Any]] = None
+                  ) -> Dict[str, torch.Tensor]:
+    """flax model variables → torch ``state_dict`` (CPU, f32)."""
     out: Dict[str, torch.Tensor] = {}
-    for tree in (params, batch_stats):
+    for tree in (params, batch_stats or {}):
         for path, leaf in _leaves(tree):
             a = np.array(leaf, np.float32)       # a writable copy
             key = ".".join(_RENAME.get(p, p) for p in path)

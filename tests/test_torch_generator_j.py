@@ -1,5 +1,6 @@
 """PyTorch port: GeneratorJ_RIC / GeneratorJ eval forward, the flax → torch
-parameter converter and GANConfig, against the JAX package.
+parameter converter and GANConfig, against the JAX package (training mode:
+tests/test_torch_train.py).
 
 Weights come from the JAX generator's own init (as ``gan.init_state``
 runs it) plus batch statistics drawn from a numpy seed (so batch norm is not the identity), converted with
@@ -133,12 +134,6 @@ def test_seeded_init_is_reproducible():
     for (ka, va), (kb, vb) in zip(a.state_dict().items(),
                                   b.state_dict().items()):
         assert ka == kb and torch.equal(va, vb)
-
-
-def test_batch_norm_raises_in_training_mode():
-    model = tgan.build_generator(tgan.GANConfig(**SMALL), "cpu").train()
-    with pytest.raises(NotImplementedError):
-        model(torch.zeros(1, 8, 8, 6))
 
 
 def test_upsample_and_pool_match_jax():

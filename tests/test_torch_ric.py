@@ -1,11 +1,13 @@
-"""PyTorch port: RIC conv tables, plain twin and kernel wrapper
-(drawingspinup_torch/models/ric_tables.py, kernels/ric_conv.py) against the
-JAX package.
+"""PyTorch port: RIC conv tables, plain twins, autograd Function and kernel
+wrappers (drawingspinup_torch/models/ric_tables.py, kernels/ric_conv.py)
+against the JAX package.
 
 Tolerances: the twin and the JAX formulations sum the same f32 products in
-different orders, so they agree to atol = rtol = 2e-5 (the bound
-tests/test_ric_pallas.py uses for the Pallas kernel against ``fused``).
-The copied numpy tables must be bit-equal."""
+different orders, so the forward agrees to atol = rtol = 2e-5 (the bound
+tests/test_ric_pallas.py uses for the Pallas kernel against ``fused``),
+and the VJP to atol = rtol = 3e-4 (its bound for the Pallas VJP: dwk sums
+N·H·W·9 products per element). The copied numpy tables must be
+bit-equal."""
 
 import numpy as np
 import pytest
@@ -68,21 +70,83 @@ def test_reference_matches_pallas_interpret():
     np.testing.assert_allclose(_twin(x, wk, swf), want, **TOL)
 
 
+def _cotangent(shape, seed):
+    n, h, w, _, o = shape
+    return np.random.default_rng(seed).standard_normal(
+        (n, h, w, o)).astype(np.float32)
+
+
+@pytest.mark.parametrize("shape", [(5, 8, 8, 12, 16), (4, 16, 16, 6, 8),
+                                   (3, 8, 8, 16, 16), (5, 32, 32, 4, 8)])
+def test_bwd_twin_and_function_match_pallas_vjp(shape):
+    """``jax.vjp`` of the Pallas ``ric_conv`` (``_bwd_call``, interpret mode)
+    against ``ric_conv_bwd_reference`` and against the gradients of the
+    autograd Function. At 32² the Pallas grid walks the batch of 5 one
+    image per step, accumulating dwk across steps; at 8² it takes all 5
+    images in one step."""
+    x, wk, swf = _inputs(shape, seed=sum(shape))
+    g = _cotangent(shape, seed=1)
+    _, vjp = jax.vjp(lambda a, b: pallas_ric_conv(a, b, jnp.asarray(swf)),
+                     jnp.asarray(x), jnp.asarray(wk))
+    want_dx, want_dwk = (np.asarray(a) for a in vjp(jnp.asarray(g)))
+    tol = dict(atol=3e-4, rtol=3e-4)
+    dx, dwk = ric_kernels.ric_conv_bwd_reference(
+        torch.from_numpy(x), torch.from_numpy(wk),
+        torch.from_numpy(swf.copy()), torch.from_numpy(g))
+    np.testing.assert_allclose(dx.numpy(), want_dx, **tol)
+    np.testing.assert_allclose(dwk.numpy(), want_dwk, **tol)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    wkt = torch.from_numpy(wk).requires_grad_(True)
+    ric_kernels.ric_conv(xt, wkt, torch.from_numpy(swf.copy())).backward(
+        torch.from_numpy(g))
+    np.testing.assert_allclose(xt.grad.numpy(), want_dx, **tol)
+    np.testing.assert_allclose(wkt.grad.numpy(), want_dwk, **tol)
+
+
+@pytest.mark.parametrize("needs_dx", [True, False])
+def test_function_matches_autograd_of_twin(needs_dx, monkeypatch):
+    """The Function's backward against autograd through
+    ``ric_conv_reference``, at 2e-5; without an input gradient no dx is
+    computed."""
+    shape = (2, 12, 20, 5, 7)
+    x, wk, swf = _inputs(shape, seed=2)
+    g = torch.from_numpy(_cotangent(shape, seed=3))
+    swf_t = torch.from_numpy(swf.copy())
+    calls = []
+    bwd = ric_kernels.ric_conv_bwd_reference
+    monkeypatch.setattr(ric_kernels, "ric_conv_bwd_reference",
+                        lambda *a: calls.append(a[4]) or bwd(*a))
+    x1, wk1 = torch.from_numpy(x).requires_grad_(needs_dx), \
+        torch.from_numpy(wk).requires_grad_(True)
+    ric_kernels.ric_conv(x1, wk1, swf_t).backward(g)
+    x2, wk2 = torch.from_numpy(x).requires_grad_(needs_dx), \
+        torch.from_numpy(wk).requires_grad_(True)
+    ric_kernels.ric_conv_reference(x2, wk2, swf_t).backward(g)
+    assert calls == [needs_dx]
+    np.testing.assert_allclose(wk1.grad.numpy(), wk2.grad.numpy(), **TOL)
+    if needs_dx:
+        np.testing.assert_allclose(x1.grad.numpy(), x2.grad.numpy(), **TOL)
+    else:
+        assert x1.grad is None
+
+
 def test_cpu_tensor_runs_twin_and_launches_nothing():
     x, wk, swf = _inputs((1, 8, 8, 3, 4), seed=5)
-    before = ric_kernels.LAUNCHES
-    got = ric_kernels.ric_conv(torch.from_numpy(x), torch.from_numpy(wk),
+    wkt = torch.from_numpy(wk).requires_grad_(True)
+    got = ric_kernels.ric_conv(torch.from_numpy(x), wkt,
                                torch.from_numpy(swf.copy()))
-    np.testing.assert_array_equal(got.numpy(), _twin(x, wk, swf))
-    assert ric_kernels.LAUNCHES == before == 0
+    np.testing.assert_array_equal(got.detach().numpy(), _twin(x, wk, swf))
+    got.sum().backward()
+    assert ric_kernels.LAUNCHES == ric_kernels.BWD_LAUNCHES == 0
     assert _build._ext is None
 
 
+@pytest.mark.parametrize("wrapper", ["fwd", "bwd"])
 @pytest.mark.parametrize("case", ["cpu", "dtype", "x_rank", "wk_shape",
                                   "swf_shape", "noncontig"])
-def test_kernel_wrapper_rejects_before_build(case):
-    """ric_conv_fwd checks its inputs before it builds or launches
-    anything; a CPU tensor is refused, never computed."""
+def test_kernel_wrapper_rejects_before_build(case, wrapper):
+    """ric_conv_fwd and ric_conv_bwd check their inputs before they build
+    or launch anything; a CPU tensor is refused, never computed."""
     x = torch.zeros(1, 8, 8, 4)
     wk = torch.zeros(9, 4, 6)
     swf = torch.zeros(9, 9, 8, 8)
@@ -97,5 +161,9 @@ def test_kernel_wrapper_rejects_before_build(case):
     elif case == "noncontig":
         x = torch.zeros(1, 8, 4, 8).transpose(2, 3)
     with pytest.raises((TypeError, ValueError)):
-        ric_kernels.ric_conv_fwd(x, wk, swf)
-    assert ric_kernels.LAUNCHES == 0 and _build._ext is None
+        if wrapper == "fwd":
+            ric_kernels.ric_conv_fwd(x, wk, swf)
+        else:
+            ric_kernels.ric_conv_bwd(x, wk, swf, torch.zeros(1, 8, 8, 6))
+    assert ric_kernels.LAUNCHES == ric_kernels.BWD_LAUNCHES == 0
+    assert _build._ext is None
