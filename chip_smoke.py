@@ -5,14 +5,19 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from the checkout's sources and drives
-stage 3 at the production width (configs/config_stage{1,2}.yaml), with
-weights drawn from a seed: the serving path (test_stage1 → test_stage2 →
-GIF) on 512² frames, then the training path (train_stage1 → test_stage1 →
-train_stage2 → test_stage2 → GIF) on batches of 40 × 32² patches. Phases:
+It builds the port's CUDA kernels and the native mesh library from the
+checkout's sources and drives stage 3 at the production width
+(configs/config_stage{1,2}.yaml), with weights drawn from a seed: the
+serving path (test_stage1 → test_stage2 → GIF) on 512² frames, then the
+training path (train_stage1 → test_stage1 → train_stage2 → test_stage2 →
+GIF) on batches of 40 × 32² patches. Then stage 2b at the production width
+of configs/neus-ortho.yaml, trained from a seed: the recon CLI on six 1024²
+views of a synthetic sphere, 600 steps, export at mc512. Phases:
 
   1. versions, and the card's name and power limit (nvidia-smi);
-  2. build the RIC conv kernels (forward and backward), with the build time;
+  2. build the CUDA kernels (RIC conv forward and backward, hash-grid encode
+     and table gradient, row gather) and the native library, with the build
+     times;
   3. forward kernel against its plain PyTorch twin at the 8 RIC layer
      shapes of a 512² GeneratorJ_RIC forward: max |kernel − plain| ≤ 1e-4 ·
      max |plain|, with the median CUDA-event time of each;
@@ -39,9 +44,40 @@ train_stage2 → test_stage2 → GIF) on batches of 40 × 32² patches. Phases:
      profile of where a step's device time goes. The gradient bound sits
      above the step's rounding floor: its ReLU and max-pool decisions flip
      under a random 1e-6 relative perturbation of the RIC outputs, which
-     moves a gradient by up to ~3e-3, in either path.
+     moves a gradient by up to ~3e-3, in either path;
+  9. the hash-grid encode (K1) and table-gradient (K2) kernels against their
+     plain twins on the production table (10 levels, 2^19 rows), at a
+     step's full eval (135 168 points, with the jacobian) and coarse pass
+     (65 536 points), n_active 4, 5 and 6, in bf16 and f32: K1 within
+     1e-5 · max |plain| (f32) or one bf16 ulp of the largest output, K2
+     within relative L2 1e-5 (f32) or 1e-2 (bf16) of the twin's f32 sums
+     and bit-identical from launch to launch; the median CUDA-event time of
+     each;
+ 10. the row-gather kernel (K3) against tab[idx], bit-equal, at the Pallas
+     gathers' shapes (T = 74³ and 129³ rows of 16 bf16, K = 262 144);
+ 11. the recon CLI (``python -m drawingspinup_torch.cli.recon``) on a
+     synthetic sphere uid with the cuts trainer.max_steps=600,
+     system.constant_steps=100, update_steps=200 (4 → 5 → 6 levels): per
+     step exactly one K1 without the jacobian (coarse pass), one with, one
+     K2 and one K3 (the pixel targets), plus one K1 per export evaluation;
+     loss falling, inv_s rising, the OBJ under the reference name with the
+     sphere's median radius within 35 %; ms per step of each band phase and
+     the export's parts;
+ 12. one NSR step from the trained state and one set of draws, kernel path
+     against plain path: f32 against the plain path in float64 (losses
+     within relative 1e-4, every gradient within relative L2 1e-2, the f32
+     plain path's errors printed beside); bf16 against the bf16 plain path
+     (losses within 1e-5, gradients within relative L2 1e-2) and against
+     the f32 plain path (each loss and gradient no farther from f32 than
+     1.25 x the bf16 plain path's: bf16 rounding alone puts both paths'
+     losses ~1e-2 and gradients 10-40 % from f32); ms per production step
+     of each path, and a profile;
+ 13. the export's u8 field at mc512 from the trained params, kernel field
+     against plain field: more than 1 apart on < 0.5 % of voxels, marched
+     vertex and face counts within 10 %.
 
-Then a JSON line per the kernels it ran, and last
+Every phase line ends with the card's name and power limit. Then a JSON
+line per the kernels it ran, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero and prints no result; so it does without a CUDA device or
 outside a checkout. It imports no JAX.
@@ -76,6 +112,25 @@ RIC_REPLACES = "drawingspinup_tpu/kernels/ric_conv.py:100"
 BWD_SOURCE = "drawingspinup_torch/kernels/csrc/ric_conv_bwd.cu"
 BWD_REPLACES = "drawingspinup_tpu/kernels/ric_conv.py:128"
 TRAIN_UID = "smoke_train"
+RECON_UID = "smoke_recon"
+RECON_SIZE = 1024           # the six views' size, as in production
+# the smoke configuration: production widths, 600 steps, the band's
+# update every 200 steps so that all three band phases (4, 5, 6 levels) run
+RECON_OVERRIDES = ("trainer.max_steps=600", "system.constant_steps=100",
+                   "model.geometry.xyz_encoding_config.update_steps=200")
+# (points, with the jacobian): a production step's full eval (2048 rays x
+# 64 samples + 2 x 2048 probes) and its coarse pass (2048 x 32)
+HG_POINTS = ((2048 * 64 + 4096, True), (2048 * 32, False))
+HG_ACTIVE = (4, 5, 6)
+GATHER_ROWS = (74 ** 3, 129 ** 3)   # scripts/bench_pallas_gather.py's tables
+GATHER_K = 262144
+RECON_MC, RECON_FACES = 512, 50000  # the export's grid and faces (the yaml's)
+HG_SOURCE = "drawingspinup_torch/kernels/csrc/hashgrid_fwd.cu"
+HG_REPLACES = "scripts/bench_pallas_gather.py:94"
+HG_BWD_SOURCE = "drawingspinup_torch/kernels/csrc/hashgrid_bwd.cu"
+HG_BWD_REPLACES = "drawingspinup_tpu/models/hashgrid.py:180"
+GATHER_SOURCE = "drawingspinup_torch/kernels/csrc/row_gather.cu"
+GATHER_REPLACES = "scripts/bench_pallas_gather.py:76"
 TRAIN_BATCHES = (100, 20)   # --max-batches of stage 1 and stage 2
 BATCH = 40
 
@@ -106,6 +161,14 @@ TRAIN_SHAPES = (
 )
 FWD_PER_STEP = sum(s[3] for s in TRAIN_SHAPES)
 BWD_PER_STEP = sum(s[4] for s in TRAIN_SHAPES)
+
+
+CARD = ""                   # nvidia-smi's name and power limit (phase 1)
+
+
+def report(msg: str) -> None:
+    """Print a phase's line with the card it was measured on."""
+    print(f"{msg} [{CARD}]")
 
 
 def check(ok: bool, msg: str) -> None:
@@ -140,18 +203,24 @@ def phase_versions() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
-    card = smi.stdout.strip().splitlines()[0]
-    print(card)
-    return card
+    global CARD
+    CARD = smi.stdout.strip().splitlines()[0]
+    print(CARD)
+    return CARD
 
 
 def phase_build() -> None:
+    from drawingspinup_torch import native
     from drawingspinup_torch.kernels import _build
 
     t0 = time.time()
     _build.extension()
-    print(f"[2] built the RIC conv kernels in {time.time() - t0:.1f} s "
-          f"into {_build.BUILD_DIR}")
+    t1 = time.time()
+    native.build()
+    report(f"[2] built the CUDA kernels (RIC conv forward and backward, "
+           f"hash-grid encode and table gradient, row gather) in "
+           f"{t1 - t0:.1f} s into {_build.BUILD_DIR}, the native mesh library "
+           f"in {time.time() - t1:.1f} s into {native.BUILD_DIR}")
 
 
 def phase_kernel_vs_plain(device, shapes=RIC_SHAPES, reps: int = 10):
@@ -179,9 +248,9 @@ def phase_kernel_vs_plain(device, shapes=RIC_SHAPES, reps: int = 10):
               f" > {REL_TOL:g} * {scale:.3e}")
         ms = cuda_ms(lambda: rk.ric_conv_fwd(x, wk, swf), reps)
         plain = cuda_ms(lambda: rk.ric_conv_reference(x, wk, swf), reps)
-        print(f"[3] ric_conv_fwd (H,C,O)=({hw},{c},{o}): max err {err:.3e} "
-              f"(max |plain| {scale:.3e}), kernel {ms:.3f} ms, "
-              f"plain {plain:.3f} ms")
+        report(f"[3] ric_conv_fwd (H,C,O)=({hw},{c},{o}): max err {err:.3e} "
+               f"(max |plain| {scale:.3e}), kernel {ms:.3f} ms, "
+               f"plain {plain:.3f} ms")
         results.append((err, ms, plain))
     return results
 
@@ -321,13 +390,13 @@ def phase_main_path(root: str, device) -> int:
         with Image.open(paths.gif(action)) as im:
             check(im.n_frames == FRAMES_PER_ACTION,
                   f"{paths.gif(action)} has {im.n_frames} frames")
-    print(f"[4] main path: {n} frames of {FRAME}^2 per stage, "
-          f"{launches} RIC kernel launches ({launches // n} per frame); "
-          f"test_stage1 {1e3 * (t1 - t0) / n:.1f} ms/frame, "
-          f"test_stage2 {1e3 * (t2 - t1) / n:.1f} ms/frame, "
-          f"gif_writer {1e3 * (t3 - t2) / n:.1f} ms/frame "
-          f"(CLI wall time: model load, PNG IO and first-call set-up "
-          f"included)")
+    report(f"[4] main path: {n} frames of {FRAME}^2 per stage, "
+           f"{launches} RIC kernel launches ({launches // n} per frame); "
+           f"test_stage1 {1e3 * (t1 - t0) / n:.1f} ms/frame, "
+           f"test_stage2 {1e3 * (t2 - t1) / n:.1f} ms/frame, "
+           f"gif_writer {1e3 * (t3 - t2) / n:.1f} ms/frame "
+           f"(CLI wall time: model load, PNG IO and first-call set-up "
+           f"included)")
     return launches
 
 
@@ -388,11 +457,11 @@ def phase_whole_frame(root: str, device) -> None:
         with plain_ric_convs():
             ms_plain = cuda_ms(lambda: models[0](x), reps=5)
         ms_stage2 = cuda_ms(lambda: models[1](x), reps=5)
-    print(f"[5] whole frame {FRAME}^2: max |kernel - plain| {f32_err:.3e} "
-          f"(f32, after tanh), u8 RGB {frac:.3%} of values off by 1, alpha "
-          f"exact, {saturated:.1%} of RGB values at 0 or 255; forward "
-          f"GeneratorJ_RIC {ms_kernel:.2f} ms (kernel) vs {ms_plain:.2f} ms "
-          f"(plain), GeneratorJ {ms_stage2:.2f} ms")
+    report(f"[5] whole frame {FRAME}^2: max |kernel - plain| {f32_err:.3e} "
+           f"(f32, after tanh), u8 RGB {frac:.3%} of values off by 1, alpha "
+           f"exact, {saturated:.1%} of RGB values at 0 or 255; forward "
+           f"GeneratorJ_RIC {ms_kernel:.2f} ms (kernel) vs {ms_plain:.2f} ms "
+           f"(plain), GeneratorJ {ms_stage2:.2f} ms")
 
 
 def phase_bwd_vs_plain(device, reps: int = 10):
@@ -441,11 +510,11 @@ def phase_bwd_vs_plain(device, reps: int = 10):
         fwd_ms = cuda_ms(lambda: rk.ric_conv_fwd(x, wk, swf), reps)
         fwd_plain = cuda_ms(lambda: rk.ric_conv_reference(x, wk, swf), reps)
         dx_err = f"{errs[0]:.3e}" if need_dx else "(no dx)"
-        print(f"[6] ric_conv_bwd N={BATCH} (H,C,O)=({hw},{c},{o}): max err "
-              f"dx {dx_err} dwk {errs[-2]:.3e} (max |plain dwk| "
-              f"{want[1].abs().max().item():.3e}), bit-identical; kernel "
-              f"{ms:.3f} ms, plain {plain:.3f} ms; forward kernel "
-              f"{fwd_ms:.3f} ms, plain {fwd_plain:.3f} ms")
+        report(f"[6] ric_conv_bwd N={BATCH} (H,C,O)=({hw},{c},{o}): max err "
+               f"dx {dx_err} dwk {errs[-2]:.3e} (max |plain dwk| "
+               f"{want[1].abs().max().item():.3e}), bit-identical; kernel "
+               f"{ms:.3f} ms, plain {plain:.3f} ms; forward kernel "
+               f"{fwd_ms:.3f} ms, plain {fwd_plain:.3f} ms")
         results.append((max(errs[:-1]), ms, plain, fwd_ms, fwd_plain,
                         errs[-1]))
     return results
@@ -555,17 +624,17 @@ def phase_training(root: str, device):
             check(im.n_frames == want,
                   f"{paths.gif(action)} has {im.n_frames} frames")
     steady = [steady_ms_per_step(paths, stage, device) for stage in (1, 2)]
-    print(f"[7] training path: {fwd} forward (= {FWD_PER_STEP} x "
-          f"{TRAIN_BATCHES[0]} steps + {RIC_PER_FRAME} x {2 * n_frames} "
-          f"frames) and {bwd} backward (= {BWD_PER_STEP} x "
-          f"{TRAIN_BATCHES[0]}) RIC launches; stage 1 image loss "
-          f"{first:.4f} (first 10 steps) -> {last:.4f} (last 10); CLI wall "
-          f"train_stage1 {times[1] - times[0]:.1f} s, test_stage1 "
-          f"{times[2] - times[1]:.1f} s, train_stage2 {times[3] - times[2]:.1f}"
-          f" s, test_stage2 {times[4] - times[3]:.1f} s, gif_writer "
-          f"{times[5] - times[4]:.1f} s; steady ms/step (host synchronised, "
-          f"3 warm-up steps excluded) stage 1 {steady[0]:.2f}, stage 2 "
-          f"{steady[1]:.2f}")
+    report(f"[7] training path: {fwd} forward (= {FWD_PER_STEP} x "
+           f"{TRAIN_BATCHES[0]} steps + {RIC_PER_FRAME} x {2 * n_frames} "
+           f"frames) and {bwd} backward (= {BWD_PER_STEP} x "
+           f"{TRAIN_BATCHES[0]}) RIC launches; stage 1 image loss "
+           f"{first:.4f} (first 10 steps) -> {last:.4f} (last 10); CLI wall "
+           f"train_stage1 {times[1] - times[0]:.1f} s, test_stage1 "
+           f"{times[2] - times[1]:.1f} s, train_stage2 "
+           f"{times[3] - times[2]:.1f} s, test_stage2 {times[4] - times[3]:.1f} s, gif_writer "
+           f"{times[5] - times[4]:.1f} s; steady ms/step (host synchronised, "
+           f"3 warm-up steps excluded) stage 1 {steady[0]:.2f}, stage 2 "
+           f"{steady[1]:.2f}")
     return fwd, bwd
 
 
@@ -591,17 +660,17 @@ def profile_step(cfg, state, batch, steps: int = 5) -> None:
                and not e.is_user_annotation]
     total = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     if total <= 0:
-        print("[8] profile: the profiler saw no device time (not measured)")
+        report("[8] profile: the profiler saw no device time (not measured)")
         return
     kernels.sort(key=lambda e: -e.self_device_time_total)
     top = "; ".join(
         f"{e.key[:48]} {e.self_device_time_total / 1e3 / steps:.3f} ms "
         f"x{e.count // steps}" for e in kernels[:8])
     launches = sum(e.count for e in kernels) / steps
-    print(f"[8] profile of {steps} kernel-path steps: device busy {total:.2f}"
-          f" ms of {wall:.2f} ms wall per step ({total / wall:.1%}, the "
-          f"profiler's overhead included), {launches:.0f} kernel launches per"
-          f" step; by kernel, per step: {top}")
+    report(f"[8] profile of {steps} kernel-path steps: device busy {total:.2f}"
+           f" ms of {wall:.2f} ms wall per step ({total / wall:.1%}, the "
+           f"profiler's overhead included), {launches:.0f} kernel launches per"
+           f" step; by kernel, per step: {top}")
 
 
 def phase_step_vs_plain(root: str, device) -> None:
@@ -673,14 +742,479 @@ def phase_step_vs_plain(root: str, device) -> None:
         with plain_ric_convs() if plain else contextlib.nullcontext():
             ms[plain] = cuda_ms(
                 lambda: gan.train_step_on_batch(cfg, st, batch), reps=10)
-    print(f"[8] one training step against the plain path in float64: losses"
-          f" within {max(abs(lk[k] - lref[k]) / abs(lref[k]) for k in lk):.2e}"
-          f" relative; generator gradients' relative L2 error, worst "
-          f"leaves: kernel path {top(ek)}; f32 plain path {top(ep)}; "
-          f"kernel path bit-identical across runs;"
-          f" median ms/step in f32: kernel {ms[False]:.2f}, plain "
-          f"{ms[True]:.2f} (CUDA events)")
+    worst = max(abs(lk[k] - lref[k]) / abs(lref[k]) for k in lk)
+    report(f"[8] one training step against the plain path in float64: losses"
+           f" within {worst:.2e}"
+           f" relative; generator gradients' relative L2 error, worst "
+           f"leaves: kernel path {top(ek)}; f32 plain path {top(ep)}; "
+           f"kernel path bit-identical across runs;"
+           f" median ms/step in f32: kernel {ms[False]:.2f}, plain "
+           f"{ms[True]:.2f} (CUDA events)")
     profile_step(cfg, copy.deepcopy(state), batch)
+
+
+# ---------------------------------------------------------------------------
+# stage 2b: NSR reconstruction and the hash-grid kernels
+# ---------------------------------------------------------------------------
+
+def recon_config(**grid):
+    """The production NSR config of configs/neus-ortho.yaml, with the smoke
+    run's cuts, and the hash grid's dtypes replaced by ``grid``."""
+    import dataclasses
+
+    from drawingspinup_torch.core.config import load_config
+    from drawingspinup_torch.pipelines import stage2_recon
+
+    cfg = stage2_recon.nsr_config_from_yaml(load_config(
+        os.path.join(REPO, "drawingspinup_torch", "configs",
+                     "neus-ortho.yaml"), list(RECON_OVERRIDES)))
+    if grid:
+        g = dataclasses.replace(cfg.sdf.grid, **grid)
+        cfg = dataclasses.replace(cfg, sdf=dataclasses.replace(cfg.sdf,
+                                                               grid=g))
+    return cfg
+
+
+@contextlib.contextmanager
+def plain_hashgrid():
+    """Route the hash-grid encode, its table gradient and the row gather
+    through their plain twins, on CUDA tensors as on the CPU."""
+    from drawingspinup_torch.kernels import hashgrid as hk
+
+    saved = hk.hashgrid_fwd, hk.hashgrid_bwd, hk.row_gather
+    hk.hashgrid_fwd = hk.hashgrid_fwd_reference
+    hk.hashgrid_bwd = hk.hashgrid_bwd_reference
+    hk.row_gather = hk.row_gather_reference
+    try:
+        yield
+    finally:
+        hk.hashgrid_fwd, hk.hashgrid_bwd, hk.row_gather = saved
+
+
+def ulp_bf16(x) -> float:
+    """One bf16 ulp of the largest |x|."""
+    m = x.float().abs().max().item()
+    return 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 0.0
+
+
+def phase_hashgrid_vs_plain(device, reps: int = 10):
+    """The encode (K1) and table-gradient (K2) kernels against their plain
+    twins on the production table, at the step's point counts and the
+    band's first three phases; returns per (dtype, n_active) the numbers
+    the summary line needs."""
+    import torch
+
+    from drawingspinup_torch.kernels import hashgrid as hk
+    from drawingspinup_torch.models import hashgrid as thg
+
+    results = []
+    for dt in ("bfloat16", "float32"):
+        grid = recon_config(table_dtype=dt, compute_dtype=dt).sdf.grid
+        spec = grid.spec()
+        g = torch.Generator(device=device).manual_seed(SEED + 200)
+        tables = [(torch.randn(t.shape, generator=g, device=device) * 0.1)
+                  .to(grid.tdt) for t in thg.init_table(grid, g, device)]
+        lf = grid.n_levels * grid.n_features_per_level
+        for na in HG_ACTIVE:
+            row = {"dtype": dt, "n_active": na}
+            for p, jac in HG_POINTS:
+                x = torch.rand((p, 3), generator=g, device=device)
+                got = hk.hashgrid_fwd(x, tables, spec, na, jac)
+                want = hk.hashgrid_fwd_reference(x, tables, spec, na, jac)
+                torch.cuda.synchronize()
+                err = 0.0
+                for a, b in zip(got, want):
+                    if a is None:
+                        continue
+                    e = (a.float() - b.float()).abs().max().item()
+                    bound = (1e-5 * b.abs().max().item() if dt == "float32"
+                             else ulp_bf16(b))
+                    check(math.isfinite(e) and e <= bound,
+                          f"hashgrid_fwd {dt} n_active={na} P={p}: max err "
+                          f"{e:.3e} > {bound:.3e}")
+                    err = max(err, e)
+                key = "jac" if jac else "enc"
+                row[key + "_err"] = err
+                row[key + "_ms"] = cuda_ms(
+                    lambda: hk.hashgrid_fwd(x, tables, spec, na, jac), reps)
+                row[key + "_plain_ms"] = cuda_ms(
+                    lambda: hk.hashgrid_fwd_reference(x, tables, spec, na,
+                                                      jac), reps)
+                if not jac:
+                    continue
+                ge = torch.randn((p, lf), generator=g,
+                                 device=device).to(grid.cdt)
+                gd = torch.randn((3, p, lf), generator=g,
+                                 device=device).to(grid.cdt)
+                got = hk.hashgrid_bwd(x, tables, spec, na, ge, gd)
+                again = hk.hashgrid_bwd(x, tables, spec, na, ge, gd)
+                want = hk.hashgrid_bwd_reference(x, tables, spec, na, ge, gd)
+                torch.cuda.synchronize()
+                tol = 1e-5 if dt == "float32" else 1e-2
+                rel = max(((a - b).norm() / b.norm()).item()
+                          for a, b in zip(got, want))
+                check(math.isfinite(rel) and rel <= tol,
+                      f"hashgrid_bwd {dt} n_active={na}: relative L2 error "
+                      f"{rel:.3e} > {tol:g}")
+                row["bwd_rel"] = rel
+                row["bwd_err"] = max((a - b).abs().max().item()
+                                     for a, b in zip(got, want))
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      f"hashgrid_bwd {dt} n_active={na}: two launches differ")
+                row["bwd_ms"] = cuda_ms(
+                    lambda: hk.hashgrid_bwd(x, tables, spec, na, ge, gd),
+                    reps)
+                row["bwd_plain_ms"] = cuda_ms(
+                    lambda: hk.hashgrid_bwd_reference(x, tables, spec, na,
+                                                      ge, gd), reps)
+            report(f"[9] hash grid {dt} n_active={na}: hashgrid_fwd "
+                   f"P={HG_POINTS[1][0]} max err {row['enc_err']:.3e}, "
+                   f"kernel {row['enc_ms']:.3f} ms, plain "
+                   f"{row['enc_plain_ms']:.3f} ms; with jacobian "
+                   f"P={HG_POINTS[0][0]} max err {row['jac_err']:.3e}, kernel "
+                   f"{row['jac_ms']:.3f} ms, plain {row['jac_plain_ms']:.3f} "
+                   f"ms; hashgrid_bwd relative L2 {row['bwd_rel']:.2e} (max "
+                   f"err {row['bwd_err']:.3e}, bit-identical across "
+                   f"launches), kernel {row['bwd_ms']:.3f} ms, "
+                   f"plain {row['bwd_plain_ms']:.3f} ms")
+            results.append(row)
+    return results
+
+
+def phase_row_gather(device, reps: int = 10):
+    """The row-gather kernel (K3) against ``tab[idx]`` at the Pallas
+    gathers' shapes: bit-equal, and the rate of each."""
+    import torch
+
+    from drawingspinup_torch.kernels import hashgrid as hk
+
+    results = []
+    for rows in GATHER_ROWS:
+        g = torch.Generator(device=device).manual_seed(SEED + 300)
+        tab = torch.randn((rows, 16), generator=g,
+                          device=device).to(torch.bfloat16)
+        idx = torch.randint(0, rows, (GATHER_K,), generator=g, device=device,
+                            dtype=torch.int32)
+        got = hk.row_gather(tab, idx)
+        torch.cuda.synchronize()
+        check(torch.equal(got, tab[idx.long()]),
+              f"row_gather differs from tab[idx] at T={rows}")
+        ms = cuda_ms(lambda: hk.row_gather(tab, idx), reps)
+        plain = cuda_ms(lambda: hk.row_gather_reference(tab, idx), reps)
+        report(f"[10] row_gather T={rows} (16 bf16 per row), K={GATHER_K}: "
+               f"bit-equal to tab[idx]; kernel {ms:.4f} ms "
+               f"({GATHER_K / ms / 1e3:.0f} M rows/s), plain {plain:.4f} ms "
+               f"({GATHER_K / plain / 1e3:.0f} M rows/s)")
+        results.append((ms, plain))
+    return results
+
+
+def phase_recon(root: str, device):
+    """The recon CLI on a synthetic sphere uid (six 1024² views): every
+    band phase, the exact kernel launches per step, the OBJ under the
+    reference name; returns the launches of that run."""
+    import torch
+
+    from drawingspinup_torch.cli import recon
+    from drawingspinup_torch.core.io import read_obj
+    from drawingspinup_torch.kernels import hashgrid as hk
+    from drawingspinup_torch.pipelines import stage2_recon
+    from drawingspinup_torch.utils.synthetic import write_sphere_mv
+
+    paths = write_sphere_mv(root, RECON_UID, size=RECON_SIZE)
+    cfg = recon_config()
+    steps = cfg.max_steps
+    hk.FWD_LAUNCHES = hk.FWD_JAC_LAUNCHES = hk.BWD_LAUNCHES = 0
+    hk.GATHER_LAUNCHES = 0
+    t0 = time.time()
+    recon.main(["--uid", RECON_UID, "--root", root, "--device", str(device),
+                *RECON_OVERRIDES])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {"hashgrid_fwd": hk.FWD_LAUNCHES + hk.FWD_JAC_LAUNCHES,
+                "hashgrid_bwd": hk.BWD_LAUNCHES,
+                "row_gather": hk.GATHER_LAUNCHES}
+    stats = stage2_recon.LAST_STATS
+    evals = stats["export"]["field_evals"]
+    check(hk.FWD_JAC_LAUNCHES == steps and hk.BWD_LAUNCHES == steps
+          and hk.FWD_LAUNCHES == steps + evals
+          and hk.GATHER_LAUNCHES == steps,
+          f"recon launches: encode {hk.FWD_LAUNCHES}, with jacobian "
+          f"{hk.FWD_JAC_LAUNCHES}, table gradient {hk.BWD_LAUNCHES}, row "
+          f"gather {hk.GATHER_LAUNCHES}; expected {steps} + {evals} export "
+          f"evaluations, {steps}, {steps}, {steps}")
+    log = stats["log"]
+    check(all(math.isfinite(v) for row in log for v in row[1:]),
+          f"non-finite recon log: {log}")
+    check(log[-1][1] < log[0][1] and log[-1][3] > log[0][3],
+          f"loss did not fall or inv_s did not rise: {log}")
+    name = stage2_recon.export_name(steps, RECON_MC, RECON_FACES, True,
+                                    True, False, True, True) + ".obj"
+    obj = os.path.join(paths.mesh_dir, name)
+    check(os.path.exists(obj), f"no {obj}")
+    v, f, c = read_obj(obj)
+    radius = float(np.median(np.linalg.norm(v, axis=1)))
+    want = 0.45 * 0.5 * 1.35
+    check(len(f) > 1000 and c is not None
+          and abs(radius - want) / want < 0.35,
+          f"{name}: {len(v)} vertices, {len(f)} faces, median radius "
+          f"{radius:.4f} (sphere {want:.4f})")
+    ex = stats["export"]
+    report(f"[11] recon CLI, {steps} steps on six {RECON_SIZE}^2 views: "
+           f"launches per step: 1 encode, 1 encode with jacobian, 1 table "
+           f"gradient, 1 row gather (+{evals} export encodes); loss "
+           f"{log[0][1]:.4f} (step {log[0][0]}) -> {log[-1][1]:.4f} (step "
+           f"{log[-1][0]}), inv_s {log[0][3]:.1f} -> {log[-1][3]:.1f}; ms per"
+           f" step (host synchronised, first step included) "
+           + ", ".join(f"{k} levels {ms:.2f}"
+                      for k, ms in stats["phase_ms"].items())
+           + f"; export s: " + ", ".join(
+              f"{k} {ex[k]:.2f}" for k in ("bbox", "band_eval", "smooth_pack",
+                                          "march", "remesh", "save"))
+           + f"; data+hull {stats['data_s']:.2f} s, checkpoint "
+           f"{stats['ckpt_s']:.2f} s, CLI wall {wall:.1f} s; {name}: "
+           f"{len(v)} vertices, {len(f)} faces, median radius {radius:.4f} "
+           f"(sphere {want:.4f})")
+    return launches
+
+
+def trained_params(root: str, dtype, device):
+    """The recon run's checkpoint, each leaf cast to ``dtype``, on
+    ``device``, requiring grad."""
+    from drawingspinup_torch.core import checkpoint as ckpt
+    from drawingspinup_torch.core.contract import UidPaths
+
+    steps = recon_config().max_steps
+    saved = ckpt.restore(os.path.join(UidPaths(root, RECON_UID).mesh_dir,
+                                      "ckpt", f"step_{steps}.pt"))
+
+    def conv(v):
+        if isinstance(v, dict):
+            return {k: conv(x) for k, x in v.items()}
+        if isinstance(v, (list, tuple)):
+            return [conv(x) for x in v]
+        return v.to(device=device, dtype=dtype).requires_grad_(True)
+    return conv(saved["params"])
+
+
+def profile_nsr_step(run, steps: int = 5) -> None:
+    """Where one NSR step's device time goes (torch.profiler), and the hash
+    grid kernels' share of it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        for _ in range(steps):
+            run()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.time() - t0) / steps
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
+    total = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    if total <= 0:
+        report("[12] profile: the profiler saw no device time (not measured)")
+        return
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    hg = sum(e.self_device_time_total for e in kernels
+             if "hashgrid" in e.key) / 1e3 / steps
+    top = "; ".join(
+        f"{e.key[:48]} {e.self_device_time_total / 1e3 / steps:.3f} ms "
+        f"x{e.count // steps}" for e in kernels[:8])
+    launches = sum(e.count for e in kernels) / steps
+    report(f"[12] profile of {steps} production steps (bf16, kernel path): "
+           f"device busy {total:.2f} ms of {wall:.2f} ms wall per step "
+           f"({total / wall:.1%}, the profiler's overhead included), "
+           f"hash-grid kernels {hg:.3f} ms ({hg / total:.1%} of device time), "
+           f"{launches:.0f} kernel launches per step; by kernel, per step: "
+           f"{top}")
+
+
+def phase_nsr_step_vs_plain(root: str, device) -> None:
+    """One NSR step from the trained state and one set of draws, kernel path
+    against plain path: in f32 against the plain path in float64, in bf16
+    (production) against the plain path in f32; ms per step of each path,
+    and a profile."""
+    import torch
+
+    from drawingspinup_torch.core.contract import UidPaths
+    from drawingspinup_torch.pipelines import stage2_data
+    from drawingspinup_torch.train import nsr
+
+    base = recon_config()
+    data32 = stage2_data.load_ortho_data(UidPaths(root, RECON_UID),
+                                         im_size=RECON_SIZE, device=device)
+    v, h, w = data32["masks"].shape
+    draws32 = nsr.make_draws(base, v, h, w, torch.Generator(
+        device=device).manual_seed(SEED + 400), device)
+    step = base.max_steps - 1
+    n_active = base.sdf.grid.current_level(step)
+
+    def run(dt: str, plain: bool):
+        tdt = getattr(torch, dt)
+        wide = torch.float64 if dt == "float64" else torch.float32
+        cfg = recon_config(table_dtype=dt, compute_dtype=dt)
+        params = trained_params(root, wide, device)
+        params["geometry"]["table"] = [
+            t.detach().to(tdt).requires_grad_(True)
+            for t in params["geometry"]["table"]]
+        data = {k: x.to(wide) if x.is_floating_point() else x
+                for k, x in data32.items()}
+        draws = nsr.Draws(*(x.to(wide) if x.is_floating_point() else x
+                            for x in draws32))
+        state = nsr.TrainState(params, None, step)
+        with plain_hashgrid() if plain else contextlib.nullcontext():
+            logs = nsr.loss_and_grads(cfg, state, data, draws, n_active)
+        return ({k: x.item() for k, x in logs.items()},
+                {n: p.grad.double() for n, p in nsr.named_leaves(params)
+                 if p.grad is not None})
+
+    def distance(got, want):
+        """(relative error of each loss, relative L2 error of each
+        gradient leaf) of ``got`` against ``want``."""
+        (lg, gg), (lw, gw) = got, want
+        check(sorted(gg) == sorted(gw), "gradient leaves differ")
+        for n in gw:
+            check(gw[n].norm() > 0 or not gg[n].norm(),
+                  f"{n}: nonzero gradient where the reference has none")
+        return ({k: abs(lg[k] - lw[k]) / max(abs(lw[k]), 1e-30)
+                 for k in lw if k != "num_samples"},
+                {n: ((gg[n] - gw[n]).norm() / gw[n].norm()).item()
+                 for n in gw if gw[n].norm() > 0})
+
+    def within(dist, loss_tol, grad_tol, what):
+        losses, grads = dist
+        worst = max(losses.values())
+        check(worst <= loss_tol, f"{what}: losses within {worst:.2e} "
+                                 f"relative > {loss_tol:g}: {losses}")
+        worst = max(grads.values())
+        check(math.isfinite(worst) and worst <= grad_tol,
+              f"{what}: gradient relative L2 error {worst:.3e} > "
+              f"{grad_tol:g} ({top(grads)})")
+
+    def top(errs, k: int = 3) -> str:
+        return ", ".join(f"{n} {e:.2e}" for n, e in sorted(
+            errs.items(), key=lambda kv: -kv[1])[:k])
+
+    ref64 = run("float64", True)
+    f32_k = distance(run("float32", False), ref64)
+    f32_p = distance(run("float32", True), ref64)
+    within(f32_k, 1e-4, GRAD_REL_TOL, "f32 kernel path vs float64")
+    within(f32_p, 1e-4, GRAD_REL_TOL, "f32 plain path vs float64")
+    ref32 = run("float32", True)
+    bf_k, bf_p = run("bfloat16", False), run("bfloat16", True)
+    again = run("bfloat16", False)
+    check(bf_k[0] == again[0] and all(torch.equal(bf_k[1][n], again[1][n])
+                                      for n in bf_k[1]),
+          "the kernel path's NSR step is not bit-identical across runs")
+    # the kernels against the twins in the working dtype: K1 rounds as the
+    # twin does; K2 sums in another order before the one cast to bf16
+    bf_same = distance(bf_k, bf_p)
+    within(bf_same, 1e-5, 1e-2, "bf16 kernel path vs bf16 plain path")
+    # against the f32 plain path: bf16 compute alone moves the losses ~1e-2
+    # and the gradients 10-40 % from f32 in either path (a table's gradient
+    # sums contributions that cancel; the MLP's backward runs in bf16), so
+    # each loss and leaf of the kernel path is held to no farther from f32
+    # than 1.25 x the bf16 plain path's distance
+    bf_k32, bf_p32 = distance(bf_k, ref32), distance(bf_p, ref32)
+    for kind, errs, plain_errs, slack in (
+            ("loss", bf_k32[0], bf_p32[0], 1e-5),
+            ("gradient", bf_k32[1], bf_p32[1], 1e-3)):
+        for n, e in errs.items():
+            check(e <= 1.25 * plain_errs[n] + slack,
+                  f"bf16 {kind} {n}: kernel path {e:.3e} from f32, plain "
+                  f"path {plain_errs[n]:.3e}")
+
+    ms = {}
+    cfg = recon_config()
+    for plain in (False, True):
+        params = trained_params(root, torch.float32, device)
+        params["geometry"]["table"] = [
+            t.detach().to(cfg.sdf.grid.tdt).requires_grad_(True)
+            for t in params["geometry"]["table"]]
+        opt = nsr.make_optimizer(cfg)
+        state = nsr.TrainState(params, opt.init(params), step)
+        with plain_hashgrid() if plain else contextlib.nullcontext():
+            ms[plain] = cuda_ms(lambda: nsr.train_step(
+                cfg, opt, state, data32, draws32, n_active), reps=10)
+    tables = {n: e for n, e in bf_k32[1].items() if "table" in n}
+    others = {n: e for n, e in bf_k32[1].items() if "table" not in n}
+    report(f"[12] one NSR step at step {step} ({n_active} levels) of the "
+           f"trained state: f32 kernel path vs float64 plain path: losses "
+           f"within {max(f32_k[0].values()):.2e} relative, worst gradients "
+           f"{top(f32_k[1])} (f32 plain path: losses "
+           f"{max(f32_p[0].values()):.2e}, gradients {top(f32_p[1])}); bf16 "
+           f"kernel path vs bf16 plain path: losses "
+           f"{max(bf_same[0].values()):.2e}, gradients {top(bf_same[1])}, "
+           f"bit-identical across runs; "
+           f"bf16 kernel path vs f32 plain path: total loss "
+           f"{bf_k32[0]['loss']:.2e} (worst term {top(bf_k32[0], 1)}), "
+           f"gradients: MLP and variance {top(others)}, tables "
+           f"{top(tables, 6)} (bf16 plain path: total loss "
+           f"{bf_p32[0]['loss']:.2e}, MLP and variance "
+           f"{top({n: bf_p32[1][n] for n in others})}, tables "
+           f"{top({n: bf_p32[1][n] for n in tables}, 6)}); median ms per "
+           f"production step (bf16, CUDA events): kernel {ms[False]:.2f}, "
+           f"plain {ms[True]:.2f}")
+    params = trained_params(root, torch.float32, device)
+    params["geometry"]["table"] = [
+        t.detach().to(cfg.sdf.grid.tdt).requires_grad_(True)
+        for t in params["geometry"]["table"]]
+    opt = nsr.make_optimizer(cfg)
+    state = nsr.TrainState(params, opt.init(params), step)
+    profile_nsr_step(lambda: nsr.train_step(cfg, opt, state, data32, draws32,
+                                            n_active))
+
+
+def phase_export_vs_plain(root: str, device) -> None:
+    """The export's u8 field at mc512 from the trained params, kernel field
+    against plain field over one extent; the marched meshes' sizes."""
+    import torch
+
+    from drawingspinup_torch.core.contract import UidPaths
+    from drawingspinup_torch.pipelines import stage2_data, stage2_export
+    from drawingspinup_torch.render.marching import marching_tetrahedra
+
+    cfg = recon_config()
+    params = trained_params(root, torch.float32, device)
+    params["geometry"]["table"] = [
+        t.detach().to(cfg.sdf.grid.tdt) for t in params["geometry"]["table"]]
+    front = stage2_data.load_front_mask(UidPaths(root, RECON_UID))
+    fields, meshes, secs = [], [], []
+    vmin = vmax = None
+    for plain in (False, True):
+        with plain_hashgrid() if plain else contextlib.nullcontext():
+            ev = stage2_export.FieldEvaluator(cfg, params, cfg.max_steps,
+                                              device)
+            if vmin is None:
+                vmin, vmax = stage2_export.bbox_pass(ev, RECON_MC,
+                                                     cfg.radius)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            u8 = stage2_export.smoothed_field(ev, vmin, vmax, RECON_MC,
+                                              front)
+            torch.cuda.synchronize()
+            secs.append(time.time() - t0)
+        fields.append(u8)
+        meshes.append(marching_tetrahedra(u8.cpu().numpy(), 0.5))
+    diff = (fields[0].int() - fields[1].int()).abs()
+    frac = (diff > 1).float().mean().item()
+    check(frac < 5e-3, f"export u8 fields differ by more than 1 on {frac:.3%}"
+                       f" of voxels")
+    (vk, fk), (vp, fp) = meshes
+    check(abs(len(vk) - len(vp)) <= 0.1 * len(vp)
+          and abs(len(fk) - len(fp)) <= 0.1 * len(fp),
+          f"marched meshes differ: {len(vk)}/{len(fk)} vs {len(vp)}/{len(fp)}")
+    report(f"[13] export at mc{RECON_MC}, kernel field vs plain field: u8 "
+           f"values "
+           f"differ by more than 1 on {frac:.4%} of voxels (max diff "
+           f"{diff.max().item()}); marched {len(vk)} vertices / {len(fk)} "
+           f"faces vs {len(vp)} / {len(fp)}; band eval + smooth "
+           f"{secs[0]:.2f} s (kernel) vs {secs[1]:.2f} s (plain)")
+
 
 def main() -> int:
     import torch
@@ -707,6 +1241,14 @@ def main() -> int:
         train_shapes = phase_bwd_vs_plain(device)
         fwd_launches, bwd_launches = phase_training(root, device)
         phase_step_vs_plain(root, device)
+        hg_rows = phase_hashgrid_vs_plain(device)
+        gather = phase_row_gather(device)
+        recon_launches = phase_recon(root, device)
+        phase_nsr_step_vs_plain(root, device)
+        phase_export_vs_plain(root, device)
+
+    prod = next(r for r in hg_rows
+                if r["dtype"] == "bfloat16" and r["n_active"] == HG_ACTIVE[-1])
 
     def step_sum(col: int, count: int) -> float:
         return sum(s[count] * r[col] for s, r in zip(TRAIN_SHAPES,
@@ -730,6 +1272,30 @@ def main() -> int:
         "ms": step_sum(1, 4), "plain_ms": step_sum(2, 4),
         "timed": f"sum over the {BWD_PER_STEP} RIC backward launches of one "
                  f"training step, N={BATCH} (phase 6 medians)",
+    }, {
+        "name": "hashgrid_fwd", "route": "cuda", "source": HG_SOURCE,
+        "replaces": HG_REPLACES, "launches": recon_launches["hashgrid_fwd"],
+        "max_abs_err": max(max(r["enc_err"], r["jac_err"]) for r in hg_rows),
+        "ms": prod["enc_ms"] + prod["jac_ms"],
+        "plain_ms": prod["enc_plain_ms"] + prod["jac_plain_ms"],
+        "timed": f"one production step's two encodes at 6 levels, bf16: "
+                 f"{HG_POINTS[1][0]} points, and {HG_POINTS[0][0]} with the "
+                 f"jacobian (phase 9 medians)",
+    }, {
+        "name": "hashgrid_bwd", "route": "cuda", "source": HG_BWD_SOURCE,
+        "replaces": HG_BWD_REPLACES,
+        "launches": recon_launches["hashgrid_bwd"],
+        "max_abs_err": max(r["bwd_err"] for r in hg_rows),
+        "ms": prod["bwd_ms"], "plain_ms": prod["bwd_plain_ms"],
+        "timed": f"one production step's table gradient at 6 levels, bf16, "
+                 f"{HG_POINTS[0][0]} points (phase 9 medians)",
+    }, {
+        "name": "row_gather", "route": "cuda", "source": GATHER_SOURCE,
+        "replaces": GATHER_REPLACES, "launches": recon_launches["row_gather"],
+        "max_abs_err": 0.0, "ms": gather[-1][0], "plain_ms": gather[-1][1],
+        "timed": f"{GATHER_K} rows of a ({GATHER_ROWS[-1]}, 16) bf16 table "
+                 f"(phase 10 medians; T={GATHER_ROWS[0]}: {gather[0][0]:.4f} "
+                 f"ms, plain {gather[0][1]:.4f} ms)",
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,14 +1,16 @@
-"""Per-uid dataset layout of stage 3.
+"""Per-uid dataset layout of stages 2b and 3.
 
-A copy of the parts of ``drawingspinup_tpu/core/contract.py`` that stage 3
-reads, so both packages read and write the same files
-(``<root>/<uid>/char/<drawing>.png``,
+A copy of the parts of ``drawingspinup_tpu/core/contract.py`` that the
+port reads, so both packages read and write the same files
+(``<root>/<uid>/char/<drawing>.png``, ``<root>/<uid>/mv/<kind>/<view>.png``,
+``<root>/<uid>/mesh/…``,
 ``<root>/<uid>/mesh/blender_render/<action>/<pass>/NNNN.png``,
-``<root>/<uid>/gif/<action>.gif``). ``tests/test_torch_stage3.py`` pins
-each path to the original.
+``<root>/<uid>/gif/<action>.gif``). ``tests/test_torch_stage3.py`` and
+``tests/test_torch_recon.py`` pin each path to the original.
 """
 from __future__ import annotations
 
+import json
 import os
 from dataclasses import dataclass
 from typing import List
@@ -26,12 +28,20 @@ class UidPaths:
         return os.path.join(self.root, self.uid, "char")
 
     @property
+    def mask(self) -> str:
+        return os.path.join(self.char_dir, "mask.png")
+
+    @property
     def texture_with_bg(self) -> str:
         return os.path.join(self.char_dir, "texture_with_bg.png")
 
     @property
     def inpainted(self) -> str:
         return os.path.join(self.char_dir, "ffc_resnet_inpainted.png")
+
+    def mv(self, kind: str, view: str) -> str:
+        assert kind in ("color", "normal", "mask"), kind
+        return os.path.join(self.root, self.uid, "mv", kind, f"{view}.png")
 
     @property
     def mesh_dir(self) -> str:
@@ -50,6 +60,11 @@ class UidPaths:
 
     def gif(self, action: str) -> str:
         return os.path.join(self.gif_dir, f"{action}.gif")
+
+
+def load_uid_list(json_path: str) -> List[str]:
+    with open(json_path) as f:
+        return list(json.load(f))
 
 
 def list_actions(paths: UidPaths) -> List[str]:

@@ -1,15 +1,15 @@
-"""Image and GIF IO for the stage-3 serving path (numpy + PIL).
+"""Image, GIF and OBJ IO (numpy + PIL).
 
-Copies of ``drawingspinup_tpu/core/io.py``'s image functions, so that the
-port runs on a machine without the JAX package's dependencies;
-``tests/test_torch_stage3.py`` pins each copy to its original. Images move
-as uint8 or float32 [0,1] HWC arrays.
+Copies of ``drawingspinup_tpu/core/io.py``'s image and mesh functions, so
+that the port runs on a machine without the JAX package's dependencies;
+``tests/test_torch_stage3.py`` and ``tests/test_torch_recon.py`` pin each
+copy to its original. Images move as uint8 or float32 [0,1] HWC arrays.
 """
 from __future__ import annotations
 
 import os
 import warnings
-from typing import Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 from PIL import Image
@@ -70,3 +70,50 @@ def write_gif(path: str, frames: Sequence[np.ndarray], duration_ms: int = 30,
            for f in map(np.asarray, frames)]
     pil[0].save(path, save_all=True, append_images=pil[1:],
                 duration=duration_ms, loop=loop, disposal=2)
+
+
+def write_obj(path: str, vertices: np.ndarray, faces: np.ndarray,
+              vertex_colors: Optional[np.ndarray] = None) -> None:
+    """OBJ export: vertices (V,3) f32, faces (F,3) 0-based, optional
+    per-vertex colors (V,3) in [0,1] as ``v x y z r g b``."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    v = np.asarray(vertices, np.float32)
+    f = np.asarray(faces, np.int64) + 1
+    lines: List[str] = []
+    if vertex_colors is not None:
+        c = np.clip(np.asarray(vertex_colors, np.float32), 0, 1)
+        for p, col in zip(v, c):
+            lines.append(f"v {p[0]:.6f} {p[1]:.6f} {p[2]:.6f} "
+                         f"{col[0]:.6f} {col[1]:.6f} {col[2]:.6f}")
+    else:
+        for p in v:
+            lines.append(f"v {p[0]:.6f} {p[1]:.6f} {p[2]:.6f}")
+    for tri in f:
+        lines.append(f"f {tri[0]} {tri[1]} {tri[2]}")
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+
+
+def read_obj(path: str) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
+    """OBJ → (vertices (V,3), faces (F,3) 0-based, vertex_colors or None);
+    polygons fan-triangulated, normals and uv indices ignored."""
+    verts: List[List[float]] = []
+    colors: List[List[float]] = []
+    faces: List[List[int]] = []
+    with open(path) as fh:
+        for line in fh:
+            t = line.split()
+            if not t:
+                continue
+            if t[0] == "v":
+                verts.append([float(x) for x in t[1:4]])
+                if len(t) >= 7:
+                    colors.append([float(x) for x in t[4:7]])
+            elif t[0] == "f":
+                idx = [int(x.split("/")[0]) - 1 for x in t[1:]]
+                for k in range(1, len(idx) - 1):
+                    faces.append([idx[0], idx[k], idx[k + 1]])
+    v = np.asarray(verts, np.float32)
+    f = np.asarray(faces, np.int64) if faces else np.zeros((0, 3), np.int64)
+    c = np.asarray(colors, np.float32) if len(colors) == len(verts) and colors else None
+    return v, f, c

@@ -1,3 +1,4 @@
-"""Hand-written CUDA kernels for Hopper (sm_90a), one per Pallas kernel of
-the JAX package, each beside its plain PyTorch twin. Sources are under
-``csrc/``; ``_build.py`` compiles them at first use."""
+"""Hand-written CUDA kernels for Hopper (sm_90a) for the Pallas kernels of
+the JAX package and the hash-grid encode, each beside its plain PyTorch
+twin. Sources are under ``csrc/``; ``_build.py`` compiles them at first
+use."""

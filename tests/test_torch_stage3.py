@@ -238,8 +238,9 @@ def test_device_setup_is_explicit(monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port loads no JAX, flax, optax or
-    orbax module and nothing of the JAX package."""
+    """Importing every module of the port (stage 3 and stage 2b) loads no
+    JAX, flax, optax or orbax module and nothing of the JAX package, and
+    builds neither the CUDA kernels nor the native library."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import drawingspinup_torch as p\n"
@@ -251,6 +252,15 @@ def test_port_imports_no_jax():
         "assert not bad, bad\n"
         "from drawingspinup_torch.kernels import _build\n"
         "assert _build._ext is None\n"
+        "from drawingspinup_torch import native\n"
+        "assert native._lib is None\n"
+        "for m in ('cli.recon', 'models.hashgrid', 'kernels.hashgrid',\n"
+        "          'models.fields', 'render.neus', 'render.hull',\n"
+        "          'render.marching', 'render.mesh_post', 'train.nsr',\n"
+        "          'pipelines.stage2_recon', 'pipelines.stage2_export',\n"
+        "          'pipelines.stage2_data', 'core.config',\n"
+        "          'utils.synthetic'):\n"
+        "    assert 'drawingspinup_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120,
