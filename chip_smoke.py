@@ -26,10 +26,16 @@ views of a synthetic sphere, 600 steps, export at mc512. Phases:
      every frame and GIF written, ms per frame of each stage;
   5. one whole frame, kernel path against plain path on the card: u8 RGB
      within ±1 LSB on < 2 % of pixels, alpha exact, outputs finite;
-  6. backward kernel against its plain twin at the 8 RIC layer shapes of a
-     training step (N = 40): dx and dwk within 3e-4 · max |plain|, a second
-     launch bit-identical, the median CUDA-event time of each (and of the
-     forward kernel at the same shapes);
+  6. backward kernels against their plain twins at the 8 RIC layer shapes
+     of a training step (N = 40): dx and dwk within 3e-4 · max |plain| and
+     within relative L2 1e-5 of the twin run in float64, a limit that the
+     same products on TF32-rounded operands (plain TF32) miss, the sampled
+     cotangent within 1e-4, a second launch bit-identical; the median
+     CUDA-event time of the whole backward and of its parts (dz, the dx
+     GEMM, the dwk GEMM with its ordered sum), its bound and the share of
+     it reached, and the yardstick: torch.matmul of the same two products
+     in f32 on the same dz (timed here only; the port never calls it); and
+     the forward kernel at the same shapes;
   7. the training path through the port's CLIs on a second synthetic uid
      (the same actions, a rest_pose keyframe and the character drawings):
      22 forward and 21 backward launches per stage-1 step and 21 forward
@@ -76,8 +82,18 @@ views of a synthetic sphere, 600 steps, export at mc512. Phases:
      against plain field: more than 1 apart on < 0.5 % of voxels, marched
      vertex and face counts within 10 %.
 
-Every phase line ends with the card's name and power limit. Then a JSON
-line per the kernels it ran, and last
+Kernel times (phases 3, 6, 9, 10) are medians of CUDA events around each
+call, the host's enqueueing included (``ms``, and every plain and library
+time), and for the kernels also of calls queued behind a sleep kernel, so
+that the events span the device's work alone (``device_ms``); frame and
+step times (phases 5, 8, 12) include the host's enqueueing. Every phase
+line ends with the card's name and power limit. Then a JSON line per the
+kernels it ran, each with its bound (the larger of its bytes over 3.35
+TB/s and its operations over the card's fastest rate for their accuracy:
+f32 products at 3xTF32, three TF32 products at 495 TFLOP/s per f32
+product, with the bound at 67 TFLOP/s of f32 outside the tensor cores
+beside it) and, where one PyTorch call computes the same function, that
+call's time; and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero and prints no result; so it does without a CUDA device or
 outside a checkout. It imports no JAX.
@@ -105,11 +121,12 @@ UID = "smoke"
 F32_TOL = 1e-3          # phase 5: tanh outputs of 21 reordered-sum layers
 REL_TOL = 1e-4          # phase 3: f32 sums of up to 9·C products, reordered
 BWD_REL_TOL = 3e-4      # phase 6: the Pallas VJP's bound (test_ric_pallas.py)
+F64_REL_L2 = 1e-5       # phase 6: dx, dwk vs float64 (plain TF32 misses it)
 STEP_REL_TOL = 1e-4     # phase 8: losses
 GRAD_REL_TOL = 1e-2     # phase 8: relative L2 error of each gradient vs f64
 RIC_SOURCE = "drawingspinup_torch/kernels/csrc/ric_conv_fwd.cu"
 RIC_REPLACES = "drawingspinup_tpu/kernels/ric_conv.py:100"
-BWD_SOURCE = "drawingspinup_torch/kernels/csrc/ric_conv_bwd.cu"
+BWD_SOURCE = "drawingspinup_torch/kernels/csrc/ric_conv_bwd_gemm.cu"
 BWD_REPLACES = "drawingspinup_tpu/kernels/ric_conv.py:128"
 TRAIN_UID = "smoke_train"
 RECON_UID = "smoke_recon"
@@ -164,6 +181,40 @@ BWD_PER_STEP = sum(s[4] for s in TRAIN_SHAPES)
 
 
 CARD = ""                   # nvidia-smi's name and power limit (phase 1)
+TIMED = ("ms, plain_ms, library_ms: CUDA events around each call, the host's "
+         "enqueueing included; device_ms: the kernel's calls queued behind a "
+         "sleep kernel, the device's work alone")
+
+# an H100 SXM's published peaks (NVIDIA's data sheet, dense): the bounds
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12           # f32 outside the tensor cores
+TF32_FLOPS = 495e12         # TF32 on the tensor cores
+
+
+def bound_ms(nbytes: float, flops: float, peak: float):
+    """(least ms for ``nbytes`` of device memory traffic and ``flops`` at
+    ``peak`` FLOP/s, "bytes" or "operations": which of the two sets it)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def ric_fwd_work(n: int, hw: int, c: int, o: int):
+    """(bytes, FLOPs) of one RIC conv forward: x, wk, swf read and the
+    output written once; the channel products, 2·9·C·O per pixel (the
+    tap sampling's ≤ 73·min(C, O) multiply-adds per pixel left out)."""
+    px = n * hw * hw
+    return 4 * (px * (c + o) + 9 * c * o + 81 * hw * hw), 2 * 9 * c * o * px
+
+
+def ric_bwd_work(n: int, hw: int, c: int, o: int, need_dx: bool):
+    """(bytes, FLOPs) of one RIC conv backward: x, g, wk, swf read and dx
+    (if needed) and dwk written once; the two products, 2·9·C·O FLOPs per
+    pixel each (the sampling of dz, 73·O multiply-adds, left out)."""
+    px = n * hw * hw
+    nbytes = 4 * (px * (c + o + (c if need_dx else 0)) + 2 * 9 * c * o
+                  + 81 * hw * hw)
+    return nbytes, 2 * 9 * c * o * px * (2 if need_dx else 1)
 
 
 def report(msg: str) -> None:
@@ -177,7 +228,8 @@ def check(ok: bool, msg: str) -> None:
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn()``, in ms."""
+    """Median of ``reps`` CUDA-event timings of ``fn()``, in ms; the events
+    span the host's enqueueing as well as the device's work."""
     import torch
 
     for _ in range(warmup):
@@ -192,6 +244,49 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def device_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Median of ``reps`` CUDA-event timings of ``fn()``, in ms, each call
+    enqueued behind a sleep kernel that outlasts twice its host time, so
+    that the events span the device's work alone (launch gaps included)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int(2 * max(host_s, 5e-5) * 2e9)       # at most ~2 GHz
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def ric_bounds(nbytes: float, flops: float):
+    """(bound ms, what sets it, bound ms at f32 outside the tensor cores)
+    of RIC conv work of ``nbytes`` and ``flops`` f32 FLOPs: the card's
+    fastest f32-accurate products are 3xTF32, three TF32 products each."""
+    ms, by = bound_ms(nbytes, 3 * flops, TF32_FLOPS)
+    return ms, by, bound_ms(nbytes, flops, F32_FLOPS)[0]
+
+
+def rna_tf32(t):
+    """cvt.rna.tf32.f32 of an f32 tensor: round to nearest, ties away from
+    zero, to 10 mantissa bits (the low 13 bits cleared)."""
+    import torch
+
+    return ((t.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
 
 
 def phase_versions() -> str:
@@ -247,11 +342,14 @@ def phase_kernel_vs_plain(device, shapes=RIC_SHAPES, reps: int = 10):
               f"kernel disagrees at (H,C,O)={(hw, c, o)}: max err {err:.3e}"
               f" > {REL_TOL:g} * {scale:.3e}")
         ms = cuda_ms(lambda: rk.ric_conv_fwd(x, wk, swf), reps)
+        dev = device_ms(lambda: rk.ric_conv_fwd(x, wk, swf), reps)
         plain = cuda_ms(lambda: rk.ric_conv_reference(x, wk, swf), reps)
+        bound, by, bound_f32 = ric_bounds(*ric_fwd_work(1, hw, c, o))
         report(f"[3] ric_conv_fwd (H,C,O)=({hw},{c},{o}): max err {err:.3e} "
-               f"(max |plain| {scale:.3e}), kernel {ms:.3f} ms, "
-               f"plain {plain:.3f} ms")
-        results.append((err, ms, plain))
+               f"(max |plain| {scale:.3e}), kernel {ms:.3f} ms (device "
+               f"{dev:.3f} ms), plain {plain:.3f} ms, bound {bound:.4f} ms "
+               f"(3xTF32, {by}; f32 {bound_f32:.4f} ms)")
+        results.append((err, ms, plain, dev))
     return results
 
 
@@ -465,10 +563,11 @@ def phase_whole_frame(root: str, device) -> None:
 
 
 def phase_bwd_vs_plain(device, reps: int = 10):
-    """Per training shape (N = 40): the backward kernel against its plain
-    twin (dx and dwk, and a second launch bit-identical), and the forward
-    kernel at the same shape; returns per shape (max abs err, bwd ms, bwd
-    plain ms, fwd ms, fwd plain ms)."""
+    """Per training shape (N = 40): the backward against its plain twin (dx
+    and dwk, the sampled cotangent, a second launch bit-identical) and
+    against the twin in float64, beside plain TF32's error there; the
+    times of its parts, its bound and the cuBLAS yardstick, and the forward
+    kernel at the same shape; returns one dict per shape."""
     import torch
 
     from drawingspinup_torch.kernels import ric_conv as rk
@@ -486,12 +585,16 @@ def phase_bwd_vs_plain(device, reps: int = 10):
         want = rk.ric_conv_bwd_reference(x, wk, swf, cot, need_dx)
         got = rk.ric_conv_bwd(x, wk, swf, cot, need_dx)
         again = rk.ric_conv_bwd(x, wk, swf, cot, need_dx)
+        dz = rk.bwd_dz(cot, swf)
+        dz_want = rk.ric_conv_bwd_dz_reference(cot, swf)
         fwd_want = rk.ric_conv_reference(x, wk, swf)
         fwd_got = rk.ric_conv_fwd(x, wk, swf)
         torch.cuda.synchronize()
-        errs = []
+        errs = {}
         for name, a, b, tol in (("dx", got[0], want[0], BWD_REL_TOL),
                                 ("dwk", got[1], want[1], BWD_REL_TOL),
+                                ("dz", dz.view(dz_want.shape), dz_want,
+                                 REL_TOL),
                                 ("fwd", fwd_got, fwd_want, REL_TOL)):
             if a is None:
                 continue
@@ -500,23 +603,101 @@ def phase_bwd_vs_plain(device, reps: int = 10):
             check(math.isfinite(err) and err <= tol * scale,
                   f"{name} disagrees at (H,C,O)={(hw, c, o)}: max err "
                   f"{err:.3e} > {tol:g} * {scale:.3e}")
-            errs.append(err)
+            errs[name] = err
         check(torch.equal(got[1], again[1]) and (
             not need_dx or torch.equal(got[0], again[0])),
               f"backward not bit-identical across launches at {(hw, c, o)}")
-        ms = cuda_ms(lambda: rk.ric_conv_bwd(x, wk, swf, cot, need_dx), reps)
-        plain = cuda_ms(lambda: rk.ric_conv_bwd_reference(
-            x, wk, swf, cot, need_dx), reps)
-        fwd_ms = cuda_ms(lambda: rk.ric_conv_fwd(x, wk, swf), reps)
-        fwd_plain = cuda_ms(lambda: rk.ric_conv_reference(x, wk, swf), reps)
-        dx_err = f"{errs[0]:.3e}" if need_dx else "(no dx)"
+        dx_plan, dwk_plan = rk.bwd_plan(BATCH, hw, hw, c, o)
+        dz2 = dz.view(-1, 9 * o)
+        wkt = wk.transpose(1, 2).reshape(9 * o, c)
+        x2 = x.view(-1, c)
+        # float64: the kernel's f32 products, and the same products on
+        # TF32-rounded operands (plain TF32), whose error the limit catches
+        want64 = rk.ric_conv_bwd_reference(x.double(), wk.double(),
+                                           swf.double(), cot.double(), need_dx)
+        dz64 = rna_tf32(dz2).double()
+        tf32 = (dz64 @ rna_tf32(wkt).double() if need_dx else None,
+                (rna_tf32(x2).double().t() @ dz64).view(c, 9, o)
+                .permute(1, 0, 2))
+        f64, f64_tf32 = {}, {}
+        for name, a, t, b in zip(("dx", "dwk"), got, tf32, want64):
+            if a is None:
+                continue
+            f64[name] = ((a.double() - b).norm() / b.norm()).item()
+            f64_tf32[name] = ((t.reshape(b.shape) - b).norm()
+                              / b.norm()).item()
+            check(math.isfinite(f64[name]) and f64[name] <= F64_REL_L2,
+                  f"{name} at (H,C,O)={(hw, c, o)}: relative L2 error "
+                  f"{f64[name]:.3e} against float64 > {F64_REL_L2:g}")
+            check(f64_tf32[name] > F64_REL_L2,
+                  f"{name} at (H,C,O)={(hw, c, o)}: plain TF32's relative "
+                  f"L2 error {f64_tf32[name]:.3e} does not exceed "
+                  f"{F64_REL_L2:g}, so the float64 check cannot tell it "
+                  f"from 3xTF32")
+        del want64, dz64, tf32
+
+        def library():
+            if need_dx:
+                torch.matmul(dz2, wkt)
+            torch.matmul(x2.t(), dz2)
+
+        def bwd():
+            rk.ric_conv_bwd(x, wk, swf, cot, need_dx)
+
+        def fwd():
+            rk.ric_conv_fwd(x, wk, swf)
+
+        row = {
+            "err": max(errs[n] for n in ("dx", "dwk") if n in errs),
+            "fwd_err": errs["fwd"],
+            "f64_rel_l2": max(f64.values()),
+            "tf32_rel_l2": min(f64_tf32.values()),
+            "ms": cuda_ms(bwd, reps),
+            "device_ms": device_ms(bwd, reps),
+            "plain_ms": cuda_ms(lambda: rk.ric_conv_bwd_reference(
+                x, wk, swf, cot, need_dx), reps),
+            "dz_device_ms": device_ms(lambda: rk.bwd_dz(cot, swf), reps),
+            "dx_device_ms": device_ms(lambda: rk.bwd_dx(dz, wk, dx_plan),
+                                      reps) if need_dx else 0.0,
+            "dwk_device_ms": device_ms(lambda: rk.bwd_dwk(x, dz, dwk_plan),
+                                       reps),
+            "library_ms": cuda_ms(library, reps),
+            "library_device_ms": device_ms(library, reps),
+            "fwd_ms": cuda_ms(fwd, reps),
+            "fwd_device_ms": device_ms(fwd, reps),
+            "fwd_plain_ms": cuda_ms(
+                lambda: rk.ric_conv_reference(x, wk, swf), reps),
+        }
+        (row["bound_ms"], row["bound_by"],
+         row["bound_f32_ms"]) = ric_bounds(*ric_bwd_work(BATCH, hw, c, o,
+                                                         need_dx))
+        fwd_bound = ric_bounds(*ric_fwd_work(BATCH, hw, c, o))
+        row["fwd_bound_ms"], row["fwd_bound_f32_ms"] = (fwd_bound[0],
+                                                        fwd_bound[2])
+        dx_part = (f"dx GEMM {row['dx_device_ms']:.3f} ms ({dx_plan.blocks} "
+                   f"blocks, {dx_plan.slices} slices)" if need_dx
+                   else "no dx")
+        dx_err = f"{errs['dx']:.3e}" if need_dx else "(no dx)"
         report(f"[6] ric_conv_bwd N={BATCH} (H,C,O)=({hw},{c},{o}): max err "
-               f"dx {dx_err} dwk {errs[-2]:.3e} (max |plain dwk| "
-               f"{want[1].abs().max().item():.3e}), bit-identical; kernel "
-               f"{ms:.3f} ms, plain {plain:.3f} ms; forward kernel "
-               f"{fwd_ms:.3f} ms, plain {fwd_plain:.3f} ms")
-        results.append((max(errs[:-1]), ms, plain, fwd_ms, fwd_plain,
-                        errs[-1]))
+               f"dx {dx_err} dwk {errs['dwk']:.3e} "
+               f"(max |plain dwk| {want[1].abs().max().item():.3e}), dz "
+               f"{errs['dz']:.3e}, bit-identical; relative L2 against "
+               f"float64 " + ", ".join(
+                   f"{n} {f64[n]:.2e} (plain TF32 {f64_tf32[n]:.2e})"
+                   for n in f64) + f"; kernel {row['ms']:.3f} ms, device "
+               f"{row['device_ms']:.3f} ms = dz {row['dz_device_ms']:.3f} + "
+               f"{dx_part} + dwk GEMM and sum {row['dwk_device_ms']:.3f} ms "
+               f"({dwk_plan.blocks} blocks, {dwk_plan.slices} slices); bound "
+               f"{row['bound_ms']:.4f} ms (3xTF32, {row['bound_by']}; f32 "
+               f"{row['bound_f32_ms']:.4f}), "
+               f"{row['bound_ms'] / row['device_ms']:.1%} of it; torch.matmul "
+               f"f32 of the products "
+               f"{row['library_ms']:.3f} ms (device "
+               f"{row['library_device_ms']:.3f} ms); plain "
+               f"{row['plain_ms']:.3f} ms; forward kernel {row['fwd_ms']:.3f}"
+               f" ms (device {row['fwd_device_ms']:.3f}), plain "
+               f"{row['fwd_plain_ms']:.3f} ms")
+        results.append(row)
     return results
 
 
@@ -797,6 +978,33 @@ def ulp_bf16(x) -> float:
     return 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 0.0
 
 
+def hashgrid_work(x, tables, spec, n_active: int, with_jac: bool):
+    """(bytes, FLOPs) of one encode and of one table gradient at the points
+    x: the encode reads x and the table rows the points' corners touch and
+    writes enc (and denc); the gradient reads x, g_enc and g_denc's active
+    columns and writes the active tables' f32 gradients. Per (point, level,
+    corner): 2 products for the weight and 2·F ops for the features, four
+    times with the jacobian; the gradient 8 + 8·F."""
+    import torch
+
+    from drawingspinup_torch.kernels import hashgrid as hk
+
+    p, nf = x.shape[0], spec.n_features
+    lf = len(spec.res) * nf
+    rows = sum(int(torch.unique(hk._corners(
+        x, spec.res[lvl], spec.dense[lvl], spec.cell_rows,
+        spec.table_size)[0]).numel()) for lvl in range(n_active))
+    cs = torch.empty((), dtype=spec.cdt).element_size()
+    ts = tables[0].element_size()
+    outs = 4 if with_jac else 1
+    fwd = (12 * p + rows * nf * ts + outs * p * lf * cs,
+           outs * p * n_active * 8 * (2 + 2 * nf))
+    grads = sum(tables[lvl].shape[0] for lvl in range(n_active)) * nf * 4
+    bwd = (12 * p + outs * p * n_active * nf * cs + grads,
+           p * n_active * 8 * (8 + 8 * nf))
+    return fwd, bwd
+
+
 def phase_hashgrid_vs_plain(device, reps: int = 10):
     """The encode (K1) and table-gradient (K2) kernels against their plain
     twins on the production table, at the step's point counts and the
@@ -835,7 +1043,13 @@ def phase_hashgrid_vs_plain(device, reps: int = 10):
                     err = max(err, e)
                 key = "jac" if jac else "enc"
                 row[key + "_err"] = err
+                row[key + "_work"], bwd_work = hashgrid_work(x, tables, spec,
+                                                             na, jac)
+                if jac:
+                    row["bwd_work"] = bwd_work
                 row[key + "_ms"] = cuda_ms(
+                    lambda: hk.hashgrid_fwd(x, tables, spec, na, jac), reps)
+                row[key + "_device_ms"] = device_ms(
                     lambda: hk.hashgrid_fwd(x, tables, spec, na, jac), reps)
                 row[key + "_plain_ms"] = cuda_ms(
                     lambda: hk.hashgrid_fwd_reference(x, tables, spec, na,
@@ -864,19 +1078,29 @@ def phase_hashgrid_vs_plain(device, reps: int = 10):
                 row["bwd_ms"] = cuda_ms(
                     lambda: hk.hashgrid_bwd(x, tables, spec, na, ge, gd),
                     reps)
+                row["bwd_device_ms"] = device_ms(
+                    lambda: hk.hashgrid_bwd(x, tables, spec, na, ge, gd),
+                    reps)
                 row["bwd_plain_ms"] = cuda_ms(
                     lambda: hk.hashgrid_bwd_reference(x, tables, spec, na,
                                                       ge, gd), reps)
             report(f"[9] hash grid {dt} n_active={na}: hashgrid_fwd "
                    f"P={HG_POINTS[1][0]} max err {row['enc_err']:.3e}, "
-                   f"kernel {row['enc_ms']:.3f} ms, plain "
+                   f"kernel {row['enc_ms']:.3f} ms (device "
+                   f"{row['enc_device_ms']:.3f}), plain "
                    f"{row['enc_plain_ms']:.3f} ms; with jacobian "
                    f"P={HG_POINTS[0][0]} max err {row['jac_err']:.3e}, kernel "
-                   f"{row['jac_ms']:.3f} ms, plain {row['jac_plain_ms']:.3f} "
-                   f"ms; hashgrid_bwd relative L2 {row['bwd_rel']:.2e} (max "
-                   f"err {row['bwd_err']:.3e}, bit-identical across "
-                   f"launches), kernel {row['bwd_ms']:.3f} ms, "
-                   f"plain {row['bwd_plain_ms']:.3f} ms")
+                   f"{row['jac_ms']:.3f} ms (device "
+                   f"{row['jac_device_ms']:.3f}), plain "
+                   f"{row['jac_plain_ms']:.3f} ms; hashgrid_bwd relative L2 "
+                   f"{row['bwd_rel']:.2e} (max err {row['bwd_err']:.3e}, "
+                   f"bit-identical across launches), kernel "
+                   f"{row['bwd_ms']:.3f} ms (device {row['bwd_device_ms']:.3f}"
+                   f"), plain {row['bwd_plain_ms']:.3f} ms; bounds "
+                   + " / ".join(
+                       "{:.4f} ms ({})".format(*bound_ms(*row[k + "_work"],
+                                                         F32_FLOPS))
+                       for k in ("enc", "jac", "bwd")))
             results.append(row)
     return results
 
@@ -900,12 +1124,21 @@ def phase_row_gather(device, reps: int = 10):
         check(torch.equal(got, tab[idx.long()]),
               f"row_gather differs from tab[idx] at T={rows}")
         ms = cuda_ms(lambda: hk.row_gather(tab, idx), reps)
+        dev = device_ms(lambda: hk.row_gather(tab, idx), reps)
         plain = cuda_ms(lambda: hk.row_gather_reference(tab, idx), reps)
+        library = cuda_ms(lambda: torch.index_select(tab, 0, idx), reps)
+        # idx read, each row it names read once, the output written
+        row_bytes = 16 * tab.element_size()
+        nbytes = GATHER_K * (4 + row_bytes) + row_bytes * int(
+            torch.unique(idx).numel())
+        bound, _ = bound_ms(nbytes, 0, F32_FLOPS)
         report(f"[10] row_gather T={rows} (16 bf16 per row), K={GATHER_K}: "
                f"bit-equal to tab[idx]; kernel {ms:.4f} ms "
-               f"({GATHER_K / ms / 1e3:.0f} M rows/s), plain {plain:.4f} ms "
-               f"({GATHER_K / plain / 1e3:.0f} M rows/s)")
-        results.append((ms, plain))
+               f"({GATHER_K / ms / 1e3:.0f} M rows/s; device {dev:.4f} ms), "
+               f"plain {plain:.4f} ms "
+               f"({GATHER_K / plain / 1e3:.0f} M rows/s), index_select "
+               f"{library:.4f} ms, bound {bound:.4f} ms (bytes)")
+        results.append((ms, plain, library, nbytes, dev))
     return results
 
 
@@ -1216,6 +1449,115 @@ def phase_export_vs_plain(root: str, device) -> None:
            f"{secs[0]:.2f} s (kernel) vs {secs[1]:.2f} s (plain)")
 
 
+def kernels_line(per_shape, serving_launches, train_shapes, fwd_launches,
+                 bwd_launches, hg_rows, gather, recon_launches) -> dict:
+    """The ``kernels`` JSON object from the phases' results: per kernel its
+    launches on the main paths, error, times, bound and yardstick."""
+    prod = next(r for r in hg_rows
+                if r["dtype"] == "bfloat16" and r["n_active"] == HG_ACTIVE[-1])
+
+    def step_sum(key: str, count: int) -> float:
+        return sum(s[count] * r[key] for s, r in zip(TRAIN_SHAPES,
+                                                     train_shapes))
+
+    def bound(works):
+        """Σ count · bound of each call of (count, bytes, FLOPs, peak), and
+        which of the two limits sets the most of it."""
+        ms = sum(n * bound_ms(b, f, p)[0] for n, b, f, p in works)
+        t_bytes = sum(n * b / HBM_BYTES_PER_S for n, b, _, _ in works)
+        t_ops = sum(n * f / p for n, _, f, p in works)
+        return ms, "bytes" if t_bytes >= t_ops else "operations"
+
+    def ric_bound(works):
+        """(bound at 3xTF32, what sets it, bound at f32 outside the tensor
+        cores) of (count, bytes, f32 FLOPs) RIC calls."""
+        return (*bound([(n, b, 3 * f, TF32_FLOPS) for n, b, f in works]),
+                bound([(n, b, f, F32_FLOPS) for n, b, f in works])[0])
+
+    fwd_bound = ric_bound([(s[3], *ric_fwd_work(1, s[0], s[1], s[2]))
+                           for s in RIC_SHAPES])
+    bwd_bound = ric_bound([(s[4], *ric_bwd_work(BATCH, s[0], s[1], s[2],
+                                                k > 0))
+                           for k, s in enumerate(TRAIN_SHAPES)])
+    hg_bound = bound([(1, *prod[k + "_work"], F32_FLOPS)
+                      for k in ("enc", "jac")])
+    hg_bwd_bound = bound([(1, *prod["bwd_work"], F32_FLOPS)])
+    gather_bound = bound([(1, gather[-1][3], 0, F32_FLOPS)])
+    return {"kernels": [{
+        "name": "ric_conv_fwd", "route": "cuda", "source": RIC_SOURCE,
+        "replaces": RIC_REPLACES, "launches": fwd_launches,
+        "max_abs_err": max(max(r[0] for r in per_shape),
+                           max(r["fwd_err"] for r in train_shapes)),
+        "ms": sum(s[3] * r[1] for s, r in zip(RIC_SHAPES, per_shape)),
+        "plain_ms": sum(s[3] * r[2] for s, r in zip(RIC_SHAPES, per_shape)),
+        "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
+        "library_ms": None,
+        "timed": f"sum over the {RIC_PER_FRAME} RIC convs of one "
+                 f"{FRAME}^2 GeneratorJ_RIC forward (phase 3 medians); "
+                 f"{TIMED}",
+        "device_ms": sum(s[3] * r[3] for s, r in zip(RIC_SHAPES, per_shape)),
+        "bound_f32_ms": fwd_bound[2],
+        "launches_serving_path": serving_launches,
+        "ms_train_step": step_sum("fwd_ms", 3),
+        "device_ms_train_step": step_sum("fwd_device_ms", 3),
+        "plain_ms_train_step": step_sum("fwd_plain_ms", 3),
+        "bound_ms_train_step": step_sum("fwd_bound_ms", 3),
+        "bound_f32_ms_train_step": step_sum("fwd_bound_f32_ms", 3),
+    }, {
+        "name": "ric_conv_bwd", "route": "cuda", "source": BWD_SOURCE,
+        "replaces": BWD_REPLACES, "launches": bwd_launches,
+        "max_abs_err": max(r["err"] for r in train_shapes),
+        "ms": step_sum("ms", 4), "plain_ms": step_sum("plain_ms", 4),
+        "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
+        "library_ms": step_sum("library_ms", 4),
+        "timed": f"sum over the {BWD_PER_STEP} RIC backward launches of one "
+                 f"training step, N={BATCH} (phase 6 medians); {TIMED}; "
+                 f"library_ms: torch.matmul in f32 of the same two products "
+                 f"on the same dz",
+        "device_ms": step_sum("device_ms", 4),
+        "device_ms_dz": step_sum("dz_device_ms", 4),
+        "device_ms_dx": step_sum("dx_device_ms", 4),
+        "device_ms_dwk": step_sum("dwk_device_ms", 4),
+        "library_device_ms": step_sum("library_device_ms", 4),
+        "bound_f32_ms": bwd_bound[2],
+        "f64_rel_l2": max(r["f64_rel_l2"] for r in train_shapes),
+        "plain_tf32_f64_rel_l2": min(r["tf32_rel_l2"] for r in train_shapes),
+    }, {
+        "name": "hashgrid_fwd", "route": "cuda", "source": HG_SOURCE,
+        "replaces": HG_REPLACES, "launches": recon_launches["hashgrid_fwd"],
+        "max_abs_err": max(max(r["enc_err"], r["jac_err"]) for r in hg_rows),
+        "ms": prod["enc_ms"] + prod["jac_ms"],
+        "plain_ms": prod["enc_plain_ms"] + prod["jac_plain_ms"],
+        "bound_ms": hg_bound[0], "bound_by": hg_bound[1], "library_ms": None,
+        "timed": f"one production step's two encodes at 6 levels, bf16: "
+                 f"{HG_POINTS[1][0]} points, and {HG_POINTS[0][0]} with the "
+                 f"jacobian (phase 9 medians); {TIMED}",
+        "device_ms": prod["enc_device_ms"] + prod["jac_device_ms"],
+    }, {
+        "name": "hashgrid_bwd", "route": "cuda", "source": HG_BWD_SOURCE,
+        "replaces": HG_BWD_REPLACES,
+        "launches": recon_launches["hashgrid_bwd"],
+        "max_abs_err": max(r["bwd_err"] for r in hg_rows),
+        "ms": prod["bwd_ms"], "plain_ms": prod["bwd_plain_ms"],
+        "bound_ms": hg_bwd_bound[0], "bound_by": hg_bwd_bound[1],
+        "library_ms": None,
+        "timed": f"one production step's table gradient at 6 levels, bf16, "
+                 f"{HG_POINTS[0][0]} points (phase 9 medians); {TIMED}",
+        "device_ms": prod["bwd_device_ms"],
+    }, {
+        "name": "row_gather", "route": "cuda", "source": GATHER_SOURCE,
+        "replaces": GATHER_REPLACES, "launches": recon_launches["row_gather"],
+        "max_abs_err": 0.0, "ms": gather[-1][0], "plain_ms": gather[-1][1],
+        "bound_ms": gather_bound[0], "bound_by": gather_bound[1],
+        "library_ms": gather[-1][2],
+        "timed": f"{GATHER_K} rows of a ({GATHER_ROWS[-1]}, 16) bf16 table "
+                 f"(phase 10 medians; T={GATHER_ROWS[0]}: {gather[0][0]:.4f} "
+                 f"ms, plain {gather[0][1]:.4f} ms); library_ms: "
+                 f"torch.index_select; {TIMED}",
+        "device_ms": gather[-1][4],
+    }]}
+
+
 def main() -> int:
     import torch
 
@@ -1247,56 +1589,9 @@ def main() -> int:
         phase_nsr_step_vs_plain(root, device)
         phase_export_vs_plain(root, device)
 
-    prod = next(r for r in hg_rows
-                if r["dtype"] == "bfloat16" and r["n_active"] == HG_ACTIVE[-1])
-
-    def step_sum(col: int, count: int) -> float:
-        return sum(s[count] * r[col] for s, r in zip(TRAIN_SHAPES,
-                                                     train_shapes))
-
-    print(json.dumps({"kernels": [{
-        "name": "ric_conv_fwd", "route": "cuda", "source": RIC_SOURCE,
-        "replaces": RIC_REPLACES, "launches": fwd_launches,
-        "max_abs_err": max(max(r[0] for r in per_shape),
-                           max(r[5] for r in train_shapes)),
-        "ms": sum(s[3] * r[1] for s, r in zip(RIC_SHAPES, per_shape)),
-        "plain_ms": sum(s[3] * r[2] for s, r in zip(RIC_SHAPES, per_shape)),
-        "timed": f"sum over the {RIC_PER_FRAME} RIC convs of one "
-                 f"{FRAME}^2 GeneratorJ_RIC forward (phase 3 medians)",
-        "launches_serving_path": serving_launches,
-        "ms_train_step": step_sum(3, 3), "plain_ms_train_step": step_sum(4, 3),
-    }, {
-        "name": "ric_conv_bwd", "route": "cuda", "source": BWD_SOURCE,
-        "replaces": BWD_REPLACES, "launches": bwd_launches,
-        "max_abs_err": max(r[0] for r in train_shapes),
-        "ms": step_sum(1, 4), "plain_ms": step_sum(2, 4),
-        "timed": f"sum over the {BWD_PER_STEP} RIC backward launches of one "
-                 f"training step, N={BATCH} (phase 6 medians)",
-    }, {
-        "name": "hashgrid_fwd", "route": "cuda", "source": HG_SOURCE,
-        "replaces": HG_REPLACES, "launches": recon_launches["hashgrid_fwd"],
-        "max_abs_err": max(max(r["enc_err"], r["jac_err"]) for r in hg_rows),
-        "ms": prod["enc_ms"] + prod["jac_ms"],
-        "plain_ms": prod["enc_plain_ms"] + prod["jac_plain_ms"],
-        "timed": f"one production step's two encodes at 6 levels, bf16: "
-                 f"{HG_POINTS[1][0]} points, and {HG_POINTS[0][0]} with the "
-                 f"jacobian (phase 9 medians)",
-    }, {
-        "name": "hashgrid_bwd", "route": "cuda", "source": HG_BWD_SOURCE,
-        "replaces": HG_BWD_REPLACES,
-        "launches": recon_launches["hashgrid_bwd"],
-        "max_abs_err": max(r["bwd_err"] for r in hg_rows),
-        "ms": prod["bwd_ms"], "plain_ms": prod["bwd_plain_ms"],
-        "timed": f"one production step's table gradient at 6 levels, bf16, "
-                 f"{HG_POINTS[0][0]} points (phase 9 medians)",
-    }, {
-        "name": "row_gather", "route": "cuda", "source": GATHER_SOURCE,
-        "replaces": GATHER_REPLACES, "launches": recon_launches["row_gather"],
-        "max_abs_err": 0.0, "ms": gather[-1][0], "plain_ms": gather[-1][1],
-        "timed": f"{GATHER_K} rows of a ({GATHER_ROWS[-1]}, 16) bf16 table "
-                 f"(phase 10 medians; T={GATHER_ROWS[0]}: {gather[0][0]:.4f} "
-                 f"ms, plain {gather[0][1]:.4f} ms)",
-    }]}))
+    print(json.dumps(kernels_line(
+        per_shape, serving_launches, train_shapes, fwd_launches, bwd_launches,
+        hg_rows, gather, recon_launches)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

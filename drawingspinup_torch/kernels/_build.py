@@ -13,7 +13,8 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (_CSRC / "bindings.cpp", _CSRC / "ric_conv_fwd.cu",
-           _CSRC / "ric_conv_bwd.cu", _CSRC / "hashgrid_fwd.cu",
+           _CSRC / "ric_conv_bwd.cu", _CSRC / "ric_conv_bwd_gemm.cu",
+           _CSRC / "hashgrid_fwd.cu",
            _CSRC / "hashgrid_bwd.cu", _CSRC / "row_gather.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 

@@ -16,15 +16,20 @@
 extern "C" int ric_conv_fwd_launch(const float* x, const float* wk,
                                    const float* swf, float* out, int n, int h,
                                    int w, int c, int o, void* stream);
-extern "C" int ric_conv_bwd_dx_launch(const float* g, const float* wk,
-                                      const float* swf, float* dx, int n,
-                                      int h, int w, int c, int o,
+extern "C" int ric_conv_bwd_dz_launch(const float* g, const float* swf,
+                                      float* dz, int n, int h, int w, int o,
                                       void* stream);
-extern "C" int ric_conv_bwd_dwk_launch(const float* x, const float* g,
-                                       const float* swf, float* dz,
-                                       float* scratch, float* dwk, int n,
-                                       int h, int w, int c, int o, int slices,
-                                       void* stream);
+extern "C" int ric_conv_bwd_gemm_launch(const float* a, int a_kmajor,
+                                        const float* b, float* part, int m,
+                                        int n, int k, int slice_k,
+                                        int slices, int bm, int bn, int bk,
+                                        void* stream);
+extern "C" int ric_conv_bwd_dwk_reduce_launch(const float* part, float* dwk,
+                                              int c, int o, int slices,
+                                              void* stream);
+extern "C" int ric_conv_bwd_sum_slices_launch(const float* part, float* out,
+                                              long long elems, int slices,
+                                              void* stream);
 extern "C" const char* ric_conv_error_string(int err);
 extern "C" int hashgrid_fwd_launch(const float* x, long long P, int n_active,
                                    const void* const* tables, const int* res,
@@ -64,22 +69,35 @@ int ric_conv_fwd(std::uintptr_t x, std::uintptr_t wk, std::uintptr_t swf,
                              c, o, ptr<void>(stream));
 }
 
-int ric_conv_bwd_dx(std::uintptr_t g, std::uintptr_t wk, std::uintptr_t swf,
-                    std::uintptr_t dx, int n, int h, int w, int c, int o,
-                    std::uintptr_t stream) {
-  return ric_conv_bwd_dx_launch(ptr<const float>(g), ptr<const float>(wk),
-                                ptr<const float>(swf), ptr<float>(dx), n, h,
-                                w, c, o, ptr<void>(stream));
+int ric_conv_bwd_dz(std::uintptr_t g, std::uintptr_t swf, std::uintptr_t dz,
+                    int n, int h, int w, int o, std::uintptr_t stream) {
+  return ric_conv_bwd_dz_launch(ptr<const float>(g), ptr<const float>(swf),
+                                ptr<float>(dz), n, h, w, o, ptr<void>(stream));
 }
 
-int ric_conv_bwd_dwk(std::uintptr_t x, std::uintptr_t g, std::uintptr_t swf,
-                     std::uintptr_t dz, std::uintptr_t scratch,
-                     std::uintptr_t dwk, int n, int h, int w, int c, int o,
-                     int slices, std::uintptr_t stream) {
-  return ric_conv_bwd_dwk_launch(ptr<const float>(x), ptr<const float>(g),
-                                 ptr<const float>(swf), ptr<float>(dz),
-                                 ptr<float>(scratch), ptr<float>(dwk), n, h,
-                                 w, c, o, slices, ptr<void>(stream));
+int ric_conv_bwd_gemm(std::uintptr_t a, int a_kmajor, std::uintptr_t b,
+                      std::uintptr_t part, int m, int n, int k, int slice_k,
+                      int slices, int bm, int bn, int bk,
+                      std::uintptr_t stream) {
+  return ric_conv_bwd_gemm_launch(ptr<const float>(a), a_kmajor,
+                                  ptr<const float>(b), ptr<float>(part), m, n,
+                                  k, slice_k, slices, bm, bn, bk,
+                                  ptr<void>(stream));
+}
+
+int ric_conv_bwd_dwk_reduce(std::uintptr_t part, std::uintptr_t dwk, int c,
+                            int o, int slices, std::uintptr_t stream) {
+  return ric_conv_bwd_dwk_reduce_launch(ptr<const float>(part),
+                                        ptr<float>(dwk), c, o, slices,
+                                        ptr<void>(stream));
+}
+
+int ric_conv_bwd_sum_slices(std::uintptr_t part, std::uintptr_t out,
+                            long long elems, int slices,
+                            std::uintptr_t stream) {
+  return ric_conv_bwd_sum_slices_launch(ptr<const float>(part),
+                                        ptr<float>(out), elems, slices,
+                                        ptr<void>(stream));
 }
 
 int hashgrid_fwd(std::uintptr_t x, long long p,
@@ -135,11 +153,17 @@ int row_gather(std::uintptr_t tab, long long t, int row_bytes,
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("ric_conv_fwd", &ric_conv_fwd,
         "Launch the RIC conv forward kernel; returns the cudaError_t code.");
-  m.def("ric_conv_bwd_dx", &ric_conv_bwd_dx,
-        "Launch the RIC conv backward dx kernel; returns the cudaError_t code.");
-  m.def("ric_conv_bwd_dwk", &ric_conv_bwd_dwk,
-        "Launch the RIC conv backward dwk kernels (sampled cotangent, "
-        "split-K partial products, their ordered reduction); returns the "
+  m.def("ric_conv_bwd_dz", &ric_conv_bwd_dz,
+        "Launch the RIC conv backward's cotangent sampling kernel; returns "
+        "the cudaError_t code.");
+  m.def("ric_conv_bwd_gemm", &ric_conv_bwd_gemm,
+        "Launch the RIC conv backward's 3xTF32 split-K GEMM kernel; returns "
+        "the cudaError_t code.");
+  m.def("ric_conv_bwd_dwk_reduce", &ric_conv_bwd_dwk_reduce,
+        "Launch the ordered sum of dwk's split-K slices; returns the "
+        "cudaError_t code.");
+  m.def("ric_conv_bwd_sum_slices", &ric_conv_bwd_sum_slices,
+        "Launch the ordered sum of dx's split-K slices; returns the "
         "cudaError_t code.");
   m.def("hashgrid_fwd", &hashgrid_fwd,
         "Launch the hash-grid encode kernel (with its jacobian when denc is "

@@ -9,14 +9,19 @@ H, W) f32 (``ric_shifted_weights``) → (N,H,W,O) f32.
 ``ric_conv`` runs ``RICConvFunction`` on every device. Its forward and
 backward dispatch on the tensor's device: on the CPU they are the plain
 twins (``ric_conv_reference``, ``ric_conv_bwd_reference``), on CUDA the
-hand-written kernels in ``csrc/ric_conv_fwd.cu`` and ``csrc/ric_conv_bwd.cu``,
-which launch or raise. The backward returns ``dx`` and ``dwk`` and no
-gradient to ``swf``, as ``_vjp_bwd`` does, and computes no ``dx`` when the
-input needs none.
+hand-written kernels in ``csrc/``, which launch or raise. The backward
+returns ``dx`` and ``dwk`` and no gradient to ``swf``, as ``_vjp_bwd``
+does, and computes no ``dx`` when the input needs none. On CUDA it is
+four parts, each its own function: the sampled cotangent ``dz``
+(``bwd_dz``, ``csrc/ric_conv_bwd.cu``), then two 3xTF32 tensor-core GEMMs
+over it (``bwd_dx``, ``bwd_dwk``, ``csrc/ric_conv_bwd_gemm.cu``) whose
+fixed split-K slices are summed in order; ``gemm_plan`` plans their tiles
+and splits from the shape alone.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -28,11 +33,15 @@ from drawingspinup_torch.models.ric_tables import SHIFTS
 LAUNCHES = 0           # ric_conv_fwd
 BWD_LAUNCHES = 0       # ric_conv_bwd
 
-# Target block count of the dwk split-K product (4 per SM of an H100): the
-# batch's pixels are cut into enough fixed slices to reach it, given the
-# product's 64 × 128 output tiles and 16-pixel stages (csrc/ric_conv_bwd.cu).
-_DWK_TARGET_BLOCKS = 528
-_DWK_ROWS, _DWK_COLS, _DWK_STAGE = 64, 128, 16
+# The backward GEMM's tiles (csrc/ric_conv_bwd_gemm.cu, which refuses a
+# launch planned with others): a block computes a GEMM_BM × GEMM_BN tile of
+# the product over GEMM_BK-deep stages.
+GEMM_BM, GEMM_BN, GEMM_BK = 64, 64, 32
+SMS = 132                       # streaming multiprocessors of an H100
+# A launch aims at four blocks per SM; a split-K slice walks at least four
+# stages, so that its double buffer has something to overlap.
+_TARGET_BLOCKS = 4 * SMS
+_MIN_SLICE_STAGES = 4
 
 
 def _shift2d(y: torch.Tensor, sy: int, sx: int) -> torch.Tensor:
@@ -55,19 +64,81 @@ def ric_conv_reference(x: torch.Tensor, wk: torch.Tensor,
     return out
 
 
+def ric_conv_bwd_dz_reference(g: torch.Tensor,
+                              swf: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch sampled cotangent (N,H,W,9,O): each shift's cotangent
+    is g moved back by the shift, zero-filled; ``dz_t`` is their sum
+    weighted by the unshifted ``swf``."""
+    dacc = torch.stack([_shift2d(g, -sy, -sx) for sy, sx in SHIFTS], dim=3)
+    return torch.einsum("nhwio,ithw->nhwto", dacc, swf)
+
+
 def ric_conv_bwd_reference(x: torch.Tensor, wk: torch.Tensor,
                            swf: torch.Tensor, g: torch.Tensor,
                            need_dx: bool = True
                            ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
-    """Plain PyTorch VJP of the RIC conv (``_bwd_kernel``'s math): each
-    shift's cotangent is g moved back by the shift, zero-filled; ``dz_t`` is
-    their sum weighted by the unshifted ``swf``; ``dx = Σ_t dz_t wk[t]ᵀ``
-    and ``dwk[t] = Σ xᵀ dz_t`` over the batch. Returns (dx or None, dwk)."""
-    dacc = torch.stack([_shift2d(g, -sy, -sx) for sy, sx in SHIFTS], dim=3)
-    dz = torch.einsum("nhwio,ithw->nhwto", dacc, swf)
+    """Plain PyTorch VJP of the RIC conv (``_bwd_kernel``'s math): the
+    sampled cotangent ``dz`` (``ric_conv_bwd_dz_reference``), then
+    ``dx = Σ_t dz_t wk[t]ᵀ`` and ``dwk[t] = Σ xᵀ dz_t`` over the batch.
+    Returns (dx or None, dwk)."""
+    dz = ric_conv_bwd_dz_reference(g, swf)
     dwk = torch.einsum("nhwc,nhwto->tco", x, dz)
     dx = torch.einsum("nhwto,tco->nhwc", dz, wk) if need_dx else None
     return dx, dwk
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmPlan:
+    """One launch of the backward's GEMM, C (m × n) = A (m × k) · B (k × n),
+    on a grid of (m tiles, n tiles, slices) blocks: slice s sums k over
+    ``bounds()[s]``, into its own partial product, and the partial products
+    are added in slice order."""
+    m: int
+    n: int
+    k: int
+    slice_k: int
+    slices: int
+
+    @property
+    def grid(self) -> Tuple[int, int, int]:
+        return (_cdiv(self.m, GEMM_BM), _cdiv(self.n, GEMM_BN), self.slices)
+
+    @property
+    def blocks(self) -> int:
+        gx, gy, gz = self.grid
+        return gx * gy * gz
+
+    def bounds(self) -> List[Tuple[int, int]]:
+        """Each slice's [k0, k1), in the order the slices are summed."""
+        return [(s * self.slice_k, min(self.k, (s + 1) * self.slice_k))
+                for s in range(self.slices)]
+
+
+def gemm_plan(m: int, n: int, k: int) -> GemmPlan:
+    """Split of an (m × k)·(k × n) product: as many fixed K slices, each a
+    whole number of stages and at least ``_MIN_SLICE_STAGES`` deep, as bring
+    the grid to about ``_TARGET_BLOCKS`` blocks (one slice where the output
+    tiles alone reach it). A function of the shape alone, and so is the
+    summation order."""
+    tiles = _cdiv(m, GEMM_BM) * _cdiv(n, GEMM_BN)
+    stages = _cdiv(k, GEMM_BK)
+    want = max(1, min(_cdiv(_TARGET_BLOCKS, tiles),
+                      stages // _MIN_SLICE_STAGES))
+    per = _cdiv(stages, want)
+    return GemmPlan(m, n, k, per * GEMM_BK, _cdiv(stages, per))
+
+
+def bwd_plan(n: int, h: int, w: int, c: int, o: int
+             ) -> Tuple[GemmPlan, GemmPlan]:
+    """The (dx, dwk) GEMM plans of the backward at x (n, h, w, c) and o
+    outputs, with P = n·h·w pixels flattened across the batch and J = 9·o:
+    dx = dz (P × J) · wkᵀ (J × c), dwk = xᵀ (c × P) · dz (P × J)."""
+    p, j = n * h * w, 9 * o
+    return gemm_plan(p, c, j), gemm_plan(c, j, p)
 
 
 def _check(name: str, x: torch.Tensor, wk: torch.Tensor,
@@ -122,23 +193,94 @@ def ric_conv_fwd(x: torch.Tensor, wk: torch.Tensor,
     return out
 
 
-def dwk_slices(n: int, h: int, w: int, c: int, o: int) -> int:
-    """How many fixed pixel slices the dwk product is cut into: enough
-    blocks to fill the card, never a slice shorter than one stage. A
-    function of the shape alone, so the summation order is too."""
-    per_slice = -(-c // _DWK_ROWS) * -(-9 * o // _DWK_COLS)
-    return max(1, min(-(-n * h * w // _DWK_STAGE),
-                      -(-_DWK_TARGET_BLOCKS // per_slice)))
+def _require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """The part wrappers' own checks: f32, contiguous, on one CUDA device
+    (``ric_conv_bwd`` checks shapes before it calls them)."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != dev \
+                or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous float32 on "
+                             f"one CUDA device, got {t.dtype} on {t.device}")
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def bwd_dz(g: torch.Tensor, swf: torch.Tensor) -> torch.Tensor:
+    """Launch the cotangent-sampling kernel: dz (N·H·W, 9, O) from g
+    (N,H,W,O) and swf (9,9,H,W)."""
+    _require_cuda("ric_conv_bwd (dz)", g, swf)
+    from drawingspinup_torch.kernels._build import extension
+
+    ext = extension()
+    n, h, w, o = g.shape
+    dz = torch.empty((n * h * w, 9, o), dtype=torch.float32, device=g.device)
+    with torch.cuda.device(g.device):
+        _raise_on(ext, "ric_conv_bwd (dz)", ext.ric_conv_bwd_dz(
+            g.data_ptr(), swf.data_ptr(), dz.data_ptr(), n, h, w, o,
+            _stream()))
+    return dz
+
+
+def _gemm(ext, name: str, a: torch.Tensor, a_kmajor: bool, b: torch.Tensor,
+          part: torch.Tensor, plan: GemmPlan) -> None:
+    _raise_on(ext, name, ext.ric_conv_bwd_gemm(
+        a.data_ptr(), int(a_kmajor), b.data_ptr(), part.data_ptr(), plan.m,
+        plan.n, plan.k, plan.slice_k, plan.slices, GEMM_BM, GEMM_BN, GEMM_BK,
+        _stream()))
+
+
+def bwd_dx(dz: torch.Tensor, wk: torch.Tensor,
+           plan: GemmPlan) -> torch.Tensor:
+    """Launch dx (P, C) = dz (P, 9·O) · wkᵀ (9·O, C) on the GEMM kernel, and
+    the ordered sum of its slices where the plan splits K."""
+    _require_cuda("ric_conv_bwd (dx)", dz, wk)
+    from drawingspinup_torch.kernels._build import extension
+
+    ext = extension()
+    wkt = wk.transpose(1, 2).contiguous()       # (9, O, C): B is (9·O, C)
+    dx = torch.empty((plan.m, plan.n), dtype=torch.float32, device=dz.device)
+    part = dx if plan.slices == 1 else torch.empty(
+        (plan.slices, plan.m, plan.n), dtype=torch.float32, device=dz.device)
+    with torch.cuda.device(dz.device):
+        _gemm(ext, "ric_conv_bwd (dx)", dz, True, wkt, part, plan)
+        if plan.slices > 1:
+            err = ext.ric_conv_bwd_sum_slices(part.data_ptr(), dx.data_ptr(),
+                                              dx.numel(), plan.slices,
+                                              _stream())
+            _raise_on(ext, "ric_conv_bwd (dx sum)", err)
+    return dx
+
+
+def bwd_dwk(x: torch.Tensor, dz: torch.Tensor,
+            plan: GemmPlan) -> torch.Tensor:
+    """Launch dwk = xᵀ (C, P) · dz (P, 9·O) on the GEMM kernel into its
+    (slices, C, 9·O) partial products, then their ordered sum, permuted to
+    (9, C, O)."""
+    _require_cuda("ric_conv_bwd (dwk)", x, dz)
+    from drawingspinup_torch.kernels._build import extension
+
+    ext = extension()
+    c, o = plan.m, plan.n // 9
+    part = torch.empty((plan.slices, plan.m, plan.n), dtype=torch.float32,
+                       device=x.device)
+    dwk = torch.empty((9, c, o), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        _gemm(ext, "ric_conv_bwd (dwk)", x, False, dz, part, plan)
+        _raise_on(ext, "ric_conv_bwd (dwk sum)", ext.ric_conv_bwd_dwk_reduce(
+            part.data_ptr(), dwk.data_ptr(), c, o, plan.slices, _stream()))
+    return dwk
 
 
 def ric_conv_bwd(x: torch.Tensor, wk: torch.Tensor, swf: torch.Tensor,
                  g: torch.Tensor, need_dx: bool = True
                  ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
-    """Launch the backward kernels on the current stream: dx (unless
-    ``need_dx`` is false), then dwk: the sampled cotangent (an (N·H·W, 9, O)
-    scratch), fixed split-K partial products, their ordered reduction.
-    Returns (dx or None, dwk); raises on any input it does not take and on
-    a failed launch."""
+    """Launch the backward on the current stream: the sampled cotangent
+    (``bwd_dz``), dx unless ``need_dx`` is false (``bwd_dx``), then dwk
+    (``bwd_dwk``), on the plans of ``bwd_plan``. Returns (dx or None, dwk);
+    raises on any input it does not take and on a failed launch."""
     global BWD_LAUNCHES
     _check("ric_conv_bwd", x, wk, swf)
     n, h, w, c = x.shape
@@ -151,25 +293,11 @@ def ric_conv_bwd(x: torch.Tensor, wk: torch.Tensor, swf: torch.Tensor,
     if n * h * w * 9 * o >= 2 ** 31:
         raise ValueError("ric_conv_bwd: tensor too large for int indices")
     g = g.contiguous()
-    from drawingspinup_torch.kernels._build import extension
-
-    ext = extension()
-    dwk = torch.empty((9, c, o), dtype=torch.float32, device=x.device)
-    dx = torch.empty_like(x) if need_dx else None
-    slices = dwk_slices(n, h, w, c, o)
-    dz = torch.empty((n * h * w, 9, o), dtype=torch.float32, device=x.device)
-    scratch = torch.empty((slices, c, 9 * o), dtype=torch.float32,
-                          device=x.device)
+    dx_plan, dwk_plan = bwd_plan(n, h, w, c, o)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if need_dx:
-            _raise_on(ext, "ric_conv_bwd (dx)", ext.ric_conv_bwd_dx(
-                g.data_ptr(), wk.data_ptr(), swf.data_ptr(), dx.data_ptr(),
-                n, h, w, c, o, stream))
-        _raise_on(ext, "ric_conv_bwd (dwk)", ext.ric_conv_bwd_dwk(
-            x.data_ptr(), g.data_ptr(), swf.data_ptr(), dz.data_ptr(),
-            scratch.data_ptr(), dwk.data_ptr(), n, h, w, c, o, slices,
-            stream))
+        dz = bwd_dz(g, swf)
+        dx = bwd_dx(dz, wk, dx_plan).view(n, h, w, c) if need_dx else None
+        dwk = bwd_dwk(x, dz, dwk_plan)
     BWD_LAUNCHES += 1
     return dx, dwk
 

@@ -7,7 +7,10 @@ different orders, so the forward agrees to atol = rtol = 2e-5 (the bound
 tests/test_ric_pallas.py uses for the Pallas kernel against ``fused``),
 and the VJP to atol = rtol = 3e-4 (its bound for the Pallas VJP: dwk sums
 N·H·W·9 products per element). The copied numpy tables must be
-bit-equal."""
+bit-equal. The CUDA backward's arithmetic (3xTF32 products over fixed
+split-K slices, summed in order) is emulated here in numpy on the
+planner's slices and held to the same bounds, and to float64 within 1e-5
+relative L2 at a dwk that sums 40 960 pixels."""
 
 import numpy as np
 import pytest
@@ -166,4 +169,144 @@ def test_kernel_wrapper_rejects_before_build(case, wrapper):
         else:
             ric_kernels.ric_conv_bwd(x, wk, swf, torch.zeros(1, 8, 8, 6))
     assert ric_kernels.LAUNCHES == ric_kernels.BWD_LAUNCHES == 0
+    assert _build._ext is None
+
+
+# (H = W, C, O) of the RIC convs of a stage-1 training step on 40 × 32²
+# patches (chip_smoke.py's TRAIN_SHAPES)
+TRAIN_SHAPES = [(32, 6, 32), (16, 32, 64), (8, 64, 128), (8, 128, 128),
+                (16, 256, 128), (32, 192, 128), (32, 166, 64), (32, 64, 64)]
+# the CUDA tests' ragged (N, H, W, C, O) shapes
+ODD_SHAPES = [(2, 12, 20, 21, 7), (1, 9, 17, 5, 40), (3, 16, 16, 64, 128),
+              (4, 8, 8, 128, 130), (2, 32, 32, 166, 64), (1, 1, 1, 3, 33)]
+
+
+@pytest.mark.parametrize(
+    "shape", [(40, hw, hw, c, o) for hw, c, o in TRAIN_SHAPES]
+    + [(4, hw, hw, c, o) for hw, c, o in TRAIN_SHAPES] + ODD_SHAPES)
+def test_bwd_plan_slices_cover_k_in_order(shape):
+    """Each GEMM's split-K slices are whole stages, non-empty, contiguous
+    from 0 to K in index order, and the same for the same shape; at the
+    training batch every launch fills the H100's 132 SMs."""
+    n, h, w, c, o = shape
+    p, j = n * h * w, 9 * o
+    dx_plan, dwk_plan = ric_kernels.bwd_plan(*shape)
+    assert (dx_plan, dwk_plan) == ric_kernels.bwd_plan(*shape)
+    for plan, mnk in ((dx_plan, (p, c, j)), (dwk_plan, (c, j, p))):
+        assert (plan.m, plan.n, plan.k) == mnk
+        bounds = plan.bounds()
+        assert len(bounds) == plan.slices == plan.grid[2] >= 1
+        assert bounds[0][0] == 0 and bounds[-1][1] == plan.k
+        assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+        assert all(k0 < k1 and k0 % ric_kernels.GEMM_BK == 0
+                   for k0, k1 in bounds)
+        if n == 40:
+            assert plan.blocks >= ric_kernels.SMS, (plan, plan.blocks)
+
+
+def _rna_tf32(a):
+    """cvt.rna.tf32.f32: round to nearest, ties away from zero, to 10
+    mantissa bits (the low 13 bits cleared)."""
+    bits = np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _emulated_gemm(a, b, plan, split=True):
+    """The GEMM kernel's arithmetic: per 8-deep k-step, lo·hi + hi·lo +
+    hi·hi of the TF32 splits (hi·hi alone without ``split``) in f32, added
+    in order to its K slice's f32 sum; the slices' partial products added
+    in the planner's order."""
+    kp = -(-plan.k // 8) * 8                    # K zero-filled to whole k-steps
+    a = np.pad(a, ((0, 0), (0, kp - plan.k)))
+    b = np.pad(b, ((0, kp - plan.k), (0, 0)))
+    ah, bh = _rna_tf32(a), _rna_tf32(b)
+    al, bl = _rna_tf32(a - ah), _rna_tf32(b - bh)
+
+    def steps(x, y):                            # (k-steps, m, n) products
+        return np.einsum("msk,skn->smn", x.reshape(plan.m, -1, 8),
+                         y.reshape(-1, 8, plan.n))
+
+    part = steps(ah, bh)
+    if split:
+        part = (steps(al, bh) + steps(ah, bl)) + part
+    out = np.zeros((plan.m, plan.n), np.float32)
+    for k0, k1 in plan.bounds():
+        acc = np.zeros_like(out)
+        for step in part[k0 // 8:-(-k1 // 8)]:
+            acc = acc + step
+        out = out + acc
+    return out
+
+
+def _emulated_bwd(x, wk, swf, g, split=True):
+    """dx and dwk as the CUDA backward computes them: dz from the twin's
+    sampling, then the two products on ``bwd_plan``'s slices."""
+    n, h, w, c = x.shape
+    o = wk.shape[2]
+    dz = ric_kernels.ric_conv_bwd_dz_reference(
+        torch.from_numpy(g), torch.from_numpy(swf.copy())).numpy()
+    dz = dz.reshape(n * h * w, 9 * o)
+    dx_plan, dwk_plan = ric_kernels.bwd_plan(n, h, w, c, o)
+    wkt = np.ascontiguousarray(wk.transpose(0, 2, 1)).reshape(9 * o, c)
+    dx = _emulated_gemm(dz, wkt, dx_plan, split).reshape(n, h, w, c)
+    part = _emulated_gemm(np.ascontiguousarray(x.reshape(-1, c).T), dz,
+                          dwk_plan, split)
+    return dx, part.reshape(c, 9, o).transpose(1, 0, 2)
+
+
+@pytest.mark.parametrize("shape", [(5, 8, 8, 12, 16), (4, 16, 16, 6, 8),
+                                   (3, 8, 8, 16, 16), (5, 32, 32, 4, 8)])
+def test_emulated_3xtf32_bwd_matches_twin_and_pallas_vjp(shape):
+    """The CUDA backward's arithmetic against ``ric_conv_bwd_reference``
+    and the Pallas VJP (interpret mode), at the Pallas-VJP bound."""
+    x, wk, swf = _inputs(shape, seed=sum(shape))
+    g = _cotangent(shape, seed=1)
+    _, vjp = jax.vjp(lambda a, b: pallas_ric_conv(a, b, jnp.asarray(swf)),
+                     jnp.asarray(x), jnp.asarray(wk))
+    want = [np.asarray(a) for a in vjp(jnp.asarray(g))]
+    twin = ric_kernels.ric_conv_bwd_reference(
+        torch.from_numpy(x), torch.from_numpy(wk),
+        torch.from_numpy(swf.copy()), torch.from_numpy(g))
+    tol = dict(atol=3e-4, rtol=3e-4)
+    for got, jax_ref, ref in zip(_emulated_bwd(x, wk, swf, g), want, twin):
+        np.testing.assert_allclose(got, ref.numpy(), **tol)
+        np.testing.assert_allclose(got, jax_ref, **tol)
+
+
+def test_emulated_3xtf32_dwk_matches_float64_over_40960_pixels():
+    """At conv0's training shape (40 × 32², dwk's K = 40 960) the 3xTF32
+    products sit within 1e-5 relative L2 of float64, dx too; TF32 alone
+    (hi·hi) does not."""
+    shape = (40, 32, 32, 6, 8)
+    x, wk, swf = _inputs(shape, seed=7)
+    g = _cotangent(shape, seed=8)
+    assert ric_kernels.bwd_plan(*shape)[1].k == 40960
+    want = ric_kernels.ric_conv_bwd_reference(
+        *(torch.from_numpy(a).double() for a in (x, wk, swf.copy(), g)))
+
+    def rel(got, ref):
+        ref = ref.numpy()
+        return np.linalg.norm(got - ref) / np.linalg.norm(ref)
+
+    dx, dwk = _emulated_bwd(x, wk, swf, g)
+    assert rel(dwk, want[1]) <= 1e-5 and rel(dx, want[0]) <= 1e-5
+    assert rel(_emulated_bwd(x, wk, swf, g, split=False)[1], want[1]) > 1e-5
+
+
+@pytest.mark.parametrize("part", ["dz", "dx", "dwk"])
+def test_bwd_parts_reject_cpu_tensors_before_build(part):
+    """Each part of the CUDA backward refuses a CPU tensor, never computes
+    it, and builds nothing."""
+    x, wk = torch.zeros(1, 8, 8, 4), torch.zeros(9, 4, 6)
+    dz = torch.zeros(64, 9, 6)
+    dx_plan, dwk_plan = ric_kernels.bwd_plan(1, 8, 8, 4, 6)
+    with pytest.raises(ValueError):
+        if part == "dz":
+            ric_kernels.bwd_dz(torch.zeros(1, 8, 8, 6),
+                               torch.zeros(9, 9, 8, 8))
+        elif part == "dx":
+            ric_kernels.bwd_dx(dz, wk, dx_plan)
+        else:
+            ric_kernels.bwd_dwk(x, dz, dwk_plan)
     assert _build._ext is None

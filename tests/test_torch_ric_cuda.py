@@ -124,13 +124,22 @@ def _assert_close(got, want):
     assert err <= BWD_REL_TOL * want.abs().max().item(), err
 
 
+# (H = W, C, O) of the RIC convs of a stage-1 training step on 32² patches
+# (chip_smoke.py's TRAIN_SHAPES), here at N = 4
+TRAIN_SHAPES = [(32, 6, 32), (16, 32, 64), (8, 64, 128), (8, 128, 128),
+                (16, 256, 128), (32, 192, 128), (32, 166, 64), (32, 64, 64)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 12, 20, 21, 7), (1, 9, 17, 5, 40),
                                    (3, 16, 16, 64, 128), (4, 8, 8, 128, 130),
-                                   (2, 32, 32, 166, 64), (1, 1, 1, 3, 33)])
+                                   (2, 32, 32, 166, 64), (1, 1, 1, 3, 33)]
+                         + [(4, hw, hw, c, o) for hw, c, o in TRAIN_SHAPES])
 def test_bwd_kernel_matches_twin(shape, cuda_device):
-    """Ragged tiles, C and O off the 16/64-channel chunks, N > 1, a 1×1
-    image; one launch counted per call."""
+    """Ragged tiles, C and O off the GEMM's 64-wide tiles and its 16-byte
+    copies (C = 5, 6, 21, 166; O = 7), N > 1, a 1×1 image, and every
+    training shape; the sampled cotangent against its twin too; one launch
+    counted per call."""
     x, wk, swf = _inputs(shape, 12, cuda_device)
     g = _cotangent(shape, 13, cuda_device)
     want_dx, want_dwk = ric_kernels.ric_conv_bwd_reference(x, wk, swf, g)
@@ -140,6 +149,9 @@ def test_bwd_kernel_matches_twin(shape, cuda_device):
     assert ric_kernels.BWD_LAUNCHES == before + 1
     _assert_close(dx, want_dx)
     _assert_close(dwk, want_dwk)
+    dz = ric_kernels.bwd_dz(g, swf)
+    want_dz = ric_kernels.ric_conv_bwd_dz_reference(g, swf)
+    _assert_close(dz.view(want_dz.shape), want_dz)
 
 
 @pytest.mark.cuda
@@ -149,10 +161,77 @@ def test_bwd_kernel_is_deterministic(cuda_device):
     shape = (40, 32, 32, 64, 64)
     x, wk, swf = _inputs(shape, 3, cuda_device)
     g = _cotangent(shape, 4, cuda_device)
-    assert ric_kernels.dwk_slices(*shape) > 1
+    assert ric_kernels.bwd_plan(*shape)[1].slices > 1
     dx_a, dwk_a = ric_kernels.ric_conv_bwd(x, wk, swf, g)
     dx_b, dwk_b = ric_kernels.ric_conv_bwd(x, wk, swf, g)
     assert torch.equal(dwk_a, dwk_b) and torch.equal(dx_a, dx_b)
+
+
+@pytest.mark.cuda
+def test_bwd_split_k_is_bit_identical_at_8x8(cuda_device):
+    """At the resnet convs' 8² training shape both products are cut into
+    split-K slices; two launches give identical bits."""
+    shape = (40, 8, 8, 128, 128)
+    x, wk, swf = _inputs(shape, 5, cuda_device)
+    g = _cotangent(shape, 6, cuda_device)
+    assert all(p.slices > 1 for p in ric_kernels.bwd_plan(*shape))
+    dx_a, dwk_a = ric_kernels.ric_conv_bwd(x, wk, swf, g)
+    dx_b, dwk_b = ric_kernels.ric_conv_bwd(x, wk, swf, g)
+    assert torch.equal(dx_a, dx_b) and torch.equal(dwk_a, dwk_b)
+
+
+def _rna_tf32(t):
+    """cvt.rna.tf32.f32: round to nearest, ties away from zero, to 10
+    mantissa bits (the low 13 bits cleared)."""
+    return ((t.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(40, 32, 32, 6, 32), (40, 8, 8, 128, 128)])
+def test_bwd_is_f32_accurate_where_plain_tf32_is_not(shape, cuda_device):
+    """dx and dwk within relative L2 1e-5 of the twin run in float64 (dwk
+    sums 40 960 pixels at conv0's shape); the same products on TF32-rounded
+    operands, as a plain TF32 kernel would take them, miss that limit."""
+    n, h, w, c, o = shape
+    x, wk, swf = _inputs(shape, 7, cuda_device)
+    g = _cotangent(shape, 8, cuda_device)
+    want = ric_kernels.ric_conv_bwd_reference(
+        *(t.double() for t in (x, wk, swf, g)))
+    got = ric_kernels.ric_conv_bwd(x, wk, swf, g)
+    dz = _rna_tf32(ric_kernels.bwd_dz(g, swf).view(-1, 9 * o)).double()
+    wkt = wk.transpose(1, 2).reshape(9 * o, c)
+    tf32 = (dz @ _rna_tf32(wkt).double(),
+            (_rna_tf32(x.view(-1, c)).double().t() @ dz).view(c, 9, o)
+            .permute(1, 0, 2))
+    for a, t, b in zip(got, tf32, want):
+        assert (a.double() - b).norm() <= 1e-5 * b.norm()
+        assert (t.reshape(b.shape) - b).norm() > 1e-5 * b.norm()
+
+
+@pytest.mark.cuda
+def test_gemm_launch_refuses_a_foreign_plan(cuda_device):
+    """The GEMM launcher takes only its own tile sizes and K slices that
+    are whole stages covering K exactly."""
+    from drawingspinup_torch.kernels._build import extension
+
+    ext = extension()
+    a = torch.ones((64, 32), device=cuda_device)
+    b = torch.ones((32, 64), device=cuda_device)
+    out = torch.empty((64, 64), device=cuda_device)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(bm, slice_k, slices):
+        return ext.ric_conv_bwd_gemm(
+            a.data_ptr(), 1, b.data_ptr(), out.data_ptr(), 64, 64, 32,
+            slice_k, slices, bm, ric_kernels.GEMM_BN, ric_kernels.GEMM_BK,
+            stream)
+
+    assert launch(ric_kernels.GEMM_BM, 32, 1) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.full_like(out, 32.0))
+    assert launch(2 * ric_kernels.GEMM_BM, 32, 1) != 0
+    assert launch(ric_kernels.GEMM_BM, 32, 2) != 0     # a slice past K
+    assert launch(ric_kernels.GEMM_BM, 16, 2) != 0     # not a whole stage
 
 
 @pytest.mark.cuda
