@@ -18,9 +18,15 @@ views of a synthetic sphere, 600 steps, export at mc512. Phases:
   2. build the CUDA kernels (RIC conv forward and backward, hash-grid encode
      and table gradient, row gather) and the native library, with the build
      times;
-  3. forward kernel against its plain PyTorch twin at the 8 RIC layer
-     shapes of a 512² GeneratorJ_RIC forward: max |kernel − plain| ≤ 1e-4 ·
-     max |plain|, with the median CUDA-event time of each;
+  3. forward kernel (3xTF32 implicit GEMM) against its plain PyTorch twin
+     at the 8 RIC layer shapes of a 512² GeneratorJ_RIC forward: max
+     |kernel − plain| ≤ 1e-4 · max |plain|, within relative L2 1e-5 of the
+     twin run in float64, a limit that the same product on TF32-rounded
+     operands (plain TF32) misses, a second launch bit-identical; the
+     median CUDA-event time of each, the bound and the share of it reached,
+     and the yardstick: torch.matmul in f32 of U · Wk, with U the sampled
+     input (``ric_conv_sample_reference``) built outside the timed region
+     (timed here only; the port never calls it);
   4. the serving path through the port's CLIs on a synthetic uid (2 actions
      × 4 frames): exactly 21 kernel launches per GeneratorJ_RIC frame,
      every frame and GIF written, ms per frame of each stage;
@@ -35,7 +41,8 @@ views of a synthetic sphere, 600 steps, export at mc512. Phases:
      GEMM, the dwk GEMM with its ordered sum), its bound and the share of
      it reached, and the yardstick: torch.matmul of the same two products
      in f32 on the same dz (timed here only; the port never calls it); and
-     the forward kernel at the same shapes;
+     the forward kernel at the same shapes, with phase 3's checks and
+     yardstick;
   7. the training path through the port's CLIs on a second synthetic uid
      (the same actions, a rest_pose keyframe and the character drawings):
      22 forward and 21 backward launches per stage-1 step and 21 forward
@@ -121,10 +128,10 @@ UID = "smoke"
 F32_TOL = 1e-3          # phase 5: tanh outputs of 21 reordered-sum layers
 REL_TOL = 1e-4          # phase 3: f32 sums of up to 9·C products, reordered
 BWD_REL_TOL = 3e-4      # phase 6: the Pallas VJP's bound (test_ric_pallas.py)
-F64_REL_L2 = 1e-5       # phase 6: dx, dwk vs float64 (plain TF32 misses it)
+F64_REL_L2 = 1e-5       # phases 3, 6: RIC kernels vs float64 (plain TF32 misses)
 STEP_REL_TOL = 1e-4     # phase 8: losses
 GRAD_REL_TOL = 1e-2     # phase 8: relative L2 error of each gradient vs f64
-RIC_SOURCE = "drawingspinup_torch/kernels/csrc/ric_conv_fwd.cu"
+RIC_SOURCE = "drawingspinup_torch/kernels/csrc/ric_conv_fwd_gemm.cu"
 RIC_REPLACES = "drawingspinup_tpu/kernels/ric_conv.py:100"
 BWD_SOURCE = "drawingspinup_torch/kernels/csrc/ric_conv_bwd_gemm.cu"
 BWD_REPLACES = "drawingspinup_tpu/kernels/ric_conv.py:128"
@@ -289,6 +296,54 @@ def rna_tf32(t):
     return ((t.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
 
 
+def fwd_accuracy(x, wk, swf, got, where: str):
+    """(relative L2 error of the forward's ``got``, and of plain TF32: the
+    same product U · Wk on TF32-rounded operands) against the twin run in
+    float64; raises unless the first is within F64_REL_L2 and the second is
+    not."""
+    from drawingspinup_torch.kernels import ric_conv as rk
+
+    c, o = wk.shape[1], wk.shape[2]
+    want = rk.ric_conv_reference(x.double(), wk.double(), swf.double())
+    u = rk.ric_conv_sample_reference(x, swf).view(-1, 9 * c)
+    tf32 = rna_tf32(u).double() @ rna_tf32(wk.view(9 * c, o)).double()
+    norm = want.norm()
+    f64 = ((got.double() - want).norm() / norm).item()
+    plain = ((tf32.view(want.shape) - want).norm() / norm).item()
+    check(math.isfinite(f64) and f64 <= F64_REL_L2,
+          f"ric_conv_fwd at {where}: relative L2 error {f64:.3e} against "
+          f"float64 > {F64_REL_L2:g}")
+    check(plain > F64_REL_L2,
+          f"ric_conv_fwd at {where}: plain TF32's relative L2 error "
+          f"{plain:.3e} does not exceed {F64_REL_L2:g}, so the float64 check "
+          f"cannot tell it from 3xTF32")
+    return f64, plain
+
+
+def fwd_times(x, wk, swf, reps: int) -> dict:
+    """The forward's times, its plain twin's, and the cuBLAS yardstick's:
+    torch.matmul in f32 of U (P × 9C) · Wk (9C × O), U built first."""
+    import torch
+
+    from drawingspinup_torch.kernels import ric_conv as rk
+
+    c, o = wk.shape[1], wk.shape[2]
+    u = rk.ric_conv_sample_reference(x, swf).view(-1, 9 * c)
+    w2 = wk.view(9 * c, o)
+
+    def fwd():
+        rk.ric_conv_fwd(x, wk, swf)
+
+    def library():
+        torch.matmul(u, w2)
+
+    return {"ms": cuda_ms(fwd, reps), "device_ms": device_ms(fwd, reps),
+            "plain_ms": cuda_ms(lambda: rk.ric_conv_reference(x, wk, swf),
+                                reps),
+            "library_ms": cuda_ms(library, reps),
+            "library_device_ms": device_ms(library, reps)}
+
+
 def phase_versions() -> str:
     import torch
 
@@ -319,8 +374,10 @@ def phase_build() -> None:
 
 
 def phase_kernel_vs_plain(device, shapes=RIC_SHAPES, reps: int = 10):
-    """Per shape: (max abs err, kernel ms, plain ms). Raises on a shape
-    where the kernel disagrees with the twin."""
+    """Per shape: a dict of the errors (against the twin and float64, plain
+    TF32's beside), the times and the bound. Raises on a shape where the
+    kernel disagrees with the twin or float64, or differs between two
+    launches."""
     import torch
 
     from drawingspinup_torch.kernels import ric_conv as rk
@@ -335,21 +392,33 @@ def phase_kernel_vs_plain(device, shapes=RIC_SHAPES, reps: int = 10):
         swf = torch.from_numpy(ric_shifted_weights(hw, hw).copy()).to(device)
         want = rk.ric_conv_reference(x, wk, swf)
         got = rk.ric_conv_fwd(x, wk, swf)
+        again = rk.ric_conv_fwd(x, wk, swf)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         scale = want.abs().max().item()
         check(math.isfinite(err) and err <= REL_TOL * scale,
               f"kernel disagrees at (H,C,O)={(hw, c, o)}: max err {err:.3e}"
               f" > {REL_TOL:g} * {scale:.3e}")
-        ms = cuda_ms(lambda: rk.ric_conv_fwd(x, wk, swf), reps)
-        dev = device_ms(lambda: rk.ric_conv_fwd(x, wk, swf), reps)
-        plain = cuda_ms(lambda: rk.ric_conv_reference(x, wk, swf), reps)
-        bound, by, bound_f32 = ric_bounds(*ric_fwd_work(1, hw, c, o))
+        check(torch.equal(got, again),
+              f"forward not bit-identical across launches at {(hw, c, o)}")
+        del want, again
+        f64, plain_tf32 = fwd_accuracy(x, wk, swf, got, f"{(hw, c, o)}")
+        row = {"err": err, "f64_rel_l2": f64, "tf32_rel_l2": plain_tf32,
+               **fwd_times(x, wk, swf, reps)}
+        row["bound_ms"], by, bound_f32 = ric_bounds(*ric_fwd_work(1, hw, c,
+                                                                  o))
+        plan = rk.fwd_plan(1, hw, hw, c, o)
         report(f"[3] ric_conv_fwd (H,C,O)=({hw},{c},{o}): max err {err:.3e} "
-               f"(max |plain| {scale:.3e}), kernel {ms:.3f} ms (device "
-               f"{dev:.3f} ms), plain {plain:.3f} ms, bound {bound:.4f} ms "
-               f"(3xTF32, {by}; f32 {bound_f32:.4f} ms)")
-        results.append((err, ms, plain, dev))
+               f"(max |plain| {scale:.3e}), relative L2 against float64 "
+               f"{f64:.2e} (plain TF32 {plain_tf32:.2e}), bit-identical; "
+               f"kernel {row['ms']:.3f} ms (device {row['device_ms']:.3f} "
+               f"ms; {plan.blocks} blocks of {plan.bn} outputs, "
+               f"{plan.slices} slices), plain {row['plain_ms']:.3f} ms, "
+               f"bound {row['bound_ms']:.4f} ms (3xTF32, {by}; f32 "
+               f"{bound_f32:.4f} ms), {row['bound_ms'] / row['device_ms']:.1%}"
+               f" of it; torch.matmul f32 of U·Wk {row['library_ms']:.3f} ms "
+               f"(device {row['library_device_ms']:.3f} ms)")
+        results.append(row)
     return results
 
 
@@ -589,6 +658,7 @@ def phase_bwd_vs_plain(device, reps: int = 10):
         dz_want = rk.ric_conv_bwd_dz_reference(cot, swf)
         fwd_want = rk.ric_conv_reference(x, wk, swf)
         fwd_got = rk.ric_conv_fwd(x, wk, swf)
+        fwd_again = rk.ric_conv_fwd(x, wk, swf)
         torch.cuda.synchronize()
         errs = {}
         for name, a, b, tol in (("dx", got[0], want[0], BWD_REL_TOL),
@@ -607,6 +677,11 @@ def phase_bwd_vs_plain(device, reps: int = 10):
         check(torch.equal(got[1], again[1]) and (
             not need_dx or torch.equal(got[0], again[0])),
               f"backward not bit-identical across launches at {(hw, c, o)}")
+        check(torch.equal(fwd_got, fwd_again),
+              f"forward not bit-identical across launches at {(hw, c, o)}")
+        del fwd_want, fwd_again
+        fwd_f64, fwd_tf32 = fwd_accuracy(x, wk, swf, fwd_got,
+                                         f"N={BATCH} {(hw, c, o)}")
         dx_plan, dwk_plan = rk.bwd_plan(BATCH, hw, hw, c, o)
         dz2 = dz.view(-1, 9 * o)
         wkt = wk.transpose(1, 2).reshape(9 * o, c)
@@ -644,9 +719,6 @@ def phase_bwd_vs_plain(device, reps: int = 10):
         def bwd():
             rk.ric_conv_bwd(x, wk, swf, cot, need_dx)
 
-        def fwd():
-            rk.ric_conv_fwd(x, wk, swf)
-
         row = {
             "err": max(errs[n] for n in ("dx", "dwk") if n in errs),
             "fwd_err": errs["fwd"],
@@ -663,17 +735,18 @@ def phase_bwd_vs_plain(device, reps: int = 10):
                                        reps),
             "library_ms": cuda_ms(library, reps),
             "library_device_ms": device_ms(library, reps),
-            "fwd_ms": cuda_ms(fwd, reps),
-            "fwd_device_ms": device_ms(fwd, reps),
-            "fwd_plain_ms": cuda_ms(
-                lambda: rk.ric_conv_reference(x, wk, swf), reps),
+            "fwd_f64_rel_l2": fwd_f64,
+            "fwd_tf32_rel_l2": fwd_tf32,
         }
+        row.update({"fwd_" + k: v
+                    for k, v in fwd_times(x, wk, swf, reps).items()})
         (row["bound_ms"], row["bound_by"],
          row["bound_f32_ms"]) = ric_bounds(*ric_bwd_work(BATCH, hw, c, o,
                                                          need_dx))
         fwd_bound = ric_bounds(*ric_fwd_work(BATCH, hw, c, o))
         row["fwd_bound_ms"], row["fwd_bound_f32_ms"] = (fwd_bound[0],
                                                         fwd_bound[2])
+        fplan = rk.fwd_plan(BATCH, hw, hw, c, o)
         dx_part = (f"dx GEMM {row['dx_device_ms']:.3f} ms ({dx_plan.blocks} "
                    f"blocks, {dx_plan.slices} slices)" if need_dx
                    else "no dx")
@@ -694,8 +767,14 @@ def phase_bwd_vs_plain(device, reps: int = 10):
                f"f32 of the products "
                f"{row['library_ms']:.3f} ms (device "
                f"{row['library_device_ms']:.3f} ms); plain "
-               f"{row['plain_ms']:.3f} ms; forward kernel {row['fwd_ms']:.3f}"
-               f" ms (device {row['fwd_device_ms']:.3f}), plain "
+               f"{row['plain_ms']:.3f} ms; forward: relative L2 against "
+               f"float64 {fwd_f64:.2e} (plain TF32 {fwd_tf32:.2e}), "
+               f"bit-identical, kernel {row['fwd_ms']:.3f} ms (device "
+               f"{row['fwd_device_ms']:.3f}; {fplan.blocks} blocks, "
+               f"{fplan.slices} slices), bound {row['fwd_bound_ms']:.4f} ms, "
+               f"{row['fwd_bound_ms'] / row['fwd_device_ms']:.1%} of it, "
+               f"torch.matmul f32 of U·Wk {row['fwd_library_ms']:.3f} ms "
+               f"(device {row['fwd_library_device_ms']:.3f}), plain "
                f"{row['fwd_plain_ms']:.3f} ms")
         results.append(row)
     return results
@@ -1476,6 +1555,10 @@ def kernels_line(per_shape, serving_launches, train_shapes, fwd_launches,
 
     fwd_bound = ric_bound([(s[3], *ric_fwd_work(1, s[0], s[1], s[2]))
                            for s in RIC_SHAPES])
+
+    def frame_sum(key: str) -> float:
+        return sum(s[3] * r[key] for s, r in zip(RIC_SHAPES, per_shape))
+
     bwd_bound = ric_bound([(s[4], *ric_bwd_work(BATCH, s[0], s[1], s[2],
                                                 k > 0))
                            for k, s in enumerate(TRAIN_SHAPES)])
@@ -1486,23 +1569,32 @@ def kernels_line(per_shape, serving_launches, train_shapes, fwd_launches,
     return {"kernels": [{
         "name": "ric_conv_fwd", "route": "cuda", "source": RIC_SOURCE,
         "replaces": RIC_REPLACES, "launches": fwd_launches,
-        "max_abs_err": max(max(r[0] for r in per_shape),
+        "max_abs_err": max(max(r["err"] for r in per_shape),
                            max(r["fwd_err"] for r in train_shapes)),
-        "ms": sum(s[3] * r[1] for s, r in zip(RIC_SHAPES, per_shape)),
-        "plain_ms": sum(s[3] * r[2] for s, r in zip(RIC_SHAPES, per_shape)),
+        "ms": frame_sum("ms"), "plain_ms": frame_sum("plain_ms"),
         "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
-        "library_ms": None,
+        "library_ms": frame_sum("library_ms"),
         "timed": f"sum over the {RIC_PER_FRAME} RIC convs of one "
                  f"{FRAME}^2 GeneratorJ_RIC forward (phase 3 medians); "
-                 f"{TIMED}",
-        "device_ms": sum(s[3] * r[3] for s, r in zip(RIC_SHAPES, per_shape)),
+                 f"{TIMED}; library_ms: torch.matmul in f32 of U (pixels x "
+                 f"9C, the sampled input, built before timing) and wk "
+                 f"(9C x O)",
+        "device_ms": frame_sum("device_ms"),
+        "library_device_ms": frame_sum("library_device_ms"),
         "bound_f32_ms": fwd_bound[2],
+        "f64_rel_l2": max(max(r["f64_rel_l2"] for r in per_shape),
+                          max(r["fwd_f64_rel_l2"] for r in train_shapes)),
+        "plain_tf32_f64_rel_l2": min(
+            min(r["tf32_rel_l2"] for r in per_shape),
+            min(r["fwd_tf32_rel_l2"] for r in train_shapes)),
         "launches_serving_path": serving_launches,
         "ms_train_step": step_sum("fwd_ms", 3),
         "device_ms_train_step": step_sum("fwd_device_ms", 3),
         "plain_ms_train_step": step_sum("fwd_plain_ms", 3),
         "bound_ms_train_step": step_sum("fwd_bound_ms", 3),
         "bound_f32_ms_train_step": step_sum("fwd_bound_f32_ms", 3),
+        "library_ms_train_step": step_sum("fwd_library_ms", 3),
+        "library_device_ms_train_step": step_sum("fwd_library_device_ms", 3),
     }, {
         "name": "ric_conv_bwd", "route": "cuda", "source": BWD_SOURCE,
         "replaces": BWD_REPLACES, "launches": bwd_launches,

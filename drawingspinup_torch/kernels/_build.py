@@ -12,7 +12,7 @@ import threading
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (_CSRC / "bindings.cpp", _CSRC / "ric_conv_fwd.cu",
+SOURCES = (_CSRC / "bindings.cpp", _CSRC / "ric_conv_fwd_gemm.cu",
            _CSRC / "ric_conv_bwd.cu", _CSRC / "ric_conv_bwd_gemm.cu",
            _CSRC / "hashgrid_fwd.cu",
            _CSRC / "hashgrid_bwd.cu", _CSRC / "row_gather.cu")

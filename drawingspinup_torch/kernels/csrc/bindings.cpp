@@ -14,8 +14,11 @@
 #include <vector>
 
 extern "C" int ric_conv_fwd_launch(const float* x, const float* wk,
-                                   const float* swf, float* out, int n, int h,
-                                   int w, int c, int o, void* stream);
+                                   const float* swf, float* wsplit,
+                                   float* part, float* out, int n, int h,
+                                   int w, int c, int o, int bn, int ck,
+                                   int slice_stages, int slices,
+                                   void* stream);
 extern "C" int ric_conv_bwd_dz_launch(const float* g, const float* swf,
                                       float* dz, int n, int h, int w, int o,
                                       void* stream);
@@ -62,11 +65,14 @@ T* ptr(std::uintptr_t address) {
 }
 
 int ric_conv_fwd(std::uintptr_t x, std::uintptr_t wk, std::uintptr_t swf,
+                 std::uintptr_t wsplit, std::uintptr_t part,
                  std::uintptr_t out, int n, int h, int w, int c, int o,
+                 int bn, int ck, int slice_stages, int slices,
                  std::uintptr_t stream) {
   return ric_conv_fwd_launch(ptr<const float>(x), ptr<const float>(wk),
-                             ptr<const float>(swf), ptr<float>(out), n, h, w,
-                             c, o, ptr<void>(stream));
+                             ptr<const float>(swf), ptr<float>(wsplit),
+                             ptr<float>(part), ptr<float>(out), n, h, w, c, o,
+                             bn, ck, slice_stages, slices, ptr<void>(stream));
 }
 
 int ric_conv_bwd_dz(std::uintptr_t g, std::uintptr_t swf, std::uintptr_t dz,
@@ -152,7 +158,8 @@ int row_gather(std::uintptr_t tab, long long t, int row_bytes,
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("ric_conv_fwd", &ric_conv_fwd,
-        "Launch the RIC conv forward kernel; returns the cudaError_t code.");
+        "Launch the RIC conv forward (wk split, 3xTF32 implicit GEMM, ordered "
+        "sum of its slices); returns the cudaError_t code.");
   m.def("ric_conv_bwd_dz", &ric_conv_bwd_dz,
         "Launch the RIC conv backward's cotangent sampling kernel; returns "
         "the cudaError_t code.");

@@ -9,7 +9,11 @@ H, W) f32 (``ric_shifted_weights``) → (N,H,W,O) f32.
 ``ric_conv`` runs ``RICConvFunction`` on every device. Its forward and
 backward dispatch on the tensor's device: on the CPU they are the plain
 twins (``ric_conv_reference``, ``ric_conv_bwd_reference``), on CUDA the
-hand-written kernels in ``csrc/``, which launch or raise. The backward
+hand-written kernels in ``csrc/``, which launch or raise. The forward on
+CUDA (``ric_conv_fwd``, ``csrc/ric_conv_fwd_gemm.cu``) is one 3xTF32
+tensor-core implicit GEMM, out = U · Wk with U the sampled input of
+``ric_conv_sample_reference`` built tile by tile in shared memory;
+``fwd_plan`` plans its output width and split-K slices. The backward
 returns ``dx`` and ``dwk`` and no gradient to ``swf``, as ``_vjp_bwd``
 does, and computes no ``dx`` when the input needs none. On CUDA it is
 four parts, each its own function: the sampled cotangent ``dz``
@@ -43,6 +47,16 @@ SMS = 132                       # streaming multiprocessors of an H100
 _TARGET_BLOCKS = 4 * SMS
 _MIN_SLICE_STAGES = 4
 
+# The forward's tiles (csrc/ric_conv_fwd_gemm.cu, which refuses a launch
+# planned with others): an 8×8 pixel tile (64 rows, one wgmma M), channel
+# chunks of FWD_CK, and an output width of one of FWD_BN. One block runs on
+# an SM at a time, so a launch aims at two waves; a slice walks at least
+# three stages, as many as the smallest ring holds.
+FWD_TILE, FWD_CK = 8, 32
+FWD_BN = (32, 64, 128)
+_FWD_TARGET_BLOCKS = 2 * SMS
+_MIN_FWD_SLICE_STAGES = 3
+
 
 def _shift2d(y: torch.Tensor, sy: int, sx: int) -> torch.Tensor:
     """out[:, a, b] = y[:, a+sy, b+sx], zero outside (NHWC)."""
@@ -62,6 +76,20 @@ def ric_conv_reference(x: torch.Tensor, wk: torch.Tensor,
         t = _shift2d(y[:, :, :, i], sy, sx)
         out = t if out is None else out + t
     return out
+
+
+def ric_conv_sample_reference(x: torch.Tensor,
+                              swf: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch sampled input U (N,H,W,9,C) of the forward's implicit
+    GEMM: ``U[..., t, :] = Σ_i shift_i(swf[i, t] · x)``, zero-filled, so
+    that ``U.view(P, 9·C) @ wk.view(9·C, O)`` is ``ric_conv_reference``."""
+    u = None
+    for i, (sy, sx) in enumerate(SHIFTS):
+        xs = _shift2d(x, sy, sx)
+        ws = _shift2d(swf[i].permute(1, 2, 0)[None], sy, sx)[0]   # (H,W,9)
+        term = ws[None, :, :, :, None] * xs[:, :, :, None, :]
+        u = term if u is None else u + term
+    return u
 
 
 def ric_conv_bwd_dz_reference(g: torch.Tensor,
@@ -141,6 +169,78 @@ def bwd_plan(n: int, h: int, w: int, c: int, o: int
     return gemm_plan(p, c, j), gemm_plan(c, j, p)
 
 
+@dataclasses.dataclass(frozen=True)
+class FwdPlan:
+    """One launch of the forward (csrc/ric_conv_fwd_gemm.cu) at x (n, h, w,
+    c) and o outputs: a block per (8×8 pixel tile, ``bn`` outputs, slice);
+    the K of 9·c is walked in stages of one tap of one ``FWD_CK``-channel
+    chunk (chunk-major, tap-minor), and slice s sums the stages
+    ``bounds()[s]`` into its own partial product, added in slice order."""
+    n: int
+    h: int
+    w: int
+    c: int
+    o: int
+    bn: int
+    slice_stages: int
+    slices: int
+
+    @property
+    def tiles_y(self) -> int:
+        return _cdiv(self.h, FWD_TILE)
+
+    @property
+    def tiles_x(self) -> int:
+        return _cdiv(self.w, FWD_TILE)
+
+    @property
+    def o_tiles(self) -> int:
+        return _cdiv(self.o, self.bn)
+
+    @property
+    def stages(self) -> int:
+        return 9 * _cdiv(self.c, FWD_CK)
+
+    @property
+    def grid(self) -> Tuple[int, int, int]:
+        return (self.n * self.tiles_y * self.tiles_x, self.o_tiles,
+                self.slices)
+
+    @property
+    def blocks(self) -> int:
+        gx, gy, gz = self.grid
+        return gx * gy * gz
+
+    def tile_origin(self, bx: int) -> Tuple[int, int, int]:
+        """(image, first row, first column) of grid column ``bx``'s tile."""
+        per_image = self.tiles_y * self.tiles_x
+        tile = bx % per_image
+        return (bx // per_image, (tile // self.tiles_x) * FWD_TILE,
+                (tile % self.tiles_x) * FWD_TILE)
+
+    def bounds(self) -> List[Tuple[int, int]]:
+        """Each slice's stages [s0, s1), in the order the slices are
+        summed."""
+        return [(s * self.slice_stages,
+                 min(self.stages, (s + 1) * self.slice_stages))
+                for s in range(self.slices)]
+
+
+def fwd_plan(n: int, h: int, w: int, c: int, o: int) -> FwdPlan:
+    """The forward's launch: ``bn`` the narrowest of ``FWD_BN`` that holds
+    o (the widest, tiled, past it); and as many fixed stage slices, each at
+    least ``_MIN_FWD_SLICE_STAGES`` deep, as bring the grid to about
+    ``_FWD_TARGET_BLOCKS`` blocks (one slice where the tiles alone reach
+    it). A function of the shape alone, and so is the summation order."""
+    bn = next((b for b in FWD_BN if o <= b), FWD_BN[-1])
+    tiles = n * _cdiv(h, FWD_TILE) * _cdiv(w, FWD_TILE) * _cdiv(o, bn)
+    stages = 9 * _cdiv(c, FWD_CK)
+    want = max(1, min(_cdiv(_FWD_TARGET_BLOCKS, tiles),
+                      stages // _MIN_FWD_SLICE_STAGES))
+    per = _cdiv(stages, want)
+    return FwdPlan(n, h, w, c, o, bn, per, _cdiv(stages, per))
+
+
 def _check(name: str, x: torch.Tensor, wk: torch.Tensor,
            swf: torch.Tensor) -> None:
     for arg, t in (("x", x), ("wk", wk), ("swf", swf)):
@@ -174,8 +274,9 @@ def _raise_on(ext, name: str, err: int) -> None:
 
 def ric_conv_fwd(x: torch.Tensor, wk: torch.Tensor,
                  swf: torch.Tensor) -> torch.Tensor:
-    """Launch the forward kernel on the current stream; raises on any input
-    it does not take and on a failed launch."""
+    """Launch the forward on the current stream, on ``fwd_plan``'s tiles
+    and slices; raises on any input it does not take and on a failed
+    launch."""
     global LAUNCHES
     _check("ric_conv_fwd", x, wk, swf)
     from drawingspinup_torch.kernels._build import extension
@@ -183,11 +284,19 @@ def ric_conv_fwd(x: torch.Tensor, wk: torch.Tensor,
     ext = extension()
     n, h, w, c = x.shape
     o = wk.shape[2]
+    plan = fwd_plan(n, h, w, c, o)
     out = torch.empty((n, h, w, o), dtype=torch.float32, device=x.device)
+    # wk's B tiles, split into TF32 hi and lo by the launch's pre-pass
+    wsplit = torch.empty((plan.o_tiles, plan.stages, 2, plan.bn * FWD_CK),
+                         dtype=torch.float32, device=x.device)
+    part = out if plan.slices == 1 else torch.empty(
+        (plan.slices, n, h, w, o), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
         err = ext.ric_conv_fwd(x.data_ptr(), wk.data_ptr(), swf.data_ptr(),
-                               out.data_ptr(), n, h, w, c, o, stream)
+                               wsplit.data_ptr(), part.data_ptr(),
+                               out.data_ptr(), n, h, w, c, o, plan.bn,
+                               FWD_CK, plan.slice_stages, plan.slices,
+                               _stream())
     _raise_on(ext, "ric_conv_fwd", err)
     LAUNCHES += 1
     return out

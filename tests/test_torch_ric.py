@@ -10,7 +10,11 @@ N·H·W·9 products per element). The copied numpy tables must be
 bit-equal. The CUDA backward's arithmetic (3xTF32 products over fixed
 split-K slices, summed in order) is emulated here in numpy on the
 planner's slices and held to the same bounds, and to float64 within 1e-5
-relative L2 at a dwk that sums 40 960 pixels."""
+relative L2 at a dwk that sums 40 960 pixels. The CUDA forward's (f32
+sampling, 3xTF32 products into a fresh accumulator per stage, fixed stage
+slices summed in order) is emulated the same way on ``fwd_plan``'s slices,
+held to the twin and the Pallas forward at 2e-5 and to float64 within 1e-5
+relative L2 at K = 9·256 and at C = 6."""
 
 import numpy as np
 import pytest
@@ -310,3 +314,142 @@ def test_bwd_parts_reject_cpu_tensors_before_build(part):
         else:
             ric_kernels.bwd_dwk(x, dz, dwk_plan)
     assert _build._ext is None
+
+
+@pytest.mark.parametrize(
+    "shape", [(40, hw, hw, c, o) for hw, c, o in TRAIN_SHAPES]
+    + [(4, hw, hw, c, o) for hw, c, o in TRAIN_SHAPES] + ODD_SHAPES)
+def test_fwd_plan_tiles_cover_pixels_and_slices_cover_k(shape):
+    """The forward's 8×8 tiles cover every pixel of every image once, its
+    output tiles every output, its stage slices the 9·ceil(C / 32) stages
+    contiguously from 0 in index order; the plan is the same for the same
+    shape, and at the training batch every launch fills the 132 SMs."""
+    n, h, w, c, o = shape
+    plan = ric_kernels.fwd_plan(*shape)
+    assert plan == ric_kernels.fwd_plan(*shape)
+    assert (plan.n, plan.h, plan.w, plan.c, plan.o) == shape
+    assert plan.bn in ric_kernels.FWD_BN
+    assert plan.o_tiles * plan.bn >= o > (plan.o_tiles - 1) * plan.bn
+    tile = ric_kernels.FWD_TILE
+    seen = np.zeros((n, h, w), np.int64)
+    for bx in range(plan.grid[0]):
+        img, y0, x0 = plan.tile_origin(bx)
+        assert img < n and y0 < h and x0 < w
+        seen[img, y0:y0 + tile, x0:x0 + tile] += 1
+    assert (seen == 1).all()
+    assert plan.stages == 9 * -(-c // ric_kernels.FWD_CK)
+    bounds = plan.bounds()
+    assert len(bounds) == plan.slices == plan.grid[2] >= 1
+    assert bounds[0][0] == 0 and bounds[-1][1] == plan.stages
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    assert all(s0 < s1 for s0, s1 in bounds)
+    assert plan.grid[1] == plan.o_tiles
+    if n == 40:
+        assert plan.blocks >= ric_kernels.SMS, (plan, plan.blocks)
+
+
+FWD_SHAPES = [(2, 8, 8, 4, 8), (1, 12, 20, 5, 7), (3, 8, 12, 16, 16),
+              (2, 16, 16, 40, 130)]
+
+
+@pytest.mark.parametrize("shape", FWD_SHAPES)
+def test_sample_reference_times_wk_matches_twin_and_pallas(shape):
+    """U · Wk, with U from ``ric_conv_sample_reference``, against
+    ``ric_conv_reference`` and the Pallas ``ric_conv`` (interpret mode)."""
+    n, h, w, c, o = shape
+    x, wk, swf = _inputs(shape, seed=sum(shape))
+    u = ric_kernels.ric_conv_sample_reference(torch.from_numpy(x),
+                                              torch.from_numpy(swf.copy()))
+    assert tuple(u.shape) == (n, h, w, 9, c)
+    got = (u.reshape(-1, 9 * c) @ torch.from_numpy(wk).reshape(9 * c, o)
+           ).reshape(n, h, w, o).numpy()
+    np.testing.assert_allclose(got, _twin(x, wk, swf), **TOL)
+    want = np.asarray(pallas_ric_conv(jnp.asarray(x), jnp.asarray(wk),
+                                      jnp.asarray(swf)))
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def _shift(a, sy, sx):
+    """out[:, a, b] = a[:, a+sy, b+sx], zero outside (rows and columns are
+    axes 1 and 2)."""
+    out = np.zeros_like(a)
+    h, w = a.shape[1], a.shape[2]
+    ys, xs = slice(max(0, -sy), min(h, h - sy)), slice(max(0, -sx),
+                                                      min(w, w - sx))
+    yd, xd = slice(max(0, sy), min(h, h + sy)), slice(max(0, sx),
+                                                     min(w, w + sx))
+    out[:, ys, xs] = a[:, yd, xd]
+    return out
+
+
+def _emulated_fwd(x, wk, swf, split=True):
+    """The CUDA forward's arithmetic: U sampled in f32 in the kernel's
+    order (tap 4 from the center shift alone); per stage (one tap of one
+    32-channel chunk, k-steps of 8 channels) lo·hi, hi·lo and hi·hi of the
+    TF32 splits (hi·hi alone without ``split``) added in order into a fresh
+    f32 accumulator, which is added to its slice's f32 sum; the slices'
+    partial products added in ``fwd_plan``'s order."""
+    n, h, w, c = x.shape
+    o = wk.shape[2]
+    plan = ric_kernels.fwd_plan(n, h, w, c, o)
+    ck = ric_kernels.FWD_CK
+    xs = [_shift(x, sy, sx) for sy, sx in ric_tables.SHIFTS]
+    ws = [_shift(swf[i], sy, sx)                       # (9 taps, H, W)
+          for i, (sy, sx) in enumerate(ric_tables.SHIFTS)]
+    u = np.zeros((9, n, h, w, c), np.float32)
+    for t in range(9):
+        for i in ([4] if t == 4 else range(9)):
+            u[t] = u[t] + ws[i][t][None, :, :, None] * xs[i]
+    u = u.reshape(9, -1, c)
+    split_tf32 = (lambda a: (_rna_tf32(a), _rna_tf32(a - _rna_tf32(a))))
+    out = np.zeros((n * h * w, o), np.float32)
+    for s0, s1 in plan.bounds():
+        acc = np.zeros_like(out)
+        for s in range(s0, s1):
+            chunk, t = divmod(s, 9)
+            c0 = chunk * ck
+            depth = min(ck, -(-(c - c0) // 8) * 8)
+            a = np.zeros((n * h * w, depth), np.float32)
+            b = np.zeros((depth, o), np.float32)
+            a[:, :min(depth, c - c0)] = u[t][:, c0:c0 + depth]
+            b[:min(depth, c - c0)] = wk[t, c0:c0 + depth]
+            (ah, al), (bh, bl) = split_tf32(a), split_tf32(b)
+            fresh = np.zeros_like(out)
+            for k in range(0, depth, 8):
+                kk = slice(k, k + 8)
+                for pa, pb in (((al, bh), (ah, bl)) if split else ()) + (
+                        (ah, bh),):
+                    fresh = fresh + pa[:, kk] @ pb[kk]
+            acc = acc + fresh
+        out = out + acc
+    return out.reshape(n, h, w, o)
+
+
+@pytest.mark.parametrize("shape", FWD_SHAPES + [(40, 8, 8, 64, 16)])
+def test_emulated_3xtf32_fwd_matches_twin_and_pallas(shape):
+    """The CUDA forward's arithmetic against the twin and the Pallas forward
+    (interpret mode) at 2e-5; the last shape cuts K into slices."""
+    x, wk, swf = _inputs(shape, seed=sum(shape) + 1)
+    got = _emulated_fwd(x, wk, swf)
+    np.testing.assert_allclose(got, _twin(x, wk, swf), **TOL)
+    want = np.asarray(pallas_ric_conv(jnp.asarray(x), jnp.asarray(wk),
+                                      jnp.asarray(swf)))
+    np.testing.assert_allclose(got, want, **TOL)
+    if shape[0] == 40:
+        assert ric_kernels.fwd_plan(*shape).slices > 1
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 8, 256, 16), (2, 16, 16, 6, 32)])
+def test_emulated_3xtf32_fwd_matches_float64(shape):
+    """At upconv2's C (K = 9·256) and conv0's C = 6 the emulated forward sits
+    within 1e-5 relative L2 of the twin in float64; TF32 alone (hi·hi) does
+    not."""
+    x, wk, swf = _inputs(shape, seed=11)
+    want = ric_kernels.ric_conv_reference(
+        *(torch.from_numpy(a).double() for a in (x, wk, swf.copy()))).numpy()
+
+    def rel(got):
+        return np.linalg.norm(got - want) / np.linalg.norm(want)
+
+    assert rel(_emulated_fwd(x, wk, swf)) <= 1e-5
+    assert rel(_emulated_fwd(x, wk, swf, split=False)) > 1e-5

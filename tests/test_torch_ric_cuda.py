@@ -10,7 +10,9 @@ one. The file imports no JAX, so it runs on a machine without it:
 
 Tolerances: the forward within 1e-4 of the largest output, the
 summation-order error of f32 sums of up to 9·C products (the kernel
-samples first and multiplies second; the twin multiplies first). The
+samples first and multiplies second; the twin multiplies first), and
+within relative L2 1e-5 of the twin run in float64, which plain TF32
+misses. The
 backward within 3e-4 of the largest twin output, the bound
 tests/test_ric_pallas.py sets for the Pallas VJP: dwk sums up to N·H·W·9
 products per element."""
@@ -49,14 +51,23 @@ def _inputs(shape, seed, device):
     return tuple(torch.from_numpy(a).to(device) for a in (x, wk, swf))
 
 
+# (H = W, C, O) of the RIC convs of a stage-1 training step on 32² patches
+# (chip_smoke.py's TRAIN_SHAPES), here at N = 4
+TRAIN_SHAPES = [(32, 6, 32), (16, 32, 64), (8, 64, 128), (8, 128, 128),
+                (16, 256, 128), (32, 192, 128), (32, 166, 64), (32, 64, 64)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 12, 20, 21, 7), (1, 9, 17, 5, 40),
                                    (1, 32, 32, 166, 64),
-                                   (3, 16, 16, 64, 128), (1, 1, 1, 3, 33)])
+                                   (3, 16, 16, 64, 128), (1, 1, 1, 3, 33)]
+                         + [(4, hw, hw, c, o) for hw, c, o in TRAIN_SHAPES]
+                         + [(1, 512, 512, 192, 128)])
 def test_kernel_matches_twin(shape, cuda_device):
-    """Ragged tiles (H, W not multiples of the 8×16 tile), channel counts
-    off the 16-channel chunk, O off the 4-wide register tile and across
-    both output tilings, batch > 1, a 1×1 image."""
+    """Ragged tiles (H, W not multiples of the 8×8 tile), channel counts
+    off the 32-channel chunk and its 16-byte copies, O off the output
+    widths and tiled past them, batch > 1, a 1×1 image, every training
+    shape and upconv1's 512² serving shape."""
     x, wk, swf = _inputs(shape, 11, cuda_device)
     want = ric_kernels.ric_conv_reference(x, wk, swf)
     before = ric_kernels.LAUNCHES
@@ -73,6 +84,89 @@ def test_kernel_is_deterministic(cuda_device):
     a = ric_kernels.ric_conv(x, wk, swf)
     b = ric_kernels.ric_conv(x, wk, swf)
     assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_fwd_split_k_is_bit_identical_at_8x8(cuda_device):
+    """At the resnet convs' 8² training shape the forward's stages are cut
+    into slices; two launches give identical bits."""
+    shape = (40, 8, 8, 128, 128)
+    x, wk, swf = _inputs(shape, 9, cuda_device)
+    assert ric_kernels.fwd_plan(*shape).slices > 1
+    a = ric_kernels.ric_conv_fwd(x, wk, swf)
+    b = ric_kernels.ric_conv_fwd(x, wk, swf)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(40, 32, 32, 6, 32), (4, 16, 16, 256, 128),
+                                   (40, 8, 8, 128, 128)])
+def test_fwd_is_f32_accurate_where_plain_tf32_is_not(shape, cuda_device):
+    """The forward within relative L2 1e-5 of the twin run in float64 (K =
+    9·256 at upconv2's C, conv0's C = 6, split K at 8²); the same product on
+    TF32-rounded operands, as a plain TF32 kernel would take them, misses
+    that limit."""
+    n, h, w, c, o = shape
+    x, wk, swf = _inputs(shape, 10, cuda_device)
+    want = ric_kernels.ric_conv_reference(x.double(), wk.double(),
+                                          swf.double())
+    got = ric_kernels.ric_conv_fwd(x, wk, swf)
+    u = ric_kernels.ric_conv_sample_reference(x, swf).view(-1, 9 * c)
+    tf32 = (_rna_tf32(u).double() @ _rna_tf32(wk.view(9 * c, o)).double())
+    assert (got.double() - want).norm() <= 1e-5 * want.norm()
+    assert (tf32.view(want.shape) - want).norm() > 1e-5 * want.norm()
+
+
+@pytest.mark.cuda
+def test_fwd_launch_refuses_a_foreign_plan(cuda_device):
+    """The forward's launcher takes only its own output widths and chunk,
+    and slices that cover the stages exactly."""
+    from drawingspinup_torch.kernels._build import extension
+
+    ext = extension()
+    shape = (1, 8, 8, 32, 32)
+    x, wk, swf = _inputs(shape, 0, cuda_device)
+    plan = ric_kernels.fwd_plan(*shape)
+    wsplit = torch.empty(4 * plan.stages * 2 * 128 * ric_kernels.FWD_CK,
+                         device=cuda_device)
+    out = torch.empty((1, 8, 8, 32), device=cuda_device)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(bn, ck, slice_stages, slices):
+        return ext.ric_conv_fwd(x.data_ptr(), wk.data_ptr(), swf.data_ptr(),
+                                wsplit.data_ptr(), out.data_ptr(),
+                                out.data_ptr(), 1, 8, 8, 32, 32, bn, ck,
+                                slice_stages, slices, stream)
+
+    assert launch(plan.bn, ric_kernels.FWD_CK, 9, 1) == 0
+    torch.cuda.synchronize()
+    want = ric_kernels.ric_conv_reference(x, wk, swf)
+    assert (out - want).abs().max() <= REL_TOL * want.abs().max()
+    assert launch(48, ric_kernels.FWD_CK, 9, 1) != 0
+    assert launch(plan.bn, 16, 9, 1) != 0
+    assert launch(plan.bn, ric_kernels.FWD_CK, 9, 2) != 0   # a slice past K
+    assert launch(plan.bn, ric_kernels.FWD_CK, 4, 2) != 0   # K not covered
+
+
+@pytest.mark.cuda
+def test_cpu_tensor_runs_twin_and_builds_nothing(cuda_device, monkeypatch):
+    """With a card present, CPU tensors still take the plain twins forward
+    and backward, and nothing is built or launched."""
+    from drawingspinup_torch.kernels import _build
+
+    def refuse():
+        raise AssertionError("a CPU tensor reached the kernel build")
+
+    monkeypatch.setattr(_build, "extension", refuse)
+    x, wk, swf = _inputs((2, 12, 20, 5, 7), 4, torch.device("cpu"))
+    wk.requires_grad_(True)
+    before = ric_kernels.LAUNCHES, ric_kernels.BWD_LAUNCHES
+    got = ric_kernels.ric_conv(x, wk, swf)
+    assert torch.equal(got.detach(), ric_kernels.ric_conv_reference(x, wk,
+                                                                    swf))
+    got.sum().backward()
+    assert wk.grad is not None
+    assert (ric_kernels.LAUNCHES, ric_kernels.BWD_LAUNCHES) == before
 
 
 @pytest.mark.cuda
@@ -122,12 +216,6 @@ def _cotangent(shape, seed, device):
 def _assert_close(got, want):
     err = (got - want).abs().max().item()
     assert err <= BWD_REL_TOL * want.abs().max().item(), err
-
-
-# (H = W, C, O) of the RIC convs of a stage-1 training step on 32² patches
-# (chip_smoke.py's TRAIN_SHAPES), here at N = 4
-TRAIN_SHAPES = [(32, 6, 32), (16, 32, 64), (8, 64, 128), (8, 128, 128),
-                (16, 256, 128), (32, 192, 128), (32, 166, 64), (32, 64, 64)]
 
 
 @pytest.mark.cuda
