@@ -61,11 +61,19 @@ views of a synthetic sphere, 600 steps, export at mc512. Phases:
   9. the hash-grid encode (K1) and table-gradient (K2) kernels against their
      plain twins on the production table (10 levels, 2^19 rows), at a
      step's full eval (135 168 points, with the jacobian) and coarse pass
-     (65 536 points), n_active 4, 5 and 6, in bf16 and f32: K1 within
-     1e-5 · max |plain| (f32) or one bf16 ulp of the largest output, K2
-     within relative L2 1e-5 (f32) or 1e-2 (bf16) of the twin's f32 sums
-     and bit-identical from launch to launch; the median CUDA-event time of
-     each;
+     (65 536 points), n_active 4, 5 and 6, in bf16 and f32, first on
+     uniform points and, once phase 11 has trained the uid, on the points
+     of one of its NSR steps in the step's own ray order: K1 within
+     1e-5 · max |plain| (f32) or one bf16 ulp of the largest output, its
+     inactive columns zero; K2 within relative L2 1e-5 (f32) or 1e-2 (bf16)
+     of the twin's f32 sums and 1e-6 of the same terms summed in float64,
+     bit-equal to its PyTorch emulation (hashgrid_bwd_fixed_point) in f32
+     and in the tables' dtype, bit-identical from launch to launch and
+     under a permutation of the points, NaN where the twin is not finite;
+     the median CUDA-event time of each, K2 as the step's backward calls
+     it (the gradients in the tables' dtype), and a partial
+     yardstick: the scatter alone as index_put_(accumulate=True) of K2's
+     terms with deterministic algorithms on;
  10. the row-gather kernel (K3) against tab[idx], bit-equal, at the Pallas
      gathers' shapes (T = 74³ and 129³ rows of 16 bf16, K = 262 144);
  11. the recon CLI (``python -m drawingspinup_torch.cli.recon``) on a
@@ -112,6 +120,7 @@ import copy
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -1039,11 +1048,18 @@ def recon_config(**grid):
 def plain_hashgrid():
     """Route the hash-grid encode, its table gradient and the row gather
     through their plain twins, on CUDA tensors as on the CPU."""
+    import torch
+
     from drawingspinup_torch.kernels import hashgrid as hk
 
     saved = hk.hashgrid_fwd, hk.hashgrid_bwd, hk.row_gather
+    reference = hk.hashgrid_bwd_reference
+
+    def plain_bwd(*args, out_dtype=torch.float32):
+        return [g.to(out_dtype) for g in reference(*args)]
+
     hk.hashgrid_fwd = hk.hashgrid_fwd_reference
-    hk.hashgrid_bwd = hk.hashgrid_bwd_reference
+    hk.hashgrid_bwd = plain_bwd
     hk.row_gather = hk.row_gather_reference
     try:
         yield
@@ -1061,7 +1077,8 @@ def hashgrid_work(x, tables, spec, n_active: int, with_jac: bool):
     """(bytes, FLOPs) of one encode and of one table gradient at the points
     x: the encode reads x and the table rows the points' corners touch and
     writes enc (and denc); the gradient reads x, g_enc and g_denc's active
-    columns and writes the active tables' f32 gradients. Per (point, level,
+    columns and writes the active tables' gradients in the tables' dtype,
+    as the step's backward asks for them. Per (point, level,
     corner): 2 products for the weight and 2·F ops for the features, four
     times with the jacobian; the gradient 8 + 8·F."""
     import torch
@@ -1078,17 +1095,155 @@ def hashgrid_work(x, tables, spec, n_active: int, with_jac: bool):
     outs = 4 if with_jac else 1
     fwd = (12 * p + rows * nf * ts + outs * p * lf * cs,
            outs * p * n_active * 8 * (2 + 2 * nf))
-    grads = sum(tables[lvl].shape[0] for lvl in range(n_active)) * nf * 4
+    grads = sum(tables[lvl].shape[0] for lvl in range(n_active)) * nf * ts
     bwd = (12 * p + outs * p * n_active * nf * cs + grads,
            p * n_active * 8 * (8 + 8 * nf))
     return fwd, bwd
 
 
-def phase_hashgrid_vs_plain(device, reps: int = 10):
+def uniform_points(device):
+    """Phase 9's first point sets: uniform in the unit cube, per HG_POINTS
+    entry."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(SEED + 201)
+    return {jac: torch.rand((p, 3), generator=g, device=device)
+            for p, jac in HG_POINTS}
+
+
+def step_points(root: str, device):
+    """The points that one NSR step of the trained uid hands the encode, in
+    the step's own order (train/nsr.py::render_rays): the coarse pass's
+    2048 rays x 32 samples, and the full eval's 2048 rays x 64 sorted
+    samples followed by 2 x 2048 probes (with the jacobian)."""
+    import torch
+
+    from drawingspinup_torch.core.contract import UidPaths
+    from drawingspinup_torch.kernels import hashgrid as hk
+    from drawingspinup_torch.pipelines import stage2_data
+    from drawingspinup_torch.train import nsr
+
+    cfg = recon_config()
+    data = stage2_data.load_ortho_data(UidPaths(root, RECON_UID),
+                                       im_size=RECON_SIZE, device=device)
+    v, h, w = data["masks"].shape
+    draws = nsr.make_draws(cfg, v, h, w, torch.Generator(
+        device=device).manual_seed(SEED + 400), device)
+    params = trained_params(root, torch.float32, device)
+    params["geometry"]["table"] = [
+        t.detach().to(cfg.sdf.grid.tdt).requires_grad_(True)
+        for t in params["geometry"]["table"]]
+    step = cfg.max_steps - 1
+    seen = {}
+    kernel = hk.hashgrid_fwd
+
+    def record(x, tables, spec, n_active, with_jac):
+        seen[with_jac] = x.clone()
+        return kernel(x, tables, spec, n_active, with_jac)
+
+    hk.hashgrid_fwd = record
+    try:
+        nsr.loss_and_grads(cfg, nsr.TrainState(params, None, step), data,
+                           draws, cfg.sdf.grid.current_level(step))
+    finally:
+        hk.hashgrid_fwd = kernel
+    for p, jac in HG_POINTS:
+        check(jac in seen and tuple(seen[jac].shape) == (p, 3),
+              f"the NSR step's encode {'with' if jac else 'without'} the "
+              f"jacobian saw {seen.get(jac, torch.empty(0)).shape}, not "
+              f"({p}, 3)")
+    return seen
+
+
+def hashgrid_terms(x, spec, n_active: int, g_enc, g_denc):
+    """K2's f32 terms of all active levels, (K, F), and their rows in one
+    flat buffer of all levels, (K,) int64: the scatter alone."""
+    import torch
+
+    from drawingspinup_torch.kernels import hashgrid as hk
+
+    idx, terms, base = [], [], 0
+    for lvl in range(n_active):
+        i, c = hk._level_terms(x, spec, lvl, g_enc, g_denc, torch.float32)
+        idx.append(i.reshape(-1) + base)
+        terms.append(c.reshape(-1, spec.n_features))
+        base += (spec.res[lvl] + 1) ** 3 if spec.dense[lvl] \
+            else spec.table_size
+    return torch.cat(idx), torch.cat(terms), base
+
+
+def check_table_gradient(x, tables, spec, na: int, ge, gd, where: str):
+    """K2 against its twin (relative L2 1e-5 / 1e-2), the float64 sum of
+    the same terms (1e-6), its own PyTorch emulation (bit-equal), a second
+    launch and a permutation of the points (bit-identical), each with f32
+    gradients and with the tables' dtype, and non-finite
+    cotangents (NaN where the twin is not finite); returns (relative L2 to
+    the twin, to float64, max |kernel - twin|)."""
+    import torch
+
+    from drawingspinup_torch.kernels import hashgrid as hk
+
+    got = hk.hashgrid_bwd(x, tables, spec, na, ge, gd)
+    want = hk.hashgrid_bwd_reference(x, tables, spec, na, ge, gd)
+    perm = torch.randperm(x.shape[0], device=x.device,
+                          generator=torch.Generator(
+                              device=x.device).manual_seed(SEED + 202))
+    for out in sorted({torch.float32, tables[0].dtype}, key=str):
+        # f32, and the tables' dtype as the step's backward asks for it
+        first = hk.hashgrid_bwd(x, tables, spec, na, ge, gd, out_dtype=out)
+        again = hk.hashgrid_bwd(x, tables, spec, na, ge, gd, out_dtype=out)
+        emulated = hk.hashgrid_bwd_fixed_point(x, tables, spec, na, ge, gd,
+                                               out_dtype=out)
+        shuffled = hk.hashgrid_bwd(x[perm].contiguous(), tables, spec, na,
+                                   ge[perm].contiguous(),
+                                   gd[:, perm].contiguous(), out_dtype=out)
+        torch.cuda.synchronize()
+        check(all(a.dtype == out and torch.equal(a, b)
+                  for a, b in zip(first, emulated)),
+              f"hashgrid_bwd {where}, {out} out: differs from "
+              f"hashgrid_bwd_fixed_point")
+        check(all(torch.equal(a, b) for a, b in zip(first, again)),
+              f"hashgrid_bwd {where}, {out} out: two launches differ")
+        check(all(torch.equal(a, b) for a, b in zip(first, shuffled)),
+              f"hashgrid_bwd {where}, {out} out: a permutation of the points "
+              f"changes it")
+    idx, terms, rows = hashgrid_terms(x, spec, na, ge, gd)
+    exact = torch.zeros((rows, spec.n_features), dtype=torch.float64,
+                        device=x.device).index_add_(0, idx, terms.double())
+    exact = torch.split(exact, [g.shape[0] for g in got])
+    torch.cuda.synchronize()
+    tol = 1e-5 if spec.cdt == torch.float32 else 1e-2
+    rel = max(((a - b).norm() / b.norm()).item() for a, b in zip(got, want))
+    check(math.isfinite(rel) and rel <= tol,
+          f"hashgrid_bwd {where}: relative L2 error {rel:.3e} > {tol:g}")
+    f64 = max(((a.double() - b).norm() / b.norm()).item()
+              for a, b in zip(got, exact))
+    check(math.isfinite(f64) and f64 <= 1e-6,
+          f"hashgrid_bwd {where}: relative L2 error {f64:.3e} against the "
+          f"float64 sum > 1e-6")
+    nf = spec.n_features
+    ge_bad, gd_bad = ge.clone(), gd.clone()
+    ge_bad[7, 0] = math.nan
+    gd_bad[1, 11, (na - 1) * nf + 1] = math.inf
+    bad = hk.hashgrid_bwd(x, tables, spec, na, ge_bad, gd_bad)
+    twin = hk.hashgrid_bwd_reference(x, tables, spec, na, ge_bad, gd_bad)
+    torch.cuda.synchronize()
+    for lvl, (a, b) in enumerate(zip(bad, twin)):
+        nonfinite = ~torch.isfinite(b)
+        check(bool(nonfinite.any()) == (lvl in (0, na - 1))
+              and bool(torch.isnan(a[nonfinite]).all())
+              and bool(torch.isfinite(a[~nonfinite]).all()),
+              f"hashgrid_bwd {where}: level {lvl} is not NaN exactly where "
+              f"the twin is not finite")
+    err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    return rel, f64, err
+
+
+def phase_hashgrid_vs_plain(device, points, label: str, reps: int = 10):
     """The encode (K1) and table-gradient (K2) kernels against their plain
-    twins on the production table, at the step's point counts and the
-    band's first three phases; returns per (dtype, n_active) the numbers
-    the summary line needs."""
+    twins on the production table, at the step's point counts (``points``:
+    per jacobian flag the (P, 3) points) and the band's first three phases;
+    returns per (dtype, n_active) the numbers the summary line needs."""
     import torch
 
     from drawingspinup_torch.kernels import hashgrid as hk
@@ -1101,11 +1256,12 @@ def phase_hashgrid_vs_plain(device, reps: int = 10):
         g = torch.Generator(device=device).manual_seed(SEED + 200)
         tables = [(torch.randn(t.shape, generator=g, device=device) * 0.1)
                   .to(grid.tdt) for t in thg.init_table(grid, g, device)]
-        lf = grid.n_levels * grid.n_features_per_level
+        nf = grid.n_features_per_level
+        lf = grid.n_levels * nf
         for na in HG_ACTIVE:
             row = {"dtype": dt, "n_active": na}
             for p, jac in HG_POINTS:
-                x = torch.rand((p, 3), generator=g, device=device)
+                x = points[jac]
                 got = hk.hashgrid_fwd(x, tables, spec, na, jac)
                 want = hk.hashgrid_fwd_reference(x, tables, spec, na, jac)
                 torch.cuda.synchronize()
@@ -1117,8 +1273,11 @@ def phase_hashgrid_vs_plain(device, reps: int = 10):
                     bound = (1e-5 * b.abs().max().item() if dt == "float32"
                              else ulp_bf16(b))
                     check(math.isfinite(e) and e <= bound,
-                          f"hashgrid_fwd {dt} n_active={na} P={p}: max err "
-                          f"{e:.3e} > {bound:.3e}")
+                          f"hashgrid_fwd {dt} n_active={na} P={p} {label}: "
+                          f"max err {e:.3e} > {bound:.3e}")
+                    check(not a[..., na * nf:].any(),
+                          f"hashgrid_fwd {dt} n_active={na} P={p} {label}: "
+                          f"the inactive columns are not zero")
                     err = max(err, e)
                 key = "jac" if jac else "enc"
                 row[key + "_err"] = err
@@ -1139,43 +1298,56 @@ def phase_hashgrid_vs_plain(device, reps: int = 10):
                                  device=device).to(grid.cdt)
                 gd = torch.randn((3, p, lf), generator=g,
                                  device=device).to(grid.cdt)
-                got = hk.hashgrid_bwd(x, tables, spec, na, ge, gd)
-                again = hk.hashgrid_bwd(x, tables, spec, na, ge, gd)
-                want = hk.hashgrid_bwd_reference(x, tables, spec, na, ge, gd)
-                torch.cuda.synchronize()
-                tol = 1e-5 if dt == "float32" else 1e-2
-                rel = max(((a - b).norm() / b.norm()).item()
-                          for a, b in zip(got, want))
-                check(math.isfinite(rel) and rel <= tol,
-                      f"hashgrid_bwd {dt} n_active={na}: relative L2 error "
-                      f"{rel:.3e} > {tol:g}")
-                row["bwd_rel"] = rel
-                row["bwd_err"] = max((a - b).abs().max().item()
-                                     for a, b in zip(got, want))
-                check(all(torch.equal(a, b) for a, b in zip(got, again)),
-                      f"hashgrid_bwd {dt} n_active={na}: two launches differ")
+                where = f"{dt} n_active={na} {label}"
+                row["bwd_rel"], row["bwd_f64"], row["bwd_err"] = \
+                    check_table_gradient(x, tables, spec, na, ge, gd, where)
+                # timed as the step's backward calls it: the gradients in
+                # the tables' dtype
+                tdt = tables[0].dtype
                 row["bwd_ms"] = cuda_ms(
-                    lambda: hk.hashgrid_bwd(x, tables, spec, na, ge, gd),
-                    reps)
+                    lambda: hk.hashgrid_bwd(x, tables, spec, na, ge, gd,
+                                            out_dtype=tdt), reps)
                 row["bwd_device_ms"] = device_ms(
-                    lambda: hk.hashgrid_bwd(x, tables, spec, na, ge, gd),
-                    reps)
+                    lambda: hk.hashgrid_bwd(x, tables, spec, na, ge, gd,
+                                            out_dtype=tdt), reps)
                 row["bwd_plain_ms"] = cuda_ms(
-                    lambda: hk.hashgrid_bwd_reference(x, tables, spec, na,
-                                                      ge, gd), reps)
-            report(f"[9] hash grid {dt} n_active={na}: hashgrid_fwd "
-                   f"P={HG_POINTS[1][0]} max err {row['enc_err']:.3e}, "
-                   f"kernel {row['enc_ms']:.3f} ms (device "
-                   f"{row['enc_device_ms']:.3f}), plain "
+                    lambda: [g.to(tdt) for g in hk.hashgrid_bwd_reference(
+                        x, tables, spec, na, ge, gd)], reps)
+                # the partial yardstick: the scatter alone, deterministic
+                idx, terms, rows = hashgrid_terms(x, spec, na, ge, gd)
+                buf = torch.zeros((rows, nf), dtype=torch.float32,
+                                  device=device)
+                was = torch.are_deterministic_algorithms_enabled()
+                torch.use_deterministic_algorithms(True)
+                try:
+                    row["scatter_ms"] = cuda_ms(lambda: buf.index_put_(
+                        (idx,), terms, accumulate=True), reps)
+                    row["scatter_device_ms"] = device_ms(
+                        lambda: buf.index_put_((idx,), terms,
+                                               accumulate=True), reps)
+                finally:
+                    torch.use_deterministic_algorithms(was)
+                del idx, terms, buf
+            outs = "f32" if dt == "float32" else f"f32 and {dt}"
+            report(f"[9] hash grid, {label} points, {dt} n_active={na}: "
+                   f"hashgrid_fwd P={HG_POINTS[1][0]} max err "
+                   f"{row['enc_err']:.3e}, kernel {row['enc_ms']:.3f} ms "
+                   f"(device {row['enc_device_ms']:.4f}), plain "
                    f"{row['enc_plain_ms']:.3f} ms; with jacobian "
                    f"P={HG_POINTS[0][0]} max err {row['jac_err']:.3e}, kernel "
                    f"{row['jac_ms']:.3f} ms (device "
-                   f"{row['jac_device_ms']:.3f}), plain "
-                   f"{row['jac_plain_ms']:.3f} ms; hashgrid_bwd relative L2 "
-                   f"{row['bwd_rel']:.2e} (max err {row['bwd_err']:.3e}, "
-                   f"bit-identical across launches), kernel "
-                   f"{row['bwd_ms']:.3f} ms (device {row['bwd_device_ms']:.3f}"
-                   f"), plain {row['bwd_plain_ms']:.3f} ms; bounds "
+                   f"{row['jac_device_ms']:.4f}), plain "
+                   f"{row['jac_plain_ms']:.3f} ms; inactive columns zero; "
+                   f"hashgrid_bwd relative L2 {row['bwd_rel']:.2e} to the "
+                   f"twin, {row['bwd_f64']:.2e} to float64 (max err "
+                   f"{row['bwd_err']:.3e}; {outs} out bit-equal to its "
+                   f"emulation, across launches and under a permutation; NaN "
+                   f"where the twin is not finite), kernel {row['bwd_ms']:.3f} ms (device "
+                   f"{row['bwd_device_ms']:.4f}, {dt} out), plain "
+                   f"{row['bwd_plain_ms']:.3f} ms, partial yardstick "
+                   f"index_put_(accumulate=True) of its terms, deterministic "
+                   f"{row['scatter_ms']:.3f} ms (device "
+                   f"{row['scatter_device_ms']:.4f}); bounds "
                    + " / ".join(
                        "{:.4f} ms ({})".format(*bound_ms(*row[k + "_work"],
                                                          F32_FLOPS))
@@ -1333,6 +1505,14 @@ def profile_nsr_step(run, steps: int = 5) -> None:
     kernels.sort(key=lambda e: -e.self_device_time_total)
     hg = sum(e.self_device_time_total for e in kernels
              if "hashgrid" in e.key) / 1e3 / steps
+    parts = {}
+    for e in kernels:
+        m = re.search(r"hashgrid_\w+", e.key)
+        if m:
+            t, n = parts.get(m.group(0), (0.0, 0))
+            parts[m.group(0)] = (t + e.self_device_time_total, n + e.count)
+    hg_parts = ", ".join(f"{k} {t / 1e3 / steps:.4f} ms x{n // steps}"
+                         for k, (t, n) in parts.items())
     top = "; ".join(
         f"{e.key[:48]} {e.self_device_time_total / 1e3 / steps:.3f} ms "
         f"x{e.count // steps}" for e in kernels[:8])
@@ -1340,7 +1520,8 @@ def profile_nsr_step(run, steps: int = 5) -> None:
     report(f"[12] profile of {steps} production steps (bf16, kernel path): "
            f"device busy {total:.2f} ms of {wall:.2f} ms wall per step "
            f"({total / wall:.1%}, the profiler's overhead included), "
-           f"hash-grid kernels {hg:.3f} ms ({hg / total:.1%} of device time), "
+           f"hash-grid kernels {hg:.3f} ms ({hg / total:.1%} of device time: "
+           f"{hg_parts}), "
            f"{launches:.0f} kernel launches per step; by kernel, per step: "
            f"{top}")
 
@@ -1529,11 +1710,18 @@ def phase_export_vs_plain(root: str, device) -> None:
 
 
 def kernels_line(per_shape, serving_launches, train_shapes, fwd_launches,
-                 bwd_launches, hg_rows, gather, recon_launches) -> dict:
+                 bwd_launches, hg_uniform, hg_rays, gather,
+                 recon_launches) -> dict:
     """The ``kernels`` JSON object from the phases' results: per kernel its
-    launches on the main paths, error, times, bound and yardstick."""
-    prod = next(r for r in hg_rows
-                if r["dtype"] == "bfloat16" and r["n_active"] == HG_ACTIVE[-1])
+    launches on the main paths, error, times, bound and yardstick; the hash
+    grid's at the production step on its own ray-ordered points, the
+    uniform points' beside."""
+    def production(rows):
+        return next(r for r in rows if r["dtype"] == "bfloat16"
+                    and r["n_active"] == HG_ACTIVE[-1])
+
+    prod, uni = production(hg_rays), production(hg_uniform)
+    hg_rows = hg_uniform + hg_rays
 
     def step_sum(key: str, count: int) -> float:
         return sum(s[count] * r[key] for s, r in zip(TRAIN_SHAPES,
@@ -1621,10 +1809,13 @@ def kernels_line(per_shape, serving_launches, train_shapes, fwd_launches,
         "ms": prod["enc_ms"] + prod["jac_ms"],
         "plain_ms": prod["enc_plain_ms"] + prod["jac_plain_ms"],
         "bound_ms": hg_bound[0], "bound_by": hg_bound[1], "library_ms": None,
-        "timed": f"one production step's two encodes at 6 levels, bf16: "
-                 f"{HG_POINTS[1][0]} points, and {HG_POINTS[0][0]} with the "
-                 f"jacobian (phase 9 medians); {TIMED}",
+        "timed": f"one production step's two encodes at 6 levels, bf16, on "
+                 f"the step's own ray-ordered points: {HG_POINTS[1][0]} "
+                 f"points, and {HG_POINTS[0][0]} with the jacobian (phase 9 "
+                 f"medians); *_uniform: the same on uniform points; {TIMED}",
         "device_ms": prod["enc_device_ms"] + prod["jac_device_ms"],
+        "ms_uniform": uni["enc_ms"] + uni["jac_ms"],
+        "device_ms_uniform": uni["enc_device_ms"] + uni["jac_device_ms"],
     }, {
         "name": "hashgrid_bwd", "route": "cuda", "source": HG_BWD_SOURCE,
         "replaces": HG_BWD_REPLACES,
@@ -1633,9 +1824,21 @@ def kernels_line(per_shape, serving_launches, train_shapes, fwd_launches,
         "ms": prod["bwd_ms"], "plain_ms": prod["bwd_plain_ms"],
         "bound_ms": hg_bwd_bound[0], "bound_by": hg_bwd_bound[1],
         "library_ms": None,
-        "timed": f"one production step's table gradient at 6 levels, bf16, "
-                 f"{HG_POINTS[0][0]} points (phase 9 medians); {TIMED}",
+        "timed": f"one production step's table gradient at 6 levels, bf16 "
+                 f"compute, written as the bf16 tables' gradients as the "
+                 f"step's backward asks, on the step's own {HG_POINTS[0][0]} "
+                 f"ray-ordered points (phase 9 medians); *_uniform: the same "
+                 f"on uniform points; {TIMED}",
         "device_ms": prod["bwd_device_ms"],
+        "ms_uniform": uni["bwd_ms"],
+        "device_ms_uniform": uni["bwd_device_ms"],
+        "f64_rel_l2": max(r["bwd_f64"] for r in hg_rows),
+        "partial_yardstick": "not the whole function: the scatter alone, "
+                             "index_put_(accumulate=True) of the kernel's f32 "
+                             "terms under torch.use_deterministic_algorithms"
+                             "(True), the terms built before timing",
+        "partial_yardstick_ms": prod["scatter_ms"],
+        "partial_yardstick_device_ms": prod["scatter_device_ms"],
     }, {
         "name": "row_gather", "route": "cuda", "source": GATHER_SOURCE,
         "replaces": GATHER_REPLACES, "launches": recon_launches["row_gather"],
@@ -1675,15 +1878,18 @@ def main() -> int:
         train_shapes = phase_bwd_vs_plain(device)
         fwd_launches, bwd_launches = phase_training(root, device)
         phase_step_vs_plain(root, device)
-        hg_rows = phase_hashgrid_vs_plain(device)
+        hg_uniform = phase_hashgrid_vs_plain(device, uniform_points(device),
+                                             "uniform")
         gather = phase_row_gather(device)
         recon_launches = phase_recon(root, device)
+        hg_rays = phase_hashgrid_vs_plain(device, step_points(root, device),
+                                          "ray-ordered")
         phase_nsr_step_vs_plain(root, device)
         phase_export_vs_plain(root, device)
 
     print(json.dumps(kernels_line(
         per_shape, serving_launches, train_shapes, fwd_launches, bwd_launches,
-        hg_rows, gather, recon_launches)))
+        hg_uniform, hg_rays, gather, recon_launches)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -40,19 +40,16 @@ extern "C" int hashgrid_fwd_launch(const float* x, long long P, int n_active,
                                    int cell_rows, int tab_bf16, int cdt_bf16,
                                    int stride, void* enc, void* denc,
                                    void* stream);
-extern "C" int hashgrid_bwd_terms_launch(const float* x, long long P,
-                                         int n_active, const int* res,
-                                         const int* dense,
-                                         const long long* row_base,
-                                         int table_size, int F, int cell_rows,
-                                         int cdt_bf16, int stride,
-                                         const void* g_enc, const void* g_denc,
-                                         int* keys, float* terms,
-                                         void* stream);
-extern "C" int hashgrid_bwd_segsum_launch(const int* sorted_keys,
-                                          const long long* order,
-                                          const float* terms, long long n,
-                                          int F, float* grad, void* stream);
+extern "C" long long hashgrid_bwd_scratch_words(int n_active,
+                                                long long elems);
+extern "C" int hashgrid_bwd_launch(const float* x, long long P, int n_active,
+                                   const int* res, const int* dense,
+                                   const long long* row_base, long long rows,
+                                   int table_size, int F, int cell_rows,
+                                   int cdt_bf16, int out_bf16, int stride,
+                                   const void* g_enc, const void* g_denc,
+                                   long long* scratch, void* out,
+                                   void* stream);
 extern "C" int row_gather_launch(const void* tab, long long T, int row_bytes,
                                  const int* idx, long long K, void* out,
                                  void* stream);
@@ -122,28 +119,19 @@ int hashgrid_fwd(std::uintptr_t x, long long p,
                              ptr<void>(stream));
 }
 
-int hashgrid_bwd_terms(std::uintptr_t x, long long p,
-                       const std::vector<int>& res,
-                       const std::vector<int>& dense,
-                       const std::vector<long long>& row_base, int table_size,
-                       int f, int cell_rows, int cdt_bf16, int stride,
-                       std::uintptr_t g_enc, std::uintptr_t g_denc,
-                       std::uintptr_t keys, std::uintptr_t terms,
-                       std::uintptr_t stream) {
+int hashgrid_bwd(std::uintptr_t x, long long p, const std::vector<int>& res,
+                 const std::vector<int>& dense,
+                 const std::vector<long long>& row_base, long long rows,
+                 int table_size, int f, int cell_rows, int cdt_bf16,
+                 int out_bf16, int stride, std::uintptr_t g_enc,
+                 std::uintptr_t g_denc, std::uintptr_t scratch,
+                 std::uintptr_t out, std::uintptr_t stream) {
   if (res.size() != dense.size() || res.size() != row_base.size()) return 1;
-  return hashgrid_bwd_terms_launch(
+  return hashgrid_bwd_launch(
       ptr<const float>(x), p, static_cast<int>(res.size()), res.data(),
-      dense.data(), row_base.data(), table_size, f, cell_rows, cdt_bf16,
-      stride, ptr<const void>(g_enc), ptr<const void>(g_denc), ptr<int>(keys),
-      ptr<float>(terms), ptr<void>(stream));
-}
-
-int hashgrid_bwd_segsum(std::uintptr_t sorted_keys, std::uintptr_t order,
-                        std::uintptr_t terms, long long n, int f,
-                        std::uintptr_t grad, std::uintptr_t stream) {
-  return hashgrid_bwd_segsum_launch(
-      ptr<const int>(sorted_keys), ptr<const long long>(order),
-      ptr<const float>(terms), n, f, ptr<float>(grad), ptr<void>(stream));
+      dense.data(), row_base.data(), rows, table_size, f, cell_rows, cdt_bf16,
+      out_bf16, stride, ptr<const void>(g_enc), ptr<const void>(g_denc),
+      ptr<long long>(scratch), ptr<void>(out), ptr<void>(stream));
 }
 
 int row_gather(std::uintptr_t tab, long long t, int row_bytes,
@@ -175,12 +163,12 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("hashgrid_fwd", &hashgrid_fwd,
         "Launch the hash-grid encode kernel (with its jacobian when denc is "
         "nonzero); returns the cudaError_t code.");
-  m.def("hashgrid_bwd_terms", &hashgrid_bwd_terms,
-        "Launch the kernel that writes the table gradient's keyed terms; "
-        "returns the cudaError_t code.");
-  m.def("hashgrid_bwd_segsum", &hashgrid_bwd_segsum,
-        "Launch the ordered per-row sum of the sorted terms; returns the "
-        "cudaError_t code.");
+  m.def("hashgrid_bwd", &hashgrid_bwd,
+        "Launch the table gradient's kernels (scale, fixed-point scatter, "
+        "convert); returns the cudaError_t code.");
+  m.def("hashgrid_bwd_scratch_words", &hashgrid_bwd_scratch_words,
+        "int64 words of the zeroed scratch hashgrid_bwd takes for n_active "
+        "levels and rows * F gradient values.");
   m.def("row_gather", &row_gather,
         "Launch the fixed-width row gather kernel; returns the cudaError_t "
         "code.");

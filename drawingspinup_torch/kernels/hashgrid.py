@@ -12,9 +12,12 @@ whose job on the TPU was this encode's corner fetch:
   the trilinear interpolation, and optionally its spatial jacobian, in the
   compute dtype;
 * ``hashgrid_bwd`` (``csrc/hashgrid_bwd.cu``): the gradient of the tables,
-  the scatter-add of JAX's gather transpose, summed in f32 in a fixed
-  order (terms keyed by row, a stable sort, one thread per row's run) and
-  cast once to the table dtype;
+  the scatter-add of JAX's gather transpose: each f32 term scaled by a
+  per-level power of two, rounded to int64 and added with atomics (integer
+  sums do not depend on their order, so the bits are the same from run to
+  run and under any permutation of the points), then converted once to f32
+  or the table dtype; ``hashgrid_bwd_fixed_point`` is that arithmetic in
+  plain PyTorch;
 * ``row_gather`` (``csrc/row_gather.cu``): ``out[k] = tab[idx[k]]`` for
   fixed-width rows, the Pallas gathers' function bound on its own; the
   encode's corner fetch is the same device function.
@@ -26,12 +29,14 @@ nothing. The trilinear weights are f32; features × weights run in the
 compute dtype (f32 or bf16), rounding after every product and sum as the
 twins do, so a kernel and its twin agree to the bit.
 
-On a CPU tensor every entry point runs the plain twin; on a CUDA tensor it
-launches the kernel or raises.
+On a CPU tensor every entry point runs the plain twin (the autograd
+Function's table gradient: ``hashgrid_bwd_fixed_point``, the kernel's own
+sum); on a CUDA tensor it launches the kernel or raises.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -43,7 +48,7 @@ MAX_LEVELS = 16
 # them to show that the main path went through the kernels.
 FWD_LAUNCHES = 0        # hashgrid_fwd without the jacobian
 FWD_JAC_LAUNCHES = 0    # hashgrid_fwd with the jacobian
-BWD_LAUNCHES = 0        # hashgrid_bwd (its two kernels and the sort)
+BWD_LAUNCHES = 0        # hashgrid_bwd (its three kernels)
 GATHER_LAUNCHES = 0     # row_gather
 
 # float64 is for the twins alone (a reference in the tests); the kernels
@@ -159,6 +164,25 @@ def hashgrid_fwd_reference(x: torch.Tensor, tables: Sequence[torch.Tensor],
     return enc, denc
 
 
+def _level_terms(x: torch.Tensor, spec: GridSpec, lvl: int,
+                 g_enc: torch.Tensor, g_denc: Optional[torch.Tensor],
+                 acc: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Level ``lvl``'s scatter: the corner rows (8, P) and per corner the
+    term ``ḡ·w + ḡx·gx + ḡy·gy + ḡz·gz`` (8, P, F) in ``acc``, each product
+    and sum rounded in that order."""
+    nf, cdt = spec.n_features, spec.cdt
+    cols = slice(lvl * nf, (lvl + 1) * nf)
+    idx, u, s = _corners(x, spec.res[lvl], spec.dense[lvl], spec.cell_rows,
+                         spec.table_size)
+    w, slopes = _weights(u, s, cdt, g_denc is not None)
+    c = g_enc[None, :, cols].to(acc) * w.to(acc)[..., None]
+    if g_denc is not None:
+        for k, sl in enumerate(slopes):
+            gk = g_denc[k, None, :, cols].to(acc)
+            c = c + gk * sl.to(acc)[..., None]
+    return idx, c
+
+
 def hashgrid_bwd_reference(x: torch.Tensor, tables: Sequence[torch.Tensor],
                            spec: GridSpec, n_active: int,
                            g_enc: torch.Tensor,
@@ -168,22 +192,83 @@ def hashgrid_bwd_reference(x: torch.Tensor, tables: Sequence[torch.Tensor],
     (float64 for float64 compute): per corner ``ḡ·w + ḡx·gx + ḡy·gy +
     ḡz·gz`` scatter-added into the corner's row (``index_add_``, corner
     by corner)."""
-    nf, cdt = spec.n_features, spec.cdt
-    acc = torch.float64 if cdt == torch.float64 else torch.float32
+    nf = spec.n_features
+    acc = torch.float64 if spec.cdt == torch.float64 else torch.float32
     grads = []
     for lvl in range(n_active):
-        cols = slice(lvl * nf, (lvl + 1) * nf)
-        idx, u, s = _corners(x, spec.res[lvl], spec.dense[lvl],
-                             spec.cell_rows, spec.table_size)
-        w, slopes = _weights(u, s, cdt, g_denc is not None)
-        c = g_enc[None, :, cols].to(acc) * w.to(acc)[..., None]
-        if g_denc is not None:
-            for k, sl in enumerate(slopes):
-                gk = g_denc[k, None, :, cols].to(acc)
-                c = c + gk * sl.to(acc)[..., None]
+        idx, c = _level_terms(x, spec, lvl, g_enc, g_denc, acc)
         buf = torch.zeros(tables[lvl].shape, dtype=acc, device=x.device)
         buf.index_add_(0, idx.reshape(-1), c.reshape(-1, nf))
         grads.append(buf)
+    return grads
+
+
+def fixed_point_exponent(bound: float, n_points: int) -> int:
+    """The table-gradient kernel's scale 2^e of a level whose terms are at
+    most ``bound`` in magnitude: e = 62 − ⌈log2(8 P B)⌉ in double
+    arithmetic, so that a row's sum of at most 8P rounded terms stays
+    inside int64; 0 where the bound is 0."""
+    if bound == 0.0:
+        return 0
+    frac, k = math.frexp(bound * float(8 * n_points))
+    return 62 - (k - 1 if frac == 0.5 else k)
+
+
+def _max_finite_abs(g: torch.Tensor) -> float:
+    a = g.float().abs()
+    return float(torch.where(torch.isfinite(a), a, 0.0).max()) \
+        if a.numel() else 0.0
+
+
+def level_bound(res: int, m_enc: float, m_x: float = 0.0, m_y: float = 0.0,
+                m_z: float = 0.0) -> float:
+    """B_l = max|ḡ| + r_l (max|ḡx| + max|ḡy| + max|ḡz|), in the kernel's
+    order of double operations: every term of level l is at most B_l (the
+    weights are at most 1, the slopes at most r_l, up to their
+    roundings)."""
+    return m_enc + float(res) * ((m_x + m_y) + m_z)
+
+
+def fixed_point_sum(idx: torch.Tensor, terms: torch.Tensor, rows: int,
+                    e: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Σ of rint(t · 2^e) (half to even) per row of the finite f32
+    ``terms`` (K, F) keyed by ``idx`` (K,), as int64 (rows, F), and the
+    (rows, F) mask of the entries a non-finite term touched."""
+    ok = torch.isfinite(terms)
+    q = torch.round(torch.where(ok, terms, 0.0).double() * 2.0 ** e)
+    nf = terms.shape[1]
+    acc = torch.zeros((rows, nf), dtype=torch.int64, device=terms.device)
+    acc.index_add_(0, idx, q.to(torch.int64))
+    bad = torch.zeros((rows, nf), dtype=torch.int32, device=terms.device)
+    bad.index_add_(0, idx, (~ok).to(torch.int32))
+    return acc, bad > 0
+
+
+def hashgrid_bwd_fixed_point(x: torch.Tensor, tables: Sequence[torch.Tensor],
+                             spec: GridSpec, n_active: int,
+                             g_enc: torch.Tensor,
+                             g_denc: Optional[torch.Tensor],
+                             out_dtype: torch.dtype = torch.float32
+                             ) -> List[torch.Tensor]:
+    """The table-gradient kernel's arithmetic in plain PyTorch, bit for bit
+    (f32 and bf16 compute): per level the bound B_l of its terms from the
+    largest finite cotangents, e_l from ``fixed_point_exponent``, the f32
+    terms summed as int64 multiples of 2^-e_l, then acc · 2^-e_l in double
+    rounded once to f32 and from there to ``out_dtype``; NaN where a
+    non-finite term landed."""
+    p, nf = x.shape[0], spec.n_features
+    grads = []
+    for lvl in range(n_active):
+        cols = slice(lvl * nf, (lvl + 1) * nf)
+        m = [_max_finite_abs(g_enc[:, cols])]
+        if g_denc is not None:
+            m += [_max_finite_abs(g_denc[k, :, cols]) for k in range(3)]
+        e = fixed_point_exponent(level_bound(spec.res[lvl], *m), p)
+        idx, c = _level_terms(x, spec, lvl, g_enc, g_denc, torch.float32)
+        acc, bad = fixed_point_sum(idx.reshape(-1), c.reshape(-1, nf),
+                                   tables[lvl].shape[0], e)
+        out = (acc.double() * 2.0 ** -e).float().masked_fill(bad, math.nan)
+        grads.append(out.to(out_dtype))
     return grads
 
 
@@ -251,7 +336,7 @@ def hashgrid_fwd(x: torch.Tensor, tables: Sequence[torch.Tensor],
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Launch the encode kernel on the current stream for the first
     ``n_active`` levels: (enc (P, L·F), denc (3, P, L·F) or None) in the
-    compute dtype, zeros past ``n_active``."""
+    compute dtype, zeros past ``n_active`` (written by the kernel)."""
     global FWD_LAUNCHES, FWD_JAC_LAUNCHES
     _check_points("hashgrid_fwd", x)
     ptrs, res, dense, tdt = _level_args("hashgrid_fwd", x, tables, spec,
@@ -266,10 +351,6 @@ def hashgrid_fwd(x: torch.Tensor, tables: Sequence[torch.Tensor],
         if with_jac else None
     if p == 0:
         return enc, denc
-    if n_active < len(spec.res):
-        enc[:, n_active * nf:] = 0
-        if with_jac:
-            denc[:, :, n_active * nf:] = 0
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = ext.hashgrid_fwd(
@@ -287,12 +368,15 @@ def hashgrid_fwd(x: torch.Tensor, tables: Sequence[torch.Tensor],
 
 def hashgrid_bwd(x: torch.Tensor, tables: Sequence[torch.Tensor],
                  spec: GridSpec, n_active: int, g_enc: torch.Tensor,
-                 g_denc: Optional[torch.Tensor]) -> List[torch.Tensor]:
-    """Launch the table-gradient kernels on the current stream: f32
-    gradients of the first ``n_active`` tables. The terms kernel keys each
-    (level, point, corner) term by its row, a stable sort orders them, and
-    the segment-sum kernel sums each row's run in that order: the same
-    bits from run to run."""
+                 g_denc: Optional[torch.Tensor],
+                 out_dtype: torch.dtype = torch.float32) -> List[torch.Tensor]:
+    """Launch the table-gradient kernels on the current stream: the
+    gradients of the first ``n_active`` tables in ``out_dtype`` (f32, or
+    bf16 rounded from the f32 values as ``.to()`` rounds), views of one
+    flat buffer. Scale, scatter and convert kernels: the sums are int64
+    fixed point, the same bits from run to run and under any permutation of
+    the points (``hashgrid_bwd_fixed_point`` is the same arithmetic in
+    plain PyTorch); NaN where a non-finite term landed."""
     global BWD_LAUNCHES
     _check_points("hashgrid_bwd", x)
     _, res, dense, _ = _level_args("hashgrid_bwd", x, tables, spec, n_active)
@@ -305,38 +389,39 @@ def hashgrid_bwd(x: torch.Tensor, tables: Sequence[torch.Tensor],
             raise ValueError(f"hashgrid_bwd: {name} must be {spec.cdt} "
                              f"{shape} on {x.device}, got {g.dtype} "
                              f"{tuple(g.shape)} on {g.device}")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"hashgrid_bwd: out_dtype must be float32 or "
+                        f"bfloat16, got {out_dtype}")
     rows = [tables[lvl].shape[0] for lvl in range(n_active)]
-    n = p * n_active * 8
-    if n >= 2 ** 31 or sum(rows) >= 2 ** 31:
-        raise ValueError(f"hashgrid_bwd: {n} terms or {sum(rows)} rows do "
-                         f"not fit the kernels' int32 keys")
-    buf = torch.zeros((sum(rows), nf), dtype=torch.float32, device=x.device)
-    grads = list(torch.split(buf, rows))
+    total = sum(rows)
+    if p * n_active >= 2 ** 31 or total >= 2 ** 31:
+        raise ValueError(f"hashgrid_bwd: {p} points x {n_active} levels or "
+                         f"{total} rows do not fit the kernels' 32-bit "
+                         f"items and row keys")
     if p == 0:
-        return grads
+        return list(torch.split(torch.zeros((total, nf), dtype=out_dtype,
+                                            device=x.device), rows))
+    out = torch.empty((total, nf), dtype=out_dtype, device=x.device)
     g_enc = g_enc.contiguous()
     g_denc = g_denc.contiguous() if g_denc is not None else None
     base = [sum(rows[:lvl]) for lvl in range(n_active)]
-    keys = torch.empty((n,), dtype=torch.int32, device=x.device)
-    terms = torch.empty((n, nf), dtype=torch.float32, device=x.device)
     from drawingspinup_torch.kernels._build import extension
 
     ext = extension()
+    scratch = torch.zeros((ext.hashgrid_bwd_scratch_words(n_active,
+                                                          total * nf),),
+                          dtype=torch.int64, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = ext.hashgrid_bwd_terms(
-            x.data_ptr(), p, res, dense, base, spec.table_size, nf,
-            int(spec.cell_rows), int(spec.cdt == torch.bfloat16), lf,
-            g_enc.data_ptr(), g_denc.data_ptr() if g_denc is not None else 0,
-            keys.data_ptr(), terms.data_ptr(), stream)
-        _raise_on(ext, "hashgrid_bwd_terms", err)
-        sorted_keys, order = torch.sort(keys, stable=True)
-        err = ext.hashgrid_bwd_segsum(sorted_keys.data_ptr(),
-                                      order.data_ptr(), terms.data_ptr(), n,
-                                      nf, buf.data_ptr(), stream)
-    _raise_on(ext, "hashgrid_bwd_segsum", err)
+        err = ext.hashgrid_bwd(
+            x.data_ptr(), p, res, dense, base, total, spec.table_size, nf,
+            int(spec.cell_rows), int(spec.cdt == torch.bfloat16),
+            int(out_dtype == torch.bfloat16), lf, g_enc.data_ptr(),
+            g_denc.data_ptr() if g_denc is not None else 0,
+            scratch.data_ptr(), out.data_ptr(), stream)
+    _raise_on(ext, "hashgrid_bwd", err)
     BWD_LAUNCHES += 1
-    return grads
+    return list(torch.split(out, rows))
 
 
 def row_gather(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -405,11 +490,16 @@ class HashGridFunction(torch.autograd.Function):
     def backward(ctx, g_enc, g_denc=None):
         x, *tables = ctx.saved_tensors
         spec, n_active = ctx.spec, ctx.n_active
-        if x.device.type == "cpu":
-            grads = hashgrid_bwd_reference(x, tables, spec, n_active, g_enc,
-                                           g_denc)
+        if x.device.type == "cpu" and spec.cdt == torch.float64:
+            # a float64 reference run: the twin sums in float64
+            out = hashgrid_bwd_reference(x, tables, spec, n_active, g_enc,
+                                         g_denc)
+        elif x.device.type == "cpu":
+            # the kernel's arithmetic, so both devices share its semantics
+            out = hashgrid_bwd_fixed_point(x, tables, spec, n_active, g_enc,
+                                           g_denc, out_dtype=tables[0].dtype)
         else:
-            grads = hashgrid_bwd(x, tables, spec, n_active, g_enc, g_denc)
-        out = [g.to(t.dtype) for g, t in zip(grads, tables)]
+            out = hashgrid_bwd(x, tables, spec, n_active, g_enc, g_denc,
+                               out_dtype=tables[0].dtype)
         out += [None] * (len(tables) - n_active)
         return (None, None, None, None, *out)

@@ -15,9 +15,14 @@ Tolerances:
   * encode, bf16 compute: within one bf16 ulp of the largest output;
   * table gradients: relative L2 ≤ 1e-5 of the twin's f32 scatter (f32
     compute) and ≤ 1e-2 (bf16 compute; both sum in f32, in another order),
-    and bit-identical from launch to launch;
+    ≤ 1e-6 of the same f32 terms summed in float64, bit-equal to
+    ``hashgrid_bwd_fixed_point`` (the kernel's int64 arithmetic in plain
+    PyTorch), bit-identical from launch to launch and under a permutation of
+    the points, NaN where the twin is not finite;
   * row gather: bit-equal to ``tab[idx]``.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -123,6 +128,123 @@ def test_table_gradient_kernel_matches_twin(tdt, cdt, cell_rows,
             assert _rel_l2(a, b) <= tol, (lvl, _rel_l2(a, b))
 
 
+def _cotangents(cfg, n, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    lf = cfg.n_levels * cfg.n_features_per_level
+    return (torch.randn((n, lf), generator=g, device=device).to(cfg.cdt),
+            torch.randn((3, n, lf), generator=g, device=device).to(cfg.cdt))
+
+
+def _exact(x, tables, spec, na, g_enc, g_denc):
+    """The kernel's own f32 terms (the twin's arithmetic) summed in
+    float64."""
+    out = []
+    for lvl in range(na):
+        idx, c = hk._level_terms(x, spec, lvl, g_enc, g_denc, torch.float32)
+        buf = torch.zeros(tables[lvl].shape, dtype=torch.float64,
+                          device=x.device)
+        out.append(buf.index_add_(0, idx.reshape(-1),
+                                  c.reshape(-1, spec.n_features).double()))
+    return out
+
+
+def _ray_points(n_rays, per_ray, device, seed):
+    """Ray-ordered samples as an NSR step evaluates them: per ray a run of
+    sorted samples along a straight segment (neighbouring lanes share the
+    coarse levels' cells), rays one after another."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    o = torch.rand((n_rays, 1, 3), generator=g, device=device)
+    d = torch.nn.functional.normalize(
+        torch.randn((n_rays, 1, 3), generator=g, device=device), dim=-1)
+    t = torch.sort(torch.rand((n_rays, per_ray, 1), generator=g,
+                              device=device), dim=1).values * 0.5
+    return (o + d * t).clamp(0, 1).reshape(-1, 3).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tdt,cdt", DTYPES)
+@pytest.mark.parametrize("rays", [False, True])
+def test_table_gradient_kernel_is_the_fixed_point_sum(tdt, cdt, rays,
+                                                      cuda_device):
+    """Bit-equal to hashgrid_bwd_fixed_point in f32 and in the table dtype,
+    on uniform and on ray-ordered points; within 1e-6 of float64;
+    bit-identical under a permutation."""
+    cfg, tables, x = _setup(tdt, cdt, 16384, 7, cuda_device)
+    if rays:
+        x = _ray_points(256, 64, cuda_device, 8)
+    spec = cfg.spec()
+    na = 6
+    ge, gd = _cotangents(cfg, x.shape[0], cuda_device, 9)
+    for gdn in (None, gd):
+        got = hk.hashgrid_bwd(x, tables, spec, na, ge, gdn)
+        want = hk.hashgrid_bwd_fixed_point(x, tables, spec, na, ge, gdn)
+        as_tab = hk.hashgrid_bwd(x, tables, spec, na, ge, gdn,
+                                 out_dtype=cfg.tdt)
+        exact = _exact(x, tables, spec, na, ge, gdn)
+        perm = torch.randperm(x.shape[0], device=cuda_device)
+        shuffled = hk.hashgrid_bwd(
+            x[perm].contiguous(), tables, spec, na, ge[perm].contiguous(),
+            gdn[:, perm].contiguous() if gdn is not None else None)
+        torch.cuda.synchronize()
+        for lvl in range(na):
+            assert torch.equal(got[lvl], want[lvl]), lvl
+            assert torch.equal(shuffled[lvl], got[lvl]), lvl
+            assert as_tab[lvl].dtype == cfg.tdt
+            assert torch.equal(as_tab[lvl], want[lvl].to(cfg.tdt)), lvl
+            rel = float((got[lvl].double() - exact[lvl]).norm()
+                        / exact[lvl].norm())
+            assert rel <= 1e-6, (lvl, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+def test_table_gradient_kernel_nan_and_zero(cdt, cuda_device):
+    """NaN in the entries where the twin is not finite, the rest as the
+    fixed-point sum; all-zero cotangents give zeros."""
+    cfg, tables, x = _setup(cdt, cdt, 8192, 10, cuda_device)
+    spec = cfg.spec()
+    ge, gd = _cotangents(cfg, x.shape[0], cuda_device, 11)
+    ge[10, 0] = math.nan
+    gd[1, 20, 5] = math.inf
+    gd[2, 30, 6] = -math.inf
+    got = hk.hashgrid_bwd(x, tables, spec, 6, ge, gd)
+    twin = hk.hashgrid_bwd_reference(x, tables, spec, 6, ge, gd)
+    want = hk.hashgrid_bwd_fixed_point(x, tables, spec, 6, ge, gd)
+    zero = hk.hashgrid_bwd(x, tables, spec, 6, torch.zeros_like(ge),
+                           torch.zeros_like(gd))
+    torch.cuda.synchronize()
+    for lvl in range(6):
+        bad = ~torch.isfinite(twin[lvl])
+        assert bool(bad.any()) == (lvl in (0, 2, 3)), lvl
+        assert bool(torch.isnan(got[lvl][bad]).all()), lvl
+        assert bool(torch.isfinite(got[lvl][~bad]).all()), lvl
+        assert torch.equal(got[lvl].nan_to_num(), want[lvl].nan_to_num())
+        assert not zero[lvl].any() and not zero[lvl].isnan().any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tdt,cdt", DTYPES[:2])
+def test_encode_writes_the_inactive_columns(tdt, cdt, cuda_device):
+    """The kernel zeroes the levels past n_active itself: memory that the
+    caching allocator hands back full of NaN comes out zero there."""
+    cfg, tables, x = _setup(tdt, cdt, 4099, 12, cuda_device)
+    spec = cfg.spec()
+    lf = cfg.n_levels * 2
+    for jac in (False, True):
+        torch.cuda.synchronize()
+        poison = torch.full((4 * 4099 * lf + 4096,), math.nan,
+                            dtype=cfg.cdt, device=cuda_device)
+        del poison
+        enc, denc = hk.hashgrid_fwd(x, tables, spec, 5, jac)
+        ref, dref = hk.hashgrid_fwd_reference(x, tables, spec, 5, jac)
+        torch.cuda.synchronize()
+        assert not enc[:, 10:].any() and not enc.isnan().any()
+        _check_fwd(enc, ref, cdt)
+        if jac:
+            assert not denc[:, :, 10:].any() and not denc.isnan().any()
+            _check_fwd(denc, dref, cdt)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("tdt,cdt", DTYPES[:2])
 def test_autograd_function_on_the_card(tdt, cdt, cuda_device):
@@ -191,6 +313,19 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError):
         hk.row_gather(tables[0], torch.zeros(3, dtype=torch.int64,
                                              device=cuda_device))
+    g_enc = torch.zeros((10, 20), device=cuda_device)
+    with pytest.raises(TypeError):
+        hk.hashgrid_bwd(x, tables, spec, 4, g_enc, None,
+                        out_dtype=torch.float64)
+    with pytest.raises(ValueError):
+        hk.hashgrid_bwd(x, tables, spec, 4, g_enc[:, :18], None)
+    with pytest.raises(ValueError):
+        hk.hashgrid_bwd(x, tables, spec, 4, g_enc.double(), None)
+    with pytest.raises(ValueError):
+        hk.hashgrid_bwd(x, tables, spec, 4, g_enc,
+                        torch.zeros((2, 10, 20), device=cuda_device))
+    with pytest.raises(ValueError):
+        hk.hashgrid_bwd(x, tables, spec, 11, g_enc, None)
     with pytest.raises(ValueError):
         hk.HashGridFunction.apply(x.requires_grad_(True), spec, 4, False,
                                   *tables)
