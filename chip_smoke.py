@@ -7,12 +7,16 @@ Run from the root of a checkout, with no arguments:
 
 It builds the port's CUDA kernels and the native mesh library from the
 checkout's sources and drives stage 3 at the production width
-(configs/config_stage{1,2}.yaml), with weights drawn from a seed: the
-serving path (test_stage1 → test_stage2 → GIF) on 512² frames, then the
-training path (train_stage1 → test_stage1 → train_stage2 → test_stage2 →
-GIF) on batches of 40 × 32² patches. Then stage 2b at the production width
-of configs/neus-ortho.yaml, trained from a seed: the recon CLI on six 1024²
-views of a synthetic sphere, 600 steps, export at mc512. Phases:
+(configs/config_stage{1,2}.yaml), with weights drawn from a seed, on 512²
+frames that the port's run_render CLI renders from a synthetic two-bone
+rig: the serving path (run_render → test_stage1 → test_stage2 → GIF), then
+the training path (run_render → train_stage1 → test_stage1 → train_stage2
+→ test_stage2 → GIF) on batches of 40 × 32² patches. Then stage 2b at the
+production width of configs/neus-ortho.yaml, trained from a seed: the
+recon CLI on six 1024² views of a synthetic sphere, 600 steps, export at
+mc512. Then the stage-3 renders of a rig of production size, and stage 1
+(the predict CLI, LaMa's FFC ResNet at the full width of
+configs/lama-fourier.yaml, seeded weights) on eight 512² drawings. Phases:
 
   1. versions, and the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels (RIC conv forward and backward, hash-grid encode
@@ -27,9 +31,10 @@ views of a synthetic sphere, 600 steps, export at mc512. Phases:
      and the yardstick: torch.matmul in f32 of U · Wk, with U the sampled
      input (``ric_conv_sample_reference``) built outside the timed region
      (timed here only; the port never calls it);
-  4. the serving path through the port's CLIs on a synthetic uid (2 actions
-     × 4 frames): exactly 21 kernel launches per GeneratorJ_RIC frame,
-     every frame and GIF written, ms per frame of each stage;
+  4. the serving path through the port's CLIs on a rigged uid whose 2
+     actions × 4 frames run_render renders on the card: exactly 21 kernel
+     launches per GeneratorJ_RIC frame, every frame and GIF written, ms per
+     frame of each stage;
   5. one whole frame, kernel path against plain path on the card: u8 RGB
      within ±1 LSB on < 2 % of pixels, alpha exact, outputs finite;
   6. backward kernels against their plain twins at the 8 RIC layer shapes
@@ -43,8 +48,9 @@ views of a synthetic sphere, 600 steps, export at mc512. Phases:
      in f32 on the same dz (timed here only; the port never calls it); and
      the forward kernel at the same shapes, with phase 3's checks and
      yardstick;
-  7. the training path through the port's CLIs on a second synthetic uid
-     (the same actions, a rest_pose keyframe and the character drawings):
+  7. the training path through the port's CLIs on a second rigged uid
+     (the same actions and the rest_pose keyframe, rendered by run_render
+     on the card, and the character drawings):
      22 forward and 21 backward launches per stage-1 step and 21 forward
      launches per stage-1 frame, finite losses, stage 1's image loss
      falling, checkpoints, frames and GIFs written; ms per step of each
@@ -75,7 +81,9 @@ views of a synthetic sphere, 600 steps, export at mc512. Phases:
      yardstick: the scatter alone as index_put_(accumulate=True) of K2's
      terms with deterministic algorithms on;
  10. the row-gather kernel (K3) against tab[idx], bit-equal, at the Pallas
-     gathers' shapes (T = 74³ and 129³ rows of 16 bf16, K = 262 144);
+     gathers' shapes (T = 74³ and 129³ rows of 16 bf16, K = 262 144) and at
+     the main path's (one NSR step's pixel targets: 2048 rows of 12 f32
+     from a 6 × 1024² table), with the bound of each;
  11. the recon CLI (``python -m drawingspinup_torch.cli.recon``) on a
      synthetic sphere uid with the cuts trainer.max_steps=600,
      system.constant_steps=100, update_steps=200 (4 → 5 → 6 levels): per
@@ -95,7 +103,24 @@ views of a synthetic sphere, 600 steps, export at mc512. Phases:
      of each path, and a profile;
  13. the export's u8 field at mc512 from the trained params, kernel field
      against plain field: more than 1 apart on < 0.5 % of voxels, marched
-     vertex and face counts within 10 %.
+     vertex and face counts within 10 %;
+ 14. the renders: run_render on a rig of 50 000 faces (the recon OBJ's
+     f50000) animated over 2 s, 61 frames of 760², on the card and with
+     --device cpu: equal frame counts and sizes, color and pos u8 more
+     than 1 apart on < 0.5 % of values, alpha and edge differing on
+     < 0.5 % of pixels; seconds per frame split into skinning (device),
+     rasterization (host), shading, edges and PNG writes;
+ 15. stage 1: the predict CLI on 8 drawings of 512² at the full width of
+     lama-fourier.yaml, seeded weights (the head rescaled so that the
+     logits straddle the contour threshold) loaded from a torch
+     checkpoint: every ffc_resnet_inpainted.png written with the input's
+     alpha; the generator's logits on the card in f32 within relative L2
+     1e-4 of the same weights in float64 on the CPU (the CPU f32 run's
+     distance beside), the thresholded contour masks differing on < 0.1 %
+     of pixels; ms per drawing at batch 1 and 8 (CUDA events), cuFFT's
+     share of the device time (torch.profiler), threshold + Telea host
+     seconds per drawing and the CLI's wall seconds per uid. Phases 14
+     and 15 launch none of the hand-written kernels.
 
 Kernel times (phases 3, 6, 9, 10) are medians of CUDA events around each
 call, the host's enqueueing included (``ms``, and every plain and library
@@ -117,6 +142,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import io
 import json
 import math
 import os
@@ -133,6 +159,22 @@ SEED = 0
 FRAME = 512
 ACTIONS = ("jump", "walk")
 FRAMES_PER_ACTION = 4
+# phases 4 and 7: a rig that fits a 512^2 frame (height < the 1.35 ortho
+# scale), its 4 frames 0.1 s of animation at 30 fps
+STAGE3_RIG = dict(n_seg=64, duration=0.1, height=1.2, half=0.2)
+# phase 14: the production-size rig, a bar of 50 000 faces (the recon OBJ's
+# f50000), 2 s of animation: 61 frames of 760^2 (the bar outgrows the
+# 1.35 ortho scale, so the frame grows past 512)
+RENDER_UID = "smoke_render"
+RENDER_RIG = dict(n_seg=6250, duration=2.0)
+RENDER_FRAMES = 61
+RENDER_SHARE = 5e-3     # card vs CPU: values off by > 1, alpha, edge pixels
+# phase 15: stage 1 at the full width of configs/lama-fourier.yaml
+LAMA_YAML = "drawingspinup_torch/configs/lama-fourier.yaml"
+DRAWINGS = 8
+DRAWING_SIZE = 512
+LOGIT_REL_L2 = 1e-4     # card f32 vs CPU float64
+MASK_SHARE = 1e-3       # thresholded contour masks, card vs float64
 UID = "smoke"
 F32_TOL = 1e-3          # phase 5: tanh outputs of 21 reordered-sum layers
 REL_TOL = 1e-4          # phase 3: f32 sums of up to 9·C products, reordered
@@ -431,42 +473,41 @@ def phase_kernel_vs_plain(device, shapes=RIC_SHAPES, reps: int = 10):
     return results
 
 
-def write_uid(root: str, uid: str, size: int, frames: int, seed: int,
-              training: bool = False):
-    """Synthetic per-uid render tree: a character-like disc with RGBA
-    ``color``, ``pos`` and ``edge`` passes for each action and frame. For
-    ``training``, also a one-frame ``rest_pose`` action (the keyframe) and
-    the two character drawings under ``char/``."""
-    from drawingspinup_torch.core.contract import UidPaths
-    from drawingspinup_torch.core.io import write_image
+def render_uid(root: str, uid: str, device, training: bool = False):
+    """A rigged uid (``utils/synthetic.py::write_rig_uid``: a bar of
+    ``STAGE3_RIG["n_seg"]`` segments bending at mid-height, one animated FBX
+    per action) rendered by the port's ``run_render`` CLI on ``device``:
+    the actions' ``color``, ``pos`` and ``edge`` passes (test mode) and,
+    for ``training``, the ``rest_pose`` keyframe (train mode) and the two
+    character drawings under ``char/``."""
+    from PIL import Image
 
-    rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:size, 0:size]
-    paths = UidPaths(root, uid)
-    actions = [(a, frames) for a in ACTIONS]
+    from drawingspinup_torch.cli import run_render
+    from drawingspinup_torch.core.io import write_image
+    from drawingspinup_torch.utils.synthetic import write_rig_uid
+
+    paths = write_rig_uid(root, uid, actions=ACTIONS, **STAGE3_RIG)
+    args = ["--uid", uid, "--data_dir", root, "--device", str(device)]
+    with contextlib.redirect_stdout(sys.stderr):
+        run_render.main(args + ["--test"])
+        if training:
+            run_render.main(args)
+    for action in ACTIONS + (("rest_pose",) if training else ()):
+        want = FRAMES_PER_ACTION if action in ACTIONS else 1
+        for name in ("color", "pos", "edge"):
+            d = os.path.join(paths.action_dir(action), name)
+            pngs = sorted(os.listdir(d))
+            check(len(pngs) == want, f"run_render wrote {len(pngs)} frames "
+                                     f"in {d}, expected {want}")
+            with Image.open(os.path.join(d, pngs[0])) as im:
+                check(im.size == (FRAME, FRAME),
+                      f"run_render frame {im.size}, expected {FRAME}^2")
     if training:
-        actions.append(("rest_pose", 1))
-    for action, n_frames in actions:
-        for k in range(1, n_frames + 1):
-            cy, cx = size * rng.uniform(0.4, 0.6, 2)
-            r = np.hypot(yy - cy, xx - cx)
-            mask = r < size * rng.uniform(0.25, 0.4)
-            color = np.empty((size, size, 4), np.float32)
-            color[..., :3] = rng.uniform(0.2, 0.9, 3) * (
-                0.75 + 0.25 * np.sin(xx / 7.0 + k)[..., None])
-            color[..., :3] *= mask[..., None]
-            color[..., 3] = mask
-            pos = np.stack([xx / size, yy / size, np.zeros_like(r)], -1)
-            edge = np.where(mask & (r > size * 0.22), 0.0, 1.0)
-            name = f"{k:04d}.png"
-            d = paths.action_dir(action)
-            write_image(os.path.join(d, "color", name), color)
-            write_image(os.path.join(d, "pos", name), pos * mask[..., None])
-            write_image(os.path.join(d, "edge", name), edge)
-    if training:
-        # the drawings: the keyframe's disc in flat, banded colours on white
-        ref = np.asarray(np.hypot(yy - size / 2, xx - size / 2) < size * 0.3)
-        bands = (np.floor(yy / (size / 8)) % 2)[..., None]
+        # the drawings: a disc in flat, banded colours on white
+        yy, xx = np.mgrid[0:FRAME, 0:FRAME]
+        ref = np.asarray(np.hypot(yy - FRAME / 2, xx - FRAME / 2)
+                         < FRAME * 0.3)
+        bands = (np.floor(yy / (FRAME / 8)) % 2)[..., None]
         ink = np.where(bands > 0, [0.85, 0.35, 0.2], [0.2, 0.45, 0.8])
         drawing = np.where(ref[..., None], ink, 1.0).astype(np.float32)
         write_image(paths.inpainted, drawing)
@@ -530,7 +571,7 @@ def phase_main_path(root: str, device) -> int:
     from drawingspinup_torch.pipelines import stage3_data
 
     uid = UID
-    paths = write_uid(root, uid, FRAME, FRAMES_PER_ACTION, SEED)
+    paths = render_uid(root, uid, device)
     for stage in (1, 2):
         x_u8 = stage3_data.load_full_frame_u8(
             paths.action_dir(ACTIONS[0]), "0001.png", stage == 2)
@@ -841,8 +882,7 @@ def phase_training(root: str, device):
     from drawingspinup_torch.kernels import ric_conv as rk
     from drawingspinup_torch.pipelines import stage3_translate as st
 
-    paths = write_uid(root, TRAIN_UID, FRAME, FRAMES_PER_ACTION, SEED + 7,
-                      training=True)
+    paths = render_uid(root, TRAIN_UID, device, training=True)
     actions = ACTIONS + ("rest_pose",)
     n_frames = len(ACTIONS) * FRAMES_PER_ACTION + 1
     args = ["--uid", TRAIN_UID, "--root", root, "--device", str(device)]
@@ -1390,7 +1430,39 @@ def phase_row_gather(device, reps: int = 10):
                f"({GATHER_K / plain / 1e3:.0f} M rows/s), index_select "
                f"{library:.4f} ms, bound {bound:.4f} ms (bytes)")
         results.append((ms, plain, library, nbytes, dev))
-    return results
+    # the main path's shape (train/nsr.py::sample_pixel_rays): one NSR
+    # step's pixel targets, 2048 rows of PIXEL_COLUMNS f32 (48 bytes) from
+    # the six RECON_SIZE^2 views
+    from drawingspinup_torch.train.nsr import PIXEL_COLUMNS, NSRConfig
+
+    rays = NSRConfig.train_num_rays
+    rows = 6 * RECON_SIZE ** 2
+    g = torch.Generator(device=device).manual_seed(SEED + 301)
+    tab = torch.randn((rows, PIXEL_COLUMNS), generator=g, device=device)
+    idx = torch.randint(0, rows, (rays,), generator=g, device=device,
+                        dtype=torch.int32)
+    got = hk.row_gather(tab, idx)
+    torch.cuda.synchronize()
+    check(torch.equal(got, tab[idx.long()]),
+          "row_gather differs from tab[idx] at the main path's shape")
+    row_bytes = PIXEL_COLUMNS * tab.element_size()
+    nbytes = rays * (4 + row_bytes) + row_bytes * int(
+        torch.unique(idx).numel())
+    main = {"ms": cuda_ms(lambda: hk.row_gather(tab, idx), reps),
+            "device_ms": device_ms(lambda: hk.row_gather(tab, idx), reps),
+            "plain_ms": cuda_ms(lambda: hk.row_gather_reference(tab, idx),
+                                reps),
+            "library_ms": cuda_ms(lambda: torch.index_select(tab, 0, idx),
+                                  reps),
+            "bound_ms": bound_ms(nbytes, 0, F32_FLOPS)[0],
+            "shape": f"K={rays} rows of {PIXEL_COLUMNS} f32 ({row_bytes} "
+                     f"bytes) from a ({rows}, {PIXEL_COLUMNS}) table"}
+    report(f"[10] row_gather at the main path's shape, {main['shape']}: "
+           f"bit-equal to tab[idx]; kernel {main['ms']:.4f} ms (device "
+           f"{main['device_ms']:.4f} ms), plain {main['plain_ms']:.4f} ms, "
+           f"index_select {main['library_ms']:.4f} ms, bound "
+           f"{main['bound_ms']:.5f} ms (bytes)")
+    return results, main
 
 
 def phase_recon(root: str, device):
@@ -1709,8 +1781,274 @@ def phase_export_vs_plain(root: str, device) -> None:
            f"{secs[0]:.2f} s (kernel) vs {secs[1]:.2f} s (plain)")
 
 
+# ---------------------------------------------------------------------------
+# the stage-3 renders and stage 1
+# ---------------------------------------------------------------------------
+
+def render_passes(d: str):
+    """Every frame of the color, pos and edge passes under ``d``, u8."""
+    from drawingspinup_torch.core.io import read_image_u8
+
+    return {name: [read_image_u8(os.path.join(d, name, f)).astype(np.int16)
+                   for f in sorted(os.listdir(os.path.join(d, name)))]
+            for name in ("color", "pos", "edge")}
+
+
+def phase_renders(root: str, device) -> None:
+    """The run_render CLI on the production-size rig, on the card and with
+    ``--device cpu``: equal frames within the shares of RENDER_SHARE, and
+    seconds per frame by part."""
+    from drawingspinup_torch.cli import run_render
+    from drawingspinup_torch.core.contract import UidPaths
+    from drawingspinup_torch.utils.synthetic import write_rig_uid
+
+    runs = []
+    for uid, dev in ((RENDER_UID, str(device)), (RENDER_UID + "_cpu", "cpu")):
+        write_rig_uid(root, uid, actions=("walk",), **RENDER_RIG)
+        buf = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(buf):
+            run_render.main(["--uid", uid, "--data_dir", root, "--test",
+                             "--device", dev])
+        wall = time.time() - t0
+        print(buf.getvalue(), end="", file=sys.stderr)
+        info = json.loads(buf.getvalue().strip().splitlines()[-1])["walk"]
+        runs.append((info, wall, render_passes(
+            UidPaths(root, uid).action_dir("walk"))))
+    (info, wall, got), (cinfo, cwall, want) = runs
+    n = info["frames"]
+    check(n == cinfo["frames"] == RENDER_FRAMES
+          and info["size"] == cinfo["size"] >= FRAME,
+          f"renders: {n} / {cinfo['frames']} frames of {info['size']} / "
+          f"{cinfo['size']} px, expected {RENDER_FRAMES} of >= {FRAME}")
+    value_off, alpha_off, edge_off = [], [], []
+    for k in range(n):
+        for name in ("color", "pos"):
+            g, w = got[name][k], want[name][k]
+            check(g.shape == w.shape == (info["size"], info["size"], 4),
+                  f"render {name} frame {k + 1}: {g.shape} vs {w.shape}")
+            value_off.append(np.abs(g[..., :3] - w[..., :3]) > 1)
+            alpha_off.append(g[..., 3] != w[..., 3])
+        edge_off.append(got["edge"][k] != want["edge"][k])
+    shares = [float(np.mean(a)) for a in (value_off, alpha_off, edge_off)]
+    lit = float(np.mean([f[..., 3] > 0 for f in got["color"]]))
+    check(lit > 0.01, f"renders: only {lit:.2%} of pixels covered")
+    check(all(x < RENDER_SHARE for x in shares),
+          f"renders, card vs CPU: color/pos values off by more than 1 on "
+          f"{shares[0]:.3%}, alpha on {shares[1]:.3%}, edge on "
+          f"{shares[2]:.3%} (limit {RENDER_SHARE:.1%})")
+    parts = ", ".join(f"{k} {v / n:.4f}" for k, v in info["seconds"].items())
+    cparts = ", ".join(f"{k} {v / n:.4f}"
+                       for k, v in cinfo["seconds"].items())
+    report(f"[14] renders: run_render on a rig of {8 * RENDER_RIG['n_seg']} "
+           f"faces, {n} frames ({RENDER_RIG['duration']} s at 30 fps) of "
+           f"{info['size']}^2 x 3 passes; card vs --device cpu: color/pos "
+           f"values off by more than 1 on {shares[0]:.4%}, alpha on "
+           f"{shares[1]:.4%}, edge on {shares[2]:.4%} of pixels; s/frame "
+           f"(host clock, the device synchronised at each part) on the card "
+           f"{wall / n:.4f} wall ({parts}), with --device cpu "
+           f"{cwall / n:.4f} wall ({cparts}); {lit:.1%} of pixels covered")
+
+
+def conv_flops(model, x) -> float:
+    """Multiply-add FLOPs (2 per MAC) of ``model``'s convolutions and
+    transposed convolutions on ``x``, per sample."""
+    import torch
+
+    total = [0.0]
+
+    def hook(m, inp, out):
+        k = m.weight[0, 0].numel()
+        if isinstance(m, torch.nn.ConvTranspose2d):
+            total[0] += 2.0 * inp[0].numel() * m.out_channels * k
+        else:
+            total[0] += 2.0 * out.numel() * m.in_channels // m.groups * k
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d))]
+    try:
+        with torch.inference_mode():
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0] / x.shape[0]
+
+
+def write_drawings(root: str, n: int, size: int, seed: int):
+    """``n`` drawing uids: a disc in a seeded colour with a dark contour
+    ring, at a seeded place and radius, as ``char/texture.png`` (RGBA)."""
+    from drawingspinup_torch.core.contract import UidPaths
+    from drawingspinup_torch.core.io import write_image
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size]
+    uids = []
+    for i in range(n):
+        cy, cx = size * rng.uniform(0.4, 0.6, 2)
+        r0 = size * rng.uniform(0.2, 0.32)
+        r = np.hypot(yy - cy, xx - cx)
+        body, ring = r < 0.93 * r0, (r >= 0.93 * r0) & (r < 1.1 * r0)
+        rgba = np.zeros((size, size, 4), np.float32)
+        rgba[body, :3] = rng.uniform(0.3, 0.95, 3) * (
+            0.8 + 0.2 * np.sin(xx[body] / 9.0)[:, None])
+        rgba[ring, :3] = 0.05
+        rgba[..., 3] = body | ring
+        uids.append(f"drawing{i}")
+        write_image(UidPaths(root, uids[-1]).texture, rgba)
+    return uids
+
+
+def phase_stage1(root: str, device) -> None:
+    """The predict CLI on DRAWINGS drawings at the full width of
+    lama-fourier.yaml; the generator's logits on the card against float64
+    on the CPU; ms per drawing, cuFFT's share, Telea's host time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from drawingspinup_torch.cli import predict
+    from drawingspinup_torch.core import device as device_setup
+    from drawingspinup_torch.core.config import load_config
+    from drawingspinup_torch.core.contract import UidPaths
+    from drawingspinup_torch.core.io import read_image_u8
+    from drawingspinup_torch.pipelines import stage1
+
+    uids = write_drawings(root, DRAWINGS, DRAWING_SIZE, SEED + 400)
+    yaml = os.path.join(REPO, LAMA_YAML)
+    inputs = [stage1.load_input(UidPaths(root, u), DRAWING_SIZE)
+              for u in uids]
+    x8 = torch.from_numpy(np.concatenate(
+        [np.stack([i[0] for i in inputs]), np.stack([i[1] for i in inputs])],
+        axis=-1)).permute(0, 3, 1, 2).contiguous()
+    # seeded weights, the head rescaled so that the logits of the first
+    # drawing have std 2 around the threshold's logit: the He init alone
+    # gives logits of std ~10^3, where the thresholded masks check little
+    thr = math.log(stage1.CONTOUR_THRESHOLD
+                   / (1 - stage1.CONTOUR_THRESHOLD))
+    model = stage1.build_generator(load_config(yaml))
+    predict.seeded_init(model, SEED)
+    model.to(device)
+    with torch.no_grad():
+        y = model.logits(x8[:1].to(device))
+        head = model.model[-1]
+        k = 2.0 / y.std()
+        head.weight.mul_(k)
+        head.bias.copy_(k * (head.bias - y.mean())
+                        + thr)
+    ckpt = os.path.join(root, "lama_seeded.pth")
+    torch.save({"state_dict": model.state_dict()}, ckpt)
+    lst = os.path.join(root, "drawing_uids.json")
+    with open(lst, "w") as f:
+        json.dump(uids, f)
+
+    t0 = time.time()
+    with contextlib.redirect_stdout(sys.stderr):
+        predict.main([yaml, f"pretrained.path={ckpt}", f"uid_json={lst}",
+                      "--root", root, "--device", str(device),
+                      "--batch-size", str(DRAWINGS),
+                      "--size", str(DRAWING_SIZE)])
+    torch.cuda.synchronize()
+    cli_s = (time.time() - t0) / DRAWINGS
+    for u in uids:
+        p = UidPaths(root, u)
+        check(os.path.exists(p.inpainted), f"predict wrote no {p.inpainted}")
+        out, tex = read_image_u8(p.inpainted), read_image_u8(p.texture)
+        check(out.shape == (DRAWING_SIZE, DRAWING_SIZE, 4)
+              and np.array_equal(out[..., 3], tex[..., 3]),
+              f"{p.inpainted}: shape {out.shape} or alpha differs from the "
+              f"input's")
+
+    # the CLI's weights, from its checkpoint, on the card and on the CPU
+    cfg = load_config(yaml, [f"pretrained.path={ckpt}"])
+    card = stage1.build_generator(cfg)
+    predict.load_weights(card, cfg, SEED)
+    cpu32 = copy.deepcopy(card)
+    cpu64 = copy.deepcopy(card).double()
+    card.to(device)
+    x1 = x8[:1]
+    with torch.inference_mode():
+        y_card = card.logits(x1.to(device)).double().cpu()
+        t0 = time.time()
+        y64 = cpu64.logits(x1.double())
+        t64 = time.time() - t0
+        y32 = cpu32.logits(x1).double()
+        probs = card(x8.to(device))
+    check(bool(torch.isfinite(y_card).all() and torch.isfinite(probs).all()),
+          "stage 1: non-finite logits or probabilities")
+    rel_card = ((y_card - y64).norm() / y64.norm()).item()
+    rel_cpu = ((y32 - y64).norm() / y64.norm()).item()
+    mask_off = ((y_card > thr) != (y64 > thr)).double().mean().item()
+    contour = (y64 > thr).double().mean().item()
+    check(rel_card <= LOGIT_REL_L2,
+          f"stage 1 logits, card f32 vs CPU float64: relative L2 "
+          f"{rel_card:.3e} > {LOGIT_REL_L2:g} (CPU f32: {rel_cpu:.3e})")
+    check(mask_off < MASK_SHARE,
+          f"stage 1 contour masks differ on {mask_off:.4%} of pixels")
+
+    with torch.inference_mode():
+        xd8, xd1 = x8.to(device), x1.to(device)
+        ms1 = cuda_ms(lambda: card(xd1), reps=5)
+        ms8 = cuda_ms(lambda: card(xd8), reps=5) / DRAWINGS
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            card(xd8)
+            torch.cuda.synchronize()
+        # yardsticks, not the port's setting (heuristic choice among
+        # deterministic algorithms): cuDNN autotuned among the
+        # deterministic algorithms, and among all
+        torch.backends.cudnn.benchmark = True
+        try:
+            tuned8 = []
+            for deterministic in (True, False):
+                torch.backends.cudnn.deterministic = deterministic
+                tuned8.append(cuda_ms(lambda: card(xd8), reps=5, warmup=3)
+                              / DRAWINGS)
+        finally:
+            device_setup.setup(device)    # the port's settings again
+    flops = conv_flops(card, xd1)
+    events = prof.key_averages()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    # cuFFT: the device time under torch.fft's ops (cuDNN's own FFT
+    # convolution kernels also carry "fft" in their names)
+    fft = sum(e.device_time_total for e in events
+              if e.key.startswith("aten::_fft_")) / 1e3
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    top = "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f} ms "
+                    f"x{e.count}" for e in kernels[:6])
+    fft_note = (f"device busy {busy:.2f} ms a batch of {DRAWINGS}, cuFFT "
+                f"(torch.fft's ops) {fft:.2f} ms ({fft / busy:.1%}); top "
+                f"kernels: {top}") if busy > 0 else \
+        "cuFFT share not measured (the profiler saw no device time)"
+    p_np = probs.permute(0, 2, 3, 1).float().cpu().numpy()
+    t0 = time.time()
+    for (rgb, alpha), prob in zip(inputs, p_np):
+        stage1.postprocess_one(rgb, alpha, prob)
+    telea_s = (time.time() - t0) / DRAWINGS
+    report(f"[15] stage 1: predict on {DRAWINGS} drawings of "
+           f"{DRAWING_SIZE}^2, lama-fourier.yaml at full width "
+           f"({sum(p.numel() for p in card.parameters()) / 1e6:.1f} M "
+           f"parameters, seeded): every ffc_resnet_inpainted.png written, "
+           f"alpha equal to the input's; logits card f32 vs CPU float64 "
+           f"relative L2 {rel_card:.3e} (CPU f32 {rel_cpu:.3e}; limit "
+           f"{LOGIT_REL_L2:g}), contour masks differ on {mask_off:.4%} of "
+           f"pixels ({contour:.1%} contour); forward {ms1:.2f} ms per drawing "
+           f"at batch 1, {ms8:.2f} at batch {DRAWINGS} (CUDA events; "
+           f"{flops / 1e9:.1f} GFLOP of convolutions a drawing, "
+           f"{flops / ms8 / 1e9:.1f} TFLOP/s at batch {DRAWINGS}; not the "
+           f"port's setting: cuDNN autotuned among its deterministic "
+           f"algorithms {tuned8[0]:.2f}, among all {tuned8[1]:.2f}); "
+           f"{fft_note}; threshold + Telea "
+           f"{telea_s:.3f} host s per drawing; CLI wall {cli_s:.2f} s per "
+           f"uid (checkpoint load and first-call set-up included); CPU "
+           f"float64 forward {t64:.1f} s")
+
+
 def kernels_line(per_shape, serving_launches, train_shapes, fwd_launches,
-                 bwd_launches, hg_uniform, hg_rays, gather,
+                 bwd_launches, hg_uniform, hg_rays, gather, gather_main,
                  recon_launches) -> dict:
     """The ``kernels`` JSON object from the phases' results: per kernel its
     launches on the main paths, error, times, bound and yardstick; the hash
@@ -1850,6 +2188,12 @@ def kernels_line(per_shape, serving_launches, train_shapes, fwd_launches,
                  f"ms, plain {gather[0][1]:.4f} ms); library_ms: "
                  f"torch.index_select; {TIMED}",
         "device_ms": gather[-1][4],
+        "main_path_shape": gather_main["shape"],
+        "ms_main_path": gather_main["ms"],
+        "device_ms_main_path": gather_main["device_ms"],
+        "plain_ms_main_path": gather_main["plain_ms"],
+        "library_ms_main_path": gather_main["library_ms"],
+        "bound_ms_main_path": gather_main["bound_ms"],
     }]}
 
 
@@ -1880,16 +2224,18 @@ def main() -> int:
         phase_step_vs_plain(root, device)
         hg_uniform = phase_hashgrid_vs_plain(device, uniform_points(device),
                                              "uniform")
-        gather = phase_row_gather(device)
+        gather, gather_main = phase_row_gather(device)
         recon_launches = phase_recon(root, device)
         hg_rays = phase_hashgrid_vs_plain(device, step_points(root, device),
                                           "ray-ordered")
         phase_nsr_step_vs_plain(root, device)
         phase_export_vs_plain(root, device)
+        phase_renders(root, device)
+        phase_stage1(root, device)
 
     print(json.dumps(kernels_line(
         per_shape, serving_launches, train_shapes, fwd_launches, bwd_launches,
-        hg_uniform, hg_rays, gather, recon_launches)))
+        hg_uniform, hg_rays, gather, gather_main, recon_launches)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

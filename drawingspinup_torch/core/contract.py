@@ -1,12 +1,13 @@
-"""Per-uid dataset layout of stages 2b and 3.
+"""Per-uid dataset layout of stages 1, 2b and 3.
 
 A copy of the parts of ``drawingspinup_tpu/core/contract.py`` that the
 port reads, so both packages read and write the same files
 (``<root>/<uid>/char/<drawing>.png``, ``<root>/<uid>/mv/<kind>/<view>.png``,
-``<root>/<uid>/mesh/…``,
+``<root>/<uid>/mesh/…``, ``<root>/<uid>/mesh/fbx_files/<action>.fbx``,
 ``<root>/<uid>/mesh/blender_render/<action>/<pass>/NNNN.png``,
-``<root>/<uid>/gif/<action>.gif``). ``tests/test_torch_stage3.py`` and
-``tests/test_torch_recon.py`` pin each path to the original.
+``<root>/<uid>/gif/<action>.gif``). ``tests/test_torch_stage3.py``,
+``tests/test_torch_recon.py`` and ``tests/test_torch_stage1.py`` pin each
+path to the original.
 """
 from __future__ import annotations
 
@@ -28,6 +29,10 @@ class UidPaths:
         return os.path.join(self.root, self.uid, "char")
 
     @property
+    def texture(self) -> str:
+        return os.path.join(self.char_dir, "texture.png")
+
+    @property
     def mask(self) -> str:
         return os.path.join(self.char_dir, "mask.png")
 
@@ -46,6 +51,10 @@ class UidPaths:
     @property
     def mesh_dir(self) -> str:
         return os.path.join(self.root, self.uid, "mesh")
+
+    @property
+    def fbx_dir(self) -> str:
+        return os.path.join(self.mesh_dir, "fbx_files")
 
     @property
     def render_dir(self) -> str:

@@ -1,0 +1,286 @@
+"""LaMa's Fast Fourier Convolution generator (stage 1, contour removal),
+NCHW, inference only.
+
+The port of ``drawingspinup_tpu/models/ffc.py``: FourierUnit,
+SpectralTransform (with the local Fourier unit), FFC, FFCBnAct,
+FFCResnetBlock and FFCResNetGenerator. Module and parameter names are
+upstream LaMa's (``saicinpainting/training/modules/ffc.py``), so a LaMa
+generator ``state_dict`` loads with ``load_state_dict(strict=True)`` once
+its ``num_batches_tracked`` counters are dropped; the JAX package's
+``utils/torch_port.py`` maps the same names onto its flax tree, and
+``utils/jax_params.py::ffc_params`` maps a flax tree onto these modules.
+
+A stream is the pair (local, global) of NCHW tensors; an absent stream
+is ``None``, and so is a branch whose input or output stream has no
+channels. Batch norm is the eval-mode affine map of the running
+statistics (eps 1e-5). Convolutions reflect-pad where LaMa does; the
+upsampling is ``ConvTranspose2d(k=3, s=2, p=1, output_padding=1)``.
+
+Options that ``configs/lama-fourier.yaml`` leaves off (squeeze-excitation
+and spectral positional encoding in the Fourier unit, gated FFCs,
+``out_ffc``) raise ``NotImplementedError``; the FFC discriminator and the
+pix2pixHD generators are not ported.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from drawingspinup_torch.ops.fourier import irfft2_ortho, rfft2_ortho
+
+Stream = Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]
+
+BN_EPS = 1e-5
+
+
+def _act(name: str) -> nn.Module:
+    return {"relu": nn.ReLU, "sigmoid": nn.Sigmoid, "tanh": nn.Tanh,
+            "identity": nn.Identity}[name]()
+
+
+def _stream(x: Union[torch.Tensor, Stream]) -> Stream:
+    return x if isinstance(x, tuple) else (x, None)
+
+
+class BatchNorm2d(nn.Module):
+    """Eval-mode batch norm over channel dim 1 with LaMa's parameter names
+    (``weight``, ``bias``, ``running_mean``, ``running_var``)."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.batch_norm(x, self.running_mean, self.running_var,
+                            self.weight, self.bias, False, 0.0, BN_EPS)
+
+
+class FourierUnit(nn.Module):
+    """rFFT2 → 1×1 conv + BN + ReLU over the interleaved channels
+    ``[c0_re, c0_im, c1_re, …]`` (upstream's ``stack(…, -1)`` order) →
+    irFFT2, the transforms in f32 at least."""
+
+    def __init__(self, in_channels: int, out_channels: int, groups: int = 1,
+                 spectral_pos_encoding: bool = False, use_se: bool = False,
+                 fft_norm: str = "ortho"):
+        super().__init__()
+        if spectral_pos_encoding or use_se or fft_norm != "ortho":
+            raise NotImplementedError(
+                "FourierUnit: spectral_pos_encoding, use_se and fft_norm "
+                "other than 'ortho' are not ported")
+        self.conv_layer = nn.Conv2d(in_channels * 2, out_channels * 2, 1,
+                                    groups=groups, bias=False)
+        self.bn = BatchNorm2d(out_channels * 2)
+        self.relu = nn.ReLU()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, c, h, w = x.shape
+        re, im = rfft2_ortho(x)
+        ff = torch.stack([re, im], dim=2).reshape(n, 2 * c, h, w // 2 + 1)
+        ff = self.relu(self.bn(self.conv_layer(ff.to(x.dtype))))
+        ff = ff.reshape(n, -1, 2, h, w // 2 + 1)
+        return irfft2_ortho(ff[:, :, 0], ff[:, :, 1], (h, w)).to(x.dtype)
+
+
+class SpectralTransform(nn.Module):
+    """The global branch: [2× average pool] → 1×1 conv + BN + ReLU →
+    FourierUnit (+ the local Fourier unit over a 2×2 split of the first
+    quarter of the channels) → 1×1 conv of the sum."""
+
+    def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
+                 groups: int = 1, enable_lfu: bool = True, **fu_kwargs):
+        super().__init__()
+        self.enable_lfu = enable_lfu
+        self.downsample = nn.AvgPool2d(2, 2) if stride == 2 else nn.Identity()
+        half = out_channels // 2
+        self.conv1 = nn.Sequential(
+            nn.Conv2d(in_channels, half, 1, groups=groups, bias=False),
+            BatchNorm2d(half), nn.ReLU())
+        self.fu = FourierUnit(half, half, groups, **fu_kwargs)
+        if enable_lfu:
+            self.lfu = FourierUnit(half, half, groups)
+        self.conv2 = nn.Conv2d(half, out_channels, 1, groups=groups,
+                               bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv1(self.downsample(x))
+        out = self.fu(x)
+        if self.enable_lfu:
+            c, s = x.shape[1], x.shape[2] // 2
+            xs = x[:, : c // 4]
+            xs = torch.cat([xs[:, :, :s], xs[:, :, s:2 * s]], dim=1)
+            xs = torch.cat([xs[..., :s], xs[..., s:2 * s]], dim=1)
+            out = out + self.lfu(xs).repeat(1, 1, 2, 2)
+        return self.conv2(x + out)
+
+
+class FFC(nn.Module):
+    """Two-stream convolution: local ← l2l(local) + g2l(global), global ←
+    l2g(local) + SpectralTransform(global)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 ratio_gin: float, ratio_gout: float, stride: int = 1,
+                 padding: int = 0, dilation: int = 1, groups: int = 1,
+                 bias: bool = False, enable_lfu: bool = True,
+                 padding_type: str = "reflect", gated: bool = False,
+                 **spectral_kwargs):
+        super().__init__()
+        if gated:
+            raise NotImplementedError("FFC: gated=True is not ported")
+        in_cg = int(in_channels * ratio_gin)
+        in_cl = in_channels - in_cg
+        out_cg = int(out_channels * ratio_gout)
+        out_cl = out_channels - out_cg
+
+        def conv(cin: int, cout: int) -> Optional[nn.Conv2d]:
+            if not (cin and cout):
+                return None
+            return nn.Conv2d(cin, cout, kernel_size, stride, padding,
+                             dilation, groups, bias,
+                             padding_mode=padding_type if padding else "zeros")
+
+        self.convl2l = conv(in_cl, out_cl)
+        self.convl2g = conv(in_cl, out_cg)
+        self.convg2l = conv(in_cg, out_cl)
+        self.convg2g = SpectralTransform(
+            in_cg, out_cg, stride, 1 if groups == 1 else groups // 2,
+            enable_lfu, **spectral_kwargs) if in_cg and out_cg else None
+        self.has_l, self.has_g = out_cl > 0, out_cg > 0
+
+    @staticmethod
+    def _sum(pairs) -> Optional[torch.Tensor]:
+        terms = [m(t) for m, t in pairs if m is not None]
+        return sum(terms[1:], terms[0]) if terms else None
+
+    def forward(self, x: Union[torch.Tensor, Stream]) -> Stream:
+        x_l, x_g = _stream(x)
+        out_l = self._sum(((self.convl2l, x_l), (self.convg2l, x_g))) \
+            if self.has_l else None
+        out_g = self._sum(((self.convl2g, x_l), (self.convg2g, x_g))) \
+            if self.has_g else None
+        return out_l, out_g
+
+
+class FFCBnAct(nn.Module):
+    """FFC, then batch norm and the activation on each stream (upstream's
+    ``FFC_BN_ACT``)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 ratio_gin: float, ratio_gout: float, stride: int = 1,
+                 padding: int = 0, dilation: int = 1, groups: int = 1,
+                 bias: bool = False, activation: str = "identity",
+                 padding_type: str = "reflect", enable_lfu: bool = True,
+                 **kwargs):
+        super().__init__()
+        self.ffc = FFC(in_channels, out_channels, kernel_size, ratio_gin,
+                       ratio_gout, stride, padding, dilation, groups, bias,
+                       enable_lfu, padding_type=padding_type, **kwargs)
+        out_cg = int(out_channels * ratio_gout)
+        self.bn_l = BatchNorm2d(out_channels - out_cg) \
+            if out_channels > out_cg else None
+        self.bn_g = BatchNorm2d(out_cg) if out_cg else None
+        self.act = _act(activation)
+
+    def forward(self, x: Union[torch.Tensor, Stream]) -> Stream:
+        x_l, x_g = self.ffc(x)
+        if x_l is not None:
+            x_l = self.act(self.bn_l(x_l))
+        if x_g is not None:
+            x_g = self.act(self.bn_g(x_g))
+        return x_l, x_g
+
+
+def _add(a: Optional[torch.Tensor], b: Optional[torch.Tensor]
+         ) -> Optional[torch.Tensor]:
+    if a is None or b is None:
+        return b if a is None else a
+    return a + b
+
+
+class FFCResnetBlock(nn.Module):
+    """Two 3×3 FFCBnAct with ReLU and a residual add on each stream."""
+
+    def __init__(self, dim: int, ratio_gin: float, ratio_gout: float,
+                 dilation: int = 1, enable_lfu: bool = True,
+                 padding_type: str = "reflect"):
+        super().__init__()
+        kw = dict(ratio_gin=ratio_gin, ratio_gout=ratio_gout,
+                  padding=dilation, dilation=dilation, activation="relu",
+                  padding_type=padding_type, enable_lfu=enable_lfu)
+        self.conv1 = FFCBnAct(dim, dim, 3, **kw)
+        self.conv2 = FFCBnAct(dim, dim, 3, **kw)
+
+    def forward(self, x: Union[torch.Tensor, Stream]) -> Stream:
+        id_l, id_g = _stream(x)
+        x_l, x_g = self.conv2(self.conv1((id_l, id_g)))
+        return _add(id_l, x_l), _add(id_g, x_g)
+
+
+class ConcatTupleLayer(nn.Module):
+    """(local, global) → one tensor, local channels first."""
+
+    def forward(self, x: Union[torch.Tensor, Stream]) -> torch.Tensor:
+        parts = [t for t in _stream(x) if t is not None]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
+class FFCResNetGenerator(nn.Module):
+    """The LaMa generator: reflect pad + 7×7 FFC → ``n_downsampling``
+    stride-2 FFCs (the last one switches the global ratio to the resnet
+    ratio) → ``n_blocks`` FFC residual blocks → transposed-conv
+    upsamplings with BN + ReLU → reflect pad + 7×7 conv head →
+    ``add_out_act``. ``model`` is upstream's ``nn.Sequential`` without the
+    output activation, so ``logits`` is the head before it."""
+
+    def __init__(self, input_nc: int = 4, output_nc: int = 1, ngf: int = 64,
+                 n_downsampling: int = 3, n_blocks: int = 9,
+                 max_features: int = 1024, init_ratio_gin: float = 0.0,
+                 init_ratio_gout: float = 0.0, down_ratio_gin: float = 0.0,
+                 down_ratio_gout: float = 0.0, resnet_ratio: float = 0.75,
+                 enable_lfu: bool = False, add_out_act: str = "sigmoid",
+                 out_ffc: bool = False):
+        super().__init__()
+        if out_ffc:
+            raise NotImplementedError("FFCResNetGenerator: out_ffc=True is "
+                                      "not ported")
+        layers = [nn.ReflectionPad2d(3),
+                  FFCBnAct(input_nc, ngf, 7, init_ratio_gin, init_ratio_gout,
+                           activation="relu", enable_lfu=enable_lfu)]
+        for i in range(n_downsampling):
+            mult = 2 ** i
+            gout = resnet_ratio if i == n_downsampling - 1 \
+                else down_ratio_gout
+            layers.append(FFCBnAct(
+                min(max_features, ngf * mult),
+                min(max_features, ngf * mult * 2), 3, down_ratio_gin, gout,
+                stride=2, padding=1, activation="relu",
+                enable_lfu=enable_lfu))
+        feats = min(max_features, ngf * 2 ** n_downsampling)
+        layers += [FFCResnetBlock(feats, resnet_ratio, resnet_ratio,
+                                  enable_lfu=enable_lfu)
+                   for _ in range(n_blocks)]
+        layers.append(ConcatTupleLayer())
+        for i in range(n_downsampling):
+            mult = 2 ** (n_downsampling - i)
+            cout = min(max_features, int(ngf * mult / 2))
+            layers += [nn.ConvTranspose2d(min(max_features, ngf * mult), cout,
+                                          3, stride=2, padding=1,
+                                          output_padding=1),
+                       BatchNorm2d(cout), nn.ReLU()]
+        layers += [nn.ReflectionPad2d(3), nn.Conv2d(ngf, output_nc, 7)]
+        self.model = nn.Sequential(*layers)
+        self.out_act = _act(add_out_act) \
+            if add_out_act and add_out_act != "none" else nn.Identity()
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """(N, input_nc, H, W) → the head's output before the activation."""
+        return self.model(x)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.out_act(self.model(x))

@@ -1,17 +1,19 @@
-"""ctypes bindings to the repo's native C++ mesh code (``native/*.cc`` at the
+"""ctypes bindings to the repo's native C++ code (``native/*.cc`` at the
 root of the checkout): quadric decimation, z-buffer rasterization, ±z
-raycasts and marching tetrahedra on a u8 field.
+raycasts, marching tetrahedra on a u8 field and Telea inpainting.
 
 A copy of ``drawingspinup_tpu/native/__init__.py`` trimmed to what the
-port's export runs. At first use it compiles ``native/decimate.cc``,
-``native/march.cc`` and ``native/raster.cc`` with ``g++`` into
-``build/torch_native/`` at the root of the checkout (the flags of
-``native/Makefile``). A library that fails to build or load raises: there
-is no numpy fallback.
+port runs. At first use it compiles ``native/decimate.cc``,
+``native/inpaint.cc``, ``native/march.cc`` and ``native/raster.cc`` with
+``g++`` into ``build/torch_native/`` at the root of the checkout (the flags
+of ``native/Makefile``), under a name that carries a digest of the sources
+and flags, so that a library built from other sources is never loaded. A
+library that fails to build or load raises: there is no numpy fallback.
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
@@ -21,10 +23,9 @@ from typing import Optional
 import numpy as np
 
 _REPO = Path(__file__).resolve().parents[1]
-SOURCES = tuple(_REPO / "native" / f for f in ("decimate.cc", "march.cc",
-                                               "raster.cc"))
+SOURCES = tuple(_REPO / "native" / f for f in ("decimate.cc", "inpaint.cc",
+                                               "march.cc", "raster.cc"))
 BUILD_DIR = _REPO / "build" / "torch_native"
-LIB_PATH = BUILD_DIR / "libdsu_native.so"
 CXXFLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-shared")
 
 _lock = threading.Lock()
@@ -36,26 +37,36 @@ _u8p = ctypes.POINTER(ctypes.c_uint8)
 _i64p = ctypes.POINTER(ctypes.c_int64)
 
 
+def lib_path() -> Path:
+    """The library's path for the current sources and flags."""
+    h = hashlib.sha256(" ".join(CXXFLAGS).encode())
+    for src in SOURCES:
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"libdsu_native-{h.hexdigest()[:16]}.so"
+
+
 def build() -> Path:
     """Compile the library (always; callers go through ``_load``)."""
+    path = lib_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIB_PATH.with_name(f"{LIB_PATH.name}.{os.getpid()}.tmp")
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
     out = subprocess.run(["g++", *CXXFLAGS, *map(str, SOURCES), "-o",
                           str(tmp)], capture_output=True, text=True,
                          timeout=600)
     if out.returncode:
-        raise RuntimeError(f"building {LIB_PATH} failed:\n{out.stderr}")
-    tmp.replace(LIB_PATH)
-    return LIB_PATH
+        raise RuntimeError(f"building {path} failed:\n{out.stderr}")
+    tmp.replace(path)
+    return path
 
 
 def _load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            if not LIB_PATH.exists():
+            path = lib_path()
+            if not path.exists():
                 build()
-            lib = ctypes.CDLL(str(LIB_PATH))
+            lib = ctypes.CDLL(str(path))
             ci = ctypes.c_int
             lib.dsu_decimate_fast.argtypes = [_f32p, ci, _i32p, ci, ci, _f32p,
                                               _i32p, _i32p, _i32p]
@@ -71,6 +82,8 @@ def _load() -> ctypes.CDLL:
             lib.dsu_march_tets_run_u8.restype = ctypes.c_int64
             lib.dsu_march_tets_fetch.argtypes = [ctypes.c_int64, _f32p, _i32p]
             lib.dsu_march_tets_fetch.restype = None
+            lib.dsu_telea_inpaint.argtypes = [_f32p, _u8p, ci, ci, ci, ci]
+            lib.dsu_telea_inpaint.restype = None
             _lib = lib
         return _lib
 
@@ -145,3 +158,22 @@ def march_tets(field: np.ndarray, level: float):
     faces = np.empty((nf.value, 3), np.int32)
     lib.dsu_march_tets_fetch(h, _ptr(verts, _f32p), _ptr(faces, _i32p))
     return verts, faces.astype(np.int64)
+
+
+def telea_inpaint(img: np.ndarray, mask: np.ndarray, radius: int = 3
+                  ) -> np.ndarray:
+    """Telea fast-marching inpainting (``dsu_telea_inpaint``): img (H, W, C)
+    or (H, W) float32, mask (H, W) nonzero = inpaint → a filled copy."""
+    lib = _load()
+    a = np.ascontiguousarray(img, np.float32)
+    if a.ndim == 2:
+        a = a[..., None]
+    out = a.copy()
+    m = np.ascontiguousarray((np.asarray(mask) != 0).astype(np.uint8))
+    h, w = m.shape
+    if out.shape[:2] != (h, w):
+        raise ValueError(f"telea_inpaint: image {out.shape[:2]} and mask "
+                         f"{(h, w)} differ")
+    lib.dsu_telea_inpaint(_ptr(out, _f32p), _ptr(m, _u8p), h, w,
+                          out.shape[2], int(radius))
+    return out if np.ndim(img) == 3 else out[..., 0]

@@ -1,0 +1,117 @@
+"""Stage 1, contour removal: the port of
+``drawingspinup_tpu/pipelines/stage1.py``.
+
+Per uid, as the reference's ``1_lama_contour_remover/predict.py`` does:
+``char/texture.png`` (RGBA, composited on white) + its alpha → the 4-channel
+input → the FFC ResNet's contour probability → threshold 0.2 → inpaint
+mask = contour ∪ background → Telea inpainting, radius 3 →
+``char/ffc_resnet_inpainted.png`` (RGB + the input's alpha).
+
+The forward runs batched on the model's device; thresholding and the
+Telea fill (``native/inpaint.cc``) run on the host. The JAX module's
+padding of the last batch to a fixed size serves its one compiled program
+and is not needed here.
+"""
+from __future__ import annotations
+
+import os
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from drawingspinup_torch.core.config import Config
+from drawingspinup_torch.core.contract import UidPaths
+from drawingspinup_torch.core.io import read_image, write_image
+from drawingspinup_torch.models.ffc import FFCResNetGenerator
+from drawingspinup_torch.ops.image import resize
+from drawingspinup_torch.ops.inpaint import telea_inpaint
+
+CONTOUR_THRESHOLD = 0.2  # the reference's predict.py
+INPAINT_RADIUS = 3       # the reference's predict.py
+
+
+def build_generator(cfg: Optional[Config] = None) -> FFCResNetGenerator:
+    """The generator of a reference-style config's ``generator`` subtree
+    (``configs/lama-fourier.yaml``), on the CPU; kind ``ffc_resnet`` only
+    (``pix2pixhd_global`` is not ported)."""
+    g = (cfg or Config()).get("generator", Config())
+    kind = g.get("kind", "ffc_resnet")
+    if kind != "ffc_resnet":
+        raise NotImplementedError(f"stage-1 generator kind {kind!r} is not "
+                                  f"ported; only 'ffc_resnet' is")
+    init = g.get("init_conv_kwargs", {})
+    down = g.get("downsample_conv_kwargs", {})
+    return FFCResNetGenerator(
+        input_nc=g.get("input_nc", 4),
+        output_nc=g.get("output_nc", 1),
+        ngf=g.get("ngf", 64),
+        n_downsampling=g.get("n_downsampling", 3),
+        n_blocks=g.get("n_blocks", 9),
+        init_ratio_gin=init.get("ratio_gin", 0.0),
+        init_ratio_gout=init.get("ratio_gout", 0.0),
+        down_ratio_gin=down.get("ratio_gin", 0.0),
+        down_ratio_gout=down.get("ratio_gout", 0.0),
+        resnet_ratio=g.get("resnet_conv_kwargs", {}).get("ratio_gin", 0.75),
+        enable_lfu=init.get("enable_lfu", False),
+        add_out_act=g.get("add_out_act", "sigmoid"),
+    )
+
+
+def load_input(paths: UidPaths, size: int = 512
+               ) -> Tuple[np.ndarray, np.ndarray]:
+    """texture.png → (rgb on white, alpha mask), both (size, size, ·)
+    float32 (the reference's InpaintingDrawingsDataset)."""
+    img = read_image(paths.texture)
+    if img.shape[-1] == 4:
+        alpha = img[..., 3:4]
+        rgb = img[..., :3] * alpha + (1.0 - alpha)
+    else:
+        rgb = img[..., :3]
+        alpha = read_image(paths.mask)[..., :1]
+    if rgb.shape[:2] != (size, size):
+        rgb = resize(torch.from_numpy(rgb), (size, size)).numpy()
+        alpha = resize(torch.from_numpy(alpha), (size, size)).numpy()
+    return rgb.astype(np.float32), alpha.astype(np.float32)
+
+
+def postprocess_one(rgb: np.ndarray, alpha: np.ndarray,
+                    contour_prob: np.ndarray) -> np.ndarray:
+    """Threshold, Telea inpaint and reattach alpha (host side): inpaint
+    region = predicted contour (> 0.2) ∪ background (alpha < 0.5), the
+    reference's ``np.maximum(predicted, 255 - alpha)``."""
+    contour = contour_prob[..., 0] > CONTOUR_THRESHOLD
+    background = alpha[..., 0] < 0.5
+    inpaint_mask = (contour | background).astype(np.uint8)
+    filled = telea_inpaint(rgb, inpaint_mask, radius=INPAINT_RADIUS)
+    return np.concatenate([np.clip(filled, 0, 1), alpha], axis=-1)
+
+
+@torch.inference_mode()
+def contour_probs(model: FFCResNetGenerator, rgbs: np.ndarray,
+                  alphas: np.ndarray) -> np.ndarray:
+    """(B, H, W, 3) rgb and (B, H, W, 1) alpha → (B, H, W, 1) contour
+    probabilities, one forward on the model's device."""
+    dev = next(model.parameters()).device
+    x = torch.from_numpy(np.concatenate([rgbs, alphas], axis=-1))
+    x = x.to(dev).permute(0, 3, 1, 2).contiguous()
+    return model(x).permute(0, 2, 3, 1).float().cpu().numpy()
+
+
+def predict_uids(root: str, uids: Sequence[str], model: FFCResNetGenerator,
+                 batch_size: int = 8, size: int = 512,
+                 save_name: str = "ffc_resnet") -> List[str]:
+    """Contour removal for a list of uids, ``batch_size`` drawings per
+    forward; returns the written paths."""
+    written = []
+    for i in range(0, len(uids), batch_size):
+        batch = [UidPaths(root, uid) for uid in uids[i:i + batch_size]]
+        items = [(paths, *load_input(paths, size)) for paths in batch]
+        probs = contour_probs(model, np.stack([it[1] for it in items]),
+                              np.stack([it[2] for it in items]))
+        for (paths, rgb, alpha), prob in zip(items, probs):
+            out_path = os.path.join(paths.char_dir,
+                                    f"{save_name}_inpainted.png")
+            write_image(out_path, postprocess_one(rgb, alpha, prob))
+            written.append(out_path)
+    return written

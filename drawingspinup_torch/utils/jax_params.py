@@ -1,7 +1,8 @@
 """Convert a flax ``{params, batch_stats}`` tree of the stage-3 models
-into the port's ``state_dict``, and a JAX NSR state (params and optax
-state, stage 2b) into the port's params dict and moments (``nsr_params``,
-``nsr_opt_state`` at the end of this module).
+into the port's ``state_dict``, a JAX NSR state (params and optax state,
+stage 2b) into the port's params dict and moments (``nsr_params``,
+``nsr_opt_state``), and the stage-1 FFC generator's variables into its
+``state_dict`` (``ffc_params``, at the end of this module).
 
 The input is nested dicts of numpy arrays (``np.asarray`` of each leaf of
 flax variables); no JAX is needed. Rules, for GeneratorJ, GeneratorJ_RIC,
@@ -18,6 +19,7 @@ statistics, and their ConvBlocks' ``kernel``/``bias`` map as below):
 """
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
@@ -101,3 +103,72 @@ def nsr_opt_state(opt_state: Any, device="cpu"):
     if len(counts) != 1:
         raise ValueError(f"groups disagree on the update count: {counts}")
     return mu, nu, counts.pop()
+
+
+# ---------------------------------------------------------------------------
+# stage 1: the LaMa FFC generator and its parts
+# ---------------------------------------------------------------------------
+
+_FFC_RENAME = {"scale": "weight", "mean": "running_mean",
+               "var": "running_var", "conv": "conv_layer", "bn1": "conv1.1"}
+
+
+def _ffc_top(params: Mapping[str, Any]) -> Dict[str, str]:
+    """The flax generator's top-level names → the indices of upstream's
+    ``model`` Sequential: 0 pad, 1 init, the downsamples, the blocks, the
+    concat, per upsample [ConvTranspose, BN, ReLU], pad, head. Empty for
+    a tree that is not a whole generator."""
+    if "init" not in params:
+        return {}
+    nd = sum(1 for k in params if re.fullmatch(r"down\d+", k))
+    nb = sum(1 for k in params if re.fullmatch(r"block\d+", k))
+    top = {"init": "model.1"}
+    top.update({f"down{i}": f"model.{2 + i}" for i in range(nd)})
+    top.update({f"block{i}": f"model.{2 + nd + i}" for i in range(nb)})
+    up = 3 + nd + nb
+    for i in range(nd):
+        top[f"up{i}"] = f"model.{up + 3 * i}"
+        top[f"up{i}_bn"] = f"model.{up + 3 * i + 1}"
+    top["head"] = f"model.{up + 3 * nd + 1}"
+    return top
+
+
+def ffc_params(params: Mapping[str, Any],
+               batch_stats: Optional[Mapping[str, Any]] = None
+               ) -> Dict[str, torch.Tensor]:
+    """flax variables of ``drawingspinup_tpu/models/ffc.py`` (the whole
+    ``FFCResNetGenerator`` or one of its parts: ``FourierUnit``,
+    ``SpectralTransform``, ``FFCBnAct``, ``FFCResnetBlock``) → the
+    ``state_dict`` of the port's module of the same kind (upstream LaMa's
+    names, as ``drawingspinup_tpu/utils/torch_port.py`` maps them). Conv
+    kernels HWIO → OIHW; the upsampling kernels (kh, kw, in, out) →
+    ConvTranspose2d's (in, out, kh, kw); the flax ``BatchNorm_0`` wrapper
+    level drops out; ``scale``/``mean``/``var`` →
+    ``weight``/``running_mean``/``running_var``; the Fourier unit's
+    ``conv`` → ``conv_layer``; SpectralTransform's ``conv1``/``bn1`` →
+    ``conv1.0``/``conv1.1``."""
+    top = _ffc_top(params)
+    out: Dict[str, torch.Tensor] = {}
+    for tree in (params, batch_stats or {}):
+        for path, leaf in _leaves(tree):
+            a = np.array(leaf, np.float32)
+            names = []
+            for i, p in enumerate(path):
+                if i == 0 and p in top:
+                    names.append(top[p])
+                elif p == "BatchNorm_0":
+                    continue
+                elif p == "conv1" and path[i + 1] == "kernel":
+                    names.append("conv1.0")
+                else:
+                    names.append(_FFC_RENAME.get(p, p))
+            if names[-1] == "kernel":
+                names[-1] = "weight"
+                transposed = re.fullmatch(r"up\d+", path[0]) is not None \
+                    and bool(top)
+                a = a.transpose((2, 3, 0, 1) if transposed else (3, 2, 0, 1))
+            key = ".".join(names)
+            if key in out:
+                raise ValueError(f"duplicate converted key {key!r}")
+            out[key] = torch.from_numpy(np.ascontiguousarray(a))
+    return out

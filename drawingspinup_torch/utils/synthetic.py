@@ -1,7 +1,12 @@
 """Synthetic per-uid fixtures for the tests and the smoke run: a copy of
 ``drawingspinup_tpu/utils/synthetic.py`` (``tests/test_torch_recon.py``
-pins its files to the original's)."""
+pins its files to the original's), the two-bone rig and bar mesh of
+``tests/test_fbx_render.py`` (``tests/test_torch_render.py`` pins the FBX
+bytes) and the drawing of ``tests/test_stage1.py``
+(``tests/test_torch_stage1.py`` pins the PNG bytes)."""
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -49,4 +54,161 @@ def write_sphere_mv(root, uid, size=64, radius=0.45):
         np.hypot(*np.mgrid[-1:1:size * 1j, -1:1:size * 1j]) < radius * 2,
         np.float32)
     write_image(paths.mask, m)
+    return paths
+
+
+# ---------------------------------------------------------------------------
+# stage 3: a skinned two-bone rig; stage 1: a drawing
+# ---------------------------------------------------------------------------
+
+def bar_mesh(n_seg=8, half=0.08, height=2.0):
+    """A vertical bar along z (square cross-section), segmented so skinning
+    can bend it: 4 (n_seg + 1) vertices, 8 n_seg faces."""
+    verts, faces = [], []
+    ring = [(-half, -half), (half, -half), (half, half), (-half, half)]
+    for s in range(n_seg + 1):
+        z = height * s / n_seg
+        for (x, y) in ring:
+            verts.append([x, y, z])
+    for s in range(n_seg):
+        for k in range(4):
+            a = s * 4 + k
+            b = s * 4 + (k + 1) % 4
+            c = (s + 1) * 4 + k
+            d = (s + 1) * 4 + (k + 1) % 4
+            faces += [[a, b, d], [a, d, c]]
+    return np.asarray(verts, np.float32), np.asarray(faces, np.int64)
+
+
+def _p70(entries):
+    from drawingspinup_torch.render import fbx as F
+
+    node = F.Node("Properties70")
+    for name, vals in entries.items():
+        node.children.append(
+            F.Node("P", [name, name, "", "A"] + list(vals)))
+    return node
+
+
+def _trans4(t):
+    m = np.eye(4)
+    m[:3, 3] = t
+    return m
+
+
+def make_rig_fbx(path, animate=True, n_seg=8, duration=1.0, height=2.0,
+                 half=0.08):
+    """Two-bone chain along z, the joint at mid-height, the child bone
+    rotating 90° about X over ``duration`` seconds; the skinned mesh is
+    ``bar_mesh(n_seg, half, height)``. The defaults write the bytes of
+    ``tests/test_fbx_render.py::make_rig_fbx``. Returns (verts, faces)."""
+    from drawingspinup_torch.render import fbx as F
+
+    verts, faces = bar_mesh(n_seg, half, height)
+    joint = height / 2
+    poly = []
+    for f in faces:
+        poly += [int(f[0]), int(f[1]), ~int(f[2])]
+
+    geom = F.Node("Geometry", [150, "Geometry::bar", "Mesh"])
+    geom.children.append(F.Node("Vertices",
+                                [verts.astype(np.float64).ravel()]))
+    geom.children.append(F.Node("PolygonVertexIndex",
+                                [np.asarray(poly, np.int32)]))
+
+    mesh_model = F.Node("Model", [100, "Model::bar", "Mesh"])
+    bone0 = F.Node("Model", [200, "Model::root", "LimbNode"])
+    bone0.children.append(_p70({"Lcl Translation": (0.0, 0.0, 0.0)}))
+    bone1 = F.Node("Model", [201, "Model::upper", "LimbNode"])
+    bone1.children.append(_p70({"Lcl Translation": (0.0, 0.0, joint)}))
+
+    lower = verts[:, 2] < joint
+    c0 = F.Node("Deformer", [300, "SubDeformer::c0", "Cluster"])
+    c0.children.append(F.Node("Indexes",
+                              [np.nonzero(lower)[0].astype(np.int32)]))
+    c0.children.append(F.Node("Weights",
+                              [np.ones(lower.sum(), np.float64)]))
+    c0.children.append(F.Node("Transform", [np.eye(4).ravel()]))
+    c0.children.append(F.Node("TransformLink", [np.eye(4).ravel()]))
+    c1 = F.Node("Deformer", [301, "SubDeformer::c1", "Cluster"])
+    c1.children.append(F.Node("Indexes",
+                              [np.nonzero(~lower)[0].astype(np.int32)]))
+    c1.children.append(F.Node("Weights",
+                              [np.ones((~lower).sum(), np.float64)]))
+    c1.children.append(F.Node("Transform", [np.eye(4).ravel()]))
+    # column-major flatten: the writer stores raw, the parser transposes
+    c1.children.append(F.Node("TransformLink",
+                              [_trans4([0, 0, joint]).T.ravel()]))
+
+    objects = F.Node("Objects")
+    objects.children += [geom, mesh_model, bone0, bone1, c0, c1]
+
+    conns = F.Node("Connections")
+
+    def C(kind, a, b, prop=None):
+        props = [kind, a, b] + ([prop] if prop else [])
+        conns.children.append(F.Node("C", props))
+
+    C("OO", 150, 100)
+    C("OO", 201, 200)
+    C("OO", 200, 300)
+    C("OO", 201, 301)
+
+    if animate:
+        t = (np.array([0.0, duration]) * F.KTIME_PER_SEC).astype(np.int64)
+        cx = F.Node("AnimationCurve", [500, "AnimCurve::x", ""])
+        cx.children.append(F.Node("KeyTime", [t]))
+        cx.children.append(F.Node("KeyValueFloat",
+                                  [np.array([0.0, 90.0], np.float32)]))
+        cn = F.Node("AnimationCurveNode", [400, "AnimCurveNode::R", ""])
+        cn.children.append(_p70({"d|X": (0.0,), "d|Y": (0.0,),
+                                 "d|Z": (0.0,)}))
+        objects.children += [cx, cn]
+        C("OP", 500, 400, "d|X")
+        C("OP", 400, 201, "Lcl Rotation")
+
+    F.write_fbx(path, [objects, conns])
+    return verts, faces
+
+
+def write_rig_uid(root, uid, actions=(), n_seg=8, duration=1.0, height=2.0,
+                  half=0.08):
+    """A rigged uid for ``cli/run_render.py``: the bar as the recon OBJ
+    (vertex colours banded along the bar), ``fbx_files/rest_pose.fbx``
+    (static) and one animated FBX per name in ``actions``."""
+    from drawingspinup_torch.core.io import write_obj
+
+    paths = UidPaths(str(root), uid)
+    os.makedirs(paths.fbx_dir, exist_ok=True)
+    verts, faces = make_rig_fbx(os.path.join(paths.fbx_dir, "rest_pose.fbx"),
+                                False, n_seg, duration, height, half)
+    for action in actions:
+        make_rig_fbx(os.path.join(paths.fbx_dir, f"{action}.fbx"), True,
+                     n_seg, duration, height, half)
+    z = verts[:, 2:3] / height
+    band = np.floor(z * 6) % 2
+    colors = np.concatenate([0.85 - 0.5 * band, 0.3 + 0.5 * z,
+                             0.2 + 0.6 * band], axis=1)
+    write_obj(os.path.join(paths.mesh_dir, f"it3000-mc512-f{len(faces)}.obj"),
+              verts, faces, vertex_colors=colors)
+    return paths
+
+
+def write_drawing_uid(root, uid, size=64):
+    """A drawing-like RGBA ``char/texture.png``: a coloured disc with a dark
+    contour ring (``tests/test_stage1.py::make_synthetic_uid`` at any
+    size)."""
+    paths = UidPaths(str(root), uid)
+    yy, xx = np.mgrid[0:size, 0:size]
+    r = np.hypot(yy - size / 2, xx - size / 2)
+    body = r < size * 0.3
+    ring = (r >= size * 0.28) & (r < size * 0.33)
+    rgba = np.zeros((size, size, 4), np.float32)
+    rgba[..., 0] = np.where(body, 0.9, 0.0)
+    rgba[..., 1] = np.where(body, 0.6, 0.0)
+    rgba[..., 2] = np.where(body, 0.3, 0.0)
+    rgba[body | ring, :3] = np.where(ring[..., None][body | ring], 0.05,
+                                     rgba[body | ring, :3])
+    rgba[..., 3] = (body | ring).astype(np.float32)
+    write_image(paths.texture, rgba)
     return paths

@@ -238,7 +238,7 @@ def test_device_setup_is_explicit(monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port (stage 3 and stage 2b) loads no
+    """Importing every module of the port (stages 1, 2b and 3) loads no
     JAX, flax, optax or orbax module and nothing of the JAX package, and
     builds neither the CUDA kernels nor the native library."""
     code = (
@@ -259,7 +259,10 @@ def test_port_imports_no_jax():
         "          'render.marching', 'render.mesh_post', 'train.nsr',\n"
         "          'pipelines.stage2_recon', 'pipelines.stage2_export',\n"
         "          'pipelines.stage2_data', 'core.config',\n"
-        "          'utils.synthetic'):\n"
+        "          'utils.synthetic', 'cli.run_render', 'render.animation',\n"
+        "          'render.fbx', 'ops.image', 'cli.predict',\n"
+        "          'pipelines.stage1', 'models.ffc', 'ops.fourier',\n"
+        "          'ops.inpaint'):\n"
         "    assert 'drawingspinup_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
