@@ -14,14 +14,17 @@ the training path (run_render → train_stage1 → test_stage1 → train_stage2
 → test_stage2 → GIF) on batches of 40 × 32² patches. Then stage 2b at the
 production width of configs/neus-ortho.yaml, trained from a seed: the
 recon CLI on six 1024² views of a synthetic sphere, 600 steps, export at
-mc512. Then the stage-3 renders of a rig of production size, and stage 1
+mc512. Then the stage-3 renders of a rig of production size, stage 1
 (the predict CLI, LaMa's FFC ResNet at the full width of
-configs/lama-fourier.yaml, seeded weights) on eight 512² drawings. Phases:
+configs/lama-fourier.yaml, seeded weights) on eight 512² drawings, and
+stage 2a (the mv CLI, the Wonder3D MV-UNet, SD VAE and CLIP ViT-L/14 at
+full width, seeded weights, 75 DDIM steps) on one of stage 1's outputs.
+Phases:
 
   1. versions, and the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels (RIC conv forward and backward, hash-grid encode
-     and table gradient, row gather) and the native library, with the build
-     times;
+     and table gradient, row gather, pixel rays) and the native library,
+     with the build times;
   3. forward kernel (3xTF32 implicit GEMM) against its plain PyTorch twin
      at the 8 RIC layer shapes of a 512² GeneratorJ_RIC forward: max
      |kernel − plain| ≤ 1e-4 · max |plain|, within relative L2 1e-5 of the
@@ -82,13 +85,19 @@ configs/lama-fourier.yaml, seeded weights) on eight 512² drawings. Phases:
      terms with deterministic algorithms on;
  10. the row-gather kernel (K3) against tab[idx], bit-equal, at the Pallas
      gathers' shapes (T = 74³ and 129³ rows of 16 bf16, K = 262 144) and at
-     the main path's (one NSR step's pixel targets: 2048 rows of 12 f32
-     from a 6 × 1024² table), with the bound of each;
+     the recon step's (2048 rows of 12 f32 from a 6 × 1024² table), with the
+     bound of each; then the fused pixel-ray kernel (K4), which builds one
+     NSR step's 2048 rays and fetches their target rows in one launch,
+     against its plain twin at that shape: target rows and view weights
+     bit-equal, rays within 2 f32 ulp of their terms' magnitude, a second
+     launch bit-identical; its times beside the twin's, the unfused build's
+     (eager ops around K3) and index_select's of the rows alone;
  11. the recon CLI (``python -m drawingspinup_torch.cli.recon``) on a
      synthetic sphere uid with the cuts trainer.max_steps=600,
      system.constant_steps=100, update_steps=200 (4 → 5 → 6 levels): per
      step exactly one K1 without the jacobian (coarse pass), one with, one
-     K2 and one K3 (the pixel targets), plus one K1 per export evaluation;
+     K2 and one K4 (the rays and pixel targets) and no K3, plus one K1 per
+     export evaluation;
      loss falling, inv_s rising, the OBJ under the reference name with the
      sphere's median radius within 35 %; ms per step of each band phase and
      the export's parts;
@@ -100,7 +109,8 @@ configs/lama-fourier.yaml, seeded weights) on eight 512² drawings. Phases:
      the f32 plain path (each loss and gradient no farther from f32 than
      1.25 x the bf16 plain path's: bf16 rounding alone puts both paths'
      losses ~1e-2 and gradients 10-40 % from f32); ms per production step
-     of each path, and a profile;
+     of each path and of the kernel path with the unfused pixel build, and
+     a profile of each of the last two: device busy and launches per step;
  13. the export's u8 field at mc512 from the trained params, kernel field
      against plain field: more than 1 apart on < 0.5 % of voxels, marched
      vertex and face counts within 10 %;
@@ -119,8 +129,21 @@ configs/lama-fourier.yaml, seeded weights) on eight 512² drawings. Phases:
      distance beside), the thresholded contour masks differing on < 0.1 %
      of pixels; ms per drawing at batch 1 and 8 (CUDA events), cuFFT's
      share of the device time (torch.profiler), threshold + Telea host
-     seconds per drawing and the CLI's wall seconds per uid. Phases 14
-     and 15 launch none of the hand-written kernels.
+     seconds per drawing and the CLI's wall seconds per uid;
+ 16. stage 2a: the mv CLI at full width (UNet 320/640/1280/1280 with joint
+     mid attention, SD VAE, CLIP ViT-L/14; 256² input, 12 images of 32²
+     latents, 75 DDIM steps in bf16, eta 1, 1024² output), seeded weights,
+     on phase 15's first uid: 18 PNGs of 1024², the decoded images finite;
+     one UNet call (batch 12, that uid's conditioning, the joint
+     attentions' projections drawn nonzero) in f32 within relative L2 1e-4
+     of the same call in float64 on the card, the bf16 call's distance
+     beside; the denoise loop run twice from one generator state
+     bit-identical (6 steps); ms per UNet call at batch 12 in bf16 and f32
+     (CUDA events) with its TFLOP/s (FLOPs counted from the shapes), the
+     CLI's seconds by part (read, encode, 75-step loop, decode + upscale
+     + u8, masks, PNG writes) and wall, steady encode and decode times, and
+     device busy and launches over one denoise step (torch.profiler).
+     Phases 14-16 launch none of the hand-written kernels.
 
 Kernel times (phases 3, 6, 9, 10) are medians of CUDA events around each
 call, the host's enqueueing included (``ms``, and every plain and library
@@ -175,6 +198,12 @@ DRAWINGS = 8
 DRAWING_SIZE = 512
 LOGIT_REL_L2 = 1e-4     # card f32 vs CPU float64
 MASK_SHARE = 1e-3       # thresholded contour masks, card vs float64
+# phase 16: stage 2a at full width on phase 15's first drawing
+MV_UID = "drawing0"
+MV_SEED = SEED + 500
+MV_REL_L2 = 1e-4        # the f32 UNet call vs float64 (stage 1's bound)
+MV_SAME_STEPS = 6       # the bit-identity check's denoise loop
+MV_OUT = 1024
 UID = "smoke"
 F32_TOL = 1e-3          # phase 5: tanh outputs of 21 reordered-sum layers
 REL_TOL = 1e-4          # phase 3: f32 sums of up to 9·C products, reordered
@@ -206,6 +235,9 @@ HG_BWD_SOURCE = "drawingspinup_torch/kernels/csrc/hashgrid_bwd.cu"
 HG_BWD_REPLACES = "drawingspinup_tpu/models/hashgrid.py:180"
 GATHER_SOURCE = "drawingspinup_torch/kernels/csrc/row_gather.cu"
 GATHER_REPLACES = "scripts/bench_pallas_gather.py:76"
+PIXEL_SOURCE = "drawingspinup_torch/kernels/csrc/pixel_rays.cu"
+PIXEL_REPLACES = GATHER_REPLACES    # the rowdma gather, at the recon step
+RAY_ULPS = 2            # phase 10: rays vs the twin, ulps of their terms
 TRAIN_BATCHES = (100, 20)   # --max-batches of stage 1 and stage 2
 BATCH = 40
 
@@ -419,8 +451,9 @@ def phase_build() -> None:
     t1 = time.time()
     native.build()
     report(f"[2] built the CUDA kernels (RIC conv forward and backward, "
-           f"hash-grid encode and table gradient, row gather) in "
-           f"{t1 - t0:.1f} s into {_build.BUILD_DIR}, the native mesh library "
+           f"hash-grid encode and table gradient, row gather, pixel rays) "
+           f"in {t1 - t0:.1f} s into {_build.BUILD_DIR}, the native mesh "
+           f"library "
            f"in {time.time() - t1:.1f} s into {native.BUILD_DIR}")
 
 
@@ -1086,13 +1119,15 @@ def recon_config(**grid):
 
 @contextlib.contextmanager
 def plain_hashgrid():
-    """Route the hash-grid encode, its table gradient and the row gather
-    through their plain twins, on CUDA tensors as on the CPU."""
+    """Route the hash-grid encode, its table gradient, the row gather and
+    the pixel rays through their plain twins, on CUDA tensors as on the
+    CPU."""
     import torch
 
     from drawingspinup_torch.kernels import hashgrid as hk
+    from drawingspinup_torch.kernels import pixel_rays as pr
 
-    saved = hk.hashgrid_fwd, hk.hashgrid_bwd, hk.row_gather
+    saved = hk.hashgrid_fwd, hk.hashgrid_bwd, hk.row_gather, pr.pixel_rays
     reference = hk.hashgrid_bwd_reference
 
     def plain_bwd(*args, out_dtype=torch.float32):
@@ -1101,10 +1136,27 @@ def plain_hashgrid():
     hk.hashgrid_fwd = hk.hashgrid_fwd_reference
     hk.hashgrid_bwd = plain_bwd
     hk.row_gather = hk.row_gather_reference
+    pr.pixel_rays = pr.pixel_rays_reference
     try:
         yield
     finally:
-        hk.hashgrid_fwd, hk.hashgrid_bwd, hk.row_gather = saved
+        hk.hashgrid_fwd, hk.hashgrid_bwd, hk.row_gather, pr.pixel_rays = \
+            saved
+
+
+@contextlib.contextmanager
+def unfused_pixels():
+    """Build the recon step's rays and targets as the step built them before
+    the fused kernel: the twin's eager ops around the row-gather kernel."""
+    from drawingspinup_torch.kernels import hashgrid as hk
+    from drawingspinup_torch.kernels import pixel_rays as pr
+
+    saved = pr.pixel_rays, pr.fetch_rows
+    pr.pixel_rays, pr.fetch_rows = pr.pixel_rays_reference, hk.row_gather
+    try:
+        yield
+    finally:
+        pr.pixel_rays, pr.fetch_rows = saved
 
 
 def ulp_bf16(x) -> float:
@@ -1430,9 +1482,9 @@ def phase_row_gather(device, reps: int = 10):
                f"({GATHER_K / plain / 1e3:.0f} M rows/s), index_select "
                f"{library:.4f} ms, bound {bound:.4f} ms (bytes)")
         results.append((ms, plain, library, nbytes, dev))
-    # the main path's shape (train/nsr.py::sample_pixel_rays): one NSR
-    # step's pixel targets, 2048 rows of PIXEL_COLUMNS f32 (48 bytes) from
-    # the six RECON_SIZE^2 views
+    # the recon step's shape (train/nsr.py::sample_pixel_rays before the
+    # fused pixel-ray kernel): one NSR step's pixel targets, 2048 rows of
+    # PIXEL_COLUMNS f32 (48 bytes) from the six RECON_SIZE^2 views
     from drawingspinup_torch.train.nsr import PIXEL_COLUMNS, NSRConfig
 
     rays = NSRConfig.train_num_rays
@@ -1444,7 +1496,7 @@ def phase_row_gather(device, reps: int = 10):
     got = hk.row_gather(tab, idx)
     torch.cuda.synchronize()
     check(torch.equal(got, tab[idx.long()]),
-          "row_gather differs from tab[idx] at the main path's shape")
+          "row_gather differs from tab[idx] at the recon step's shape")
     row_bytes = PIXEL_COLUMNS * tab.element_size()
     nbytes = rays * (4 + row_bytes) + row_bytes * int(
         torch.unique(idx).numel())
@@ -1454,15 +1506,95 @@ def phase_row_gather(device, reps: int = 10):
                                 reps),
             "library_ms": cuda_ms(lambda: torch.index_select(tab, 0, idx),
                                   reps),
+            "library_device_ms": device_ms(
+                lambda: torch.index_select(tab, 0, idx), reps),
             "bound_ms": bound_ms(nbytes, 0, F32_FLOPS)[0],
             "shape": f"K={rays} rows of {PIXEL_COLUMNS} f32 ({row_bytes} "
                      f"bytes) from a ({rows}, {PIXEL_COLUMNS}) table"}
-    report(f"[10] row_gather at the main path's shape, {main['shape']}: "
+    report(f"[10] row_gather at the recon step's shape, {main['shape']}: "
            f"bit-equal to tab[idx]; kernel {main['ms']:.4f} ms (device "
            f"{main['device_ms']:.4f} ms), plain {main['plain_ms']:.4f} ms, "
-           f"index_select {main['library_ms']:.4f} ms, bound "
+           f"index_select {main['library_ms']:.4f} ms (device "
+           f"{main['library_device_ms']:.4f} ms), bound "
            f"{main['bound_ms']:.5f} ms (bytes)")
     return results, main
+
+
+def phase_pixel_rays(device, reps: int = 10) -> dict:
+    """The fused pixel-ray kernel (K4) against its plain twin at the recon
+    step's shape: 2048 rays of six RECON_SIZE^2 views."""
+    import torch
+
+    from drawingspinup_torch.kernels import hashgrid as hk
+    from drawingspinup_torch.kernels import pixel_rays as pr
+    from drawingspinup_torch.train.nsr import PIXEL_COLUMNS, NSRConfig
+
+    r, v, h, w = NSRConfig.train_num_rays, 6, RECON_SIZE, RECON_SIZE
+    g = torch.Generator(device=device).manual_seed(SEED + 302)
+    q, _ = torch.linalg.qr(torch.randn((v, 3, 3), generator=g, device=device,
+                                       dtype=torch.float64))
+    c2w = torch.cat([q, 2 * torch.randn((v, 3, 1), generator=g,
+                                        device=device, dtype=torch.float64)],
+                    -1).float().contiguous()
+    vw = torch.rand((v,), generator=g, device=device) + 0.5
+    pixels = torch.randn((v * h * w, PIXEL_COLUMNS), generator=g,
+                         device=device)
+    vi, yi, xi = (torch.randint(0, n, (r,), generator=g, device=device)
+                  for n in (v, h, w))
+    args = (c2w, vw, pixels, h, w, vi, yi, xi)
+    got = pr.pixel_rays(*args)
+    again = pr.pixel_rays(*args)
+    want = pr.pixel_rays_reference(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(got[2], want[2]) and torch.equal(got[3], want[3]),
+          "pixel_rays: target rows or view weights differ from the twin")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "pixel_rays: two launches differ")
+    ulps = pr.ray_ulps(got, want, c2w, h, w, vi, yi, xi)
+    check(max(ulps) <= RAY_ULPS,
+          f"pixel_rays: rays {ulps[0]:.2f} (origins) and {ulps[1]:.2f} "
+          f"(directions) ulps from the twin > {RAY_ULPS}")
+    err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    flat = ((vi * h + yi) * w + xi).to(torch.int32)
+    row_bytes = PIXEL_COLUMNS * 4
+    # the draws and each named row read once, c2w and the weights once; the
+    # rays (2 × 12 bytes), rows and weights written once
+    nbytes = r * 24 + row_bytes * int(torch.unique(flat).numel()) \
+        + v * (48 + 4) + r * (24 + row_bytes + 4)
+
+    def kernel():
+        pr.pixel_rays(*args)
+
+    def twin():
+        pr.pixel_rays_reference(*args)
+
+    def rows():
+        torch.index_select(pixels, 0, flat)
+
+    out = {"ms": cuda_ms(kernel, reps), "device_ms": device_ms(kernel, reps),
+           "plain_ms": cuda_ms(twin, reps),
+           "plain_device_ms": device_ms(twin, reps),
+           "index_select_ms": cuda_ms(rows, reps),
+           "index_select_device_ms": device_ms(rows, reps),
+           "bound_ms": bound_ms(nbytes, 0, F32_FLOPS)[0], "bytes": nbytes,
+           "err": err, "ulps": ulps,
+           "shape": f"R={r} rays of {v} views of {h}x{w}, rows of "
+                    f"{PIXEL_COLUMNS} f32 ({row_bytes} bytes)"}
+    with unfused_pixels():  # the same call, built around the row gather
+        out["unfused_ms"] = cuda_ms(kernel, reps)
+        out["unfused_device_ms"] = device_ms(kernel, reps)
+    report(f"[10] pixel_rays at the recon step's shape, {out['shape']}: "
+           f"rows and view weights bit-equal to the twin, rays within "
+           f"{ulps[0]:.2f} / {ulps[1]:.2f} ulps (origins / directions; max "
+           f"abs {err:.2e}), relaunch bit-identical; kernel {out['ms']:.4f} "
+           f"ms (device {out['device_ms']:.4f}), twin {out['plain_ms']:.4f} "
+           f"(device {out['plain_device_ms']:.4f}), unfused build around the "
+           f"row gather {out['unfused_ms']:.4f} (device "
+           f"{out['unfused_device_ms']:.4f}), index_select of the rows alone "
+           f"{out['index_select_ms']:.4f} (device "
+           f"{out['index_select_device_ms']:.4f}); bound {out['bound_ms']:.5f}"
+           f" ms ({nbytes / 1e6:.3f} MB; bytes)")
+    return out
 
 
 def phase_recon(root: str, device):
@@ -1474,6 +1606,7 @@ def phase_recon(root: str, device):
     from drawingspinup_torch.cli import recon
     from drawingspinup_torch.core.io import read_obj
     from drawingspinup_torch.kernels import hashgrid as hk
+    from drawingspinup_torch.kernels import pixel_rays as pr
     from drawingspinup_torch.pipelines import stage2_recon
     from drawingspinup_torch.utils.synthetic import write_sphere_mv
 
@@ -1481,7 +1614,7 @@ def phase_recon(root: str, device):
     cfg = recon_config()
     steps = cfg.max_steps
     hk.FWD_LAUNCHES = hk.FWD_JAC_LAUNCHES = hk.BWD_LAUNCHES = 0
-    hk.GATHER_LAUNCHES = 0
+    hk.GATHER_LAUNCHES = pr.LAUNCHES = 0
     t0 = time.time()
     recon.main(["--uid", RECON_UID, "--root", root, "--device", str(device),
                 *RECON_OVERRIDES])
@@ -1489,16 +1622,18 @@ def phase_recon(root: str, device):
     wall = time.time() - t0
     launches = {"hashgrid_fwd": hk.FWD_LAUNCHES + hk.FWD_JAC_LAUNCHES,
                 "hashgrid_bwd": hk.BWD_LAUNCHES,
-                "row_gather": hk.GATHER_LAUNCHES}
+                "row_gather": hk.GATHER_LAUNCHES,
+                "pixel_rays": pr.LAUNCHES}
     stats = stage2_recon.LAST_STATS
     evals = stats["export"]["field_evals"]
     check(hk.FWD_JAC_LAUNCHES == steps and hk.BWD_LAUNCHES == steps
           and hk.FWD_LAUNCHES == steps + evals
-          and hk.GATHER_LAUNCHES == steps,
+          and pr.LAUNCHES == steps and hk.GATHER_LAUNCHES == 0,
           f"recon launches: encode {hk.FWD_LAUNCHES}, with jacobian "
-          f"{hk.FWD_JAC_LAUNCHES}, table gradient {hk.BWD_LAUNCHES}, row "
-          f"gather {hk.GATHER_LAUNCHES}; expected {steps} + {evals} export "
-          f"evaluations, {steps}, {steps}, {steps}")
+          f"{hk.FWD_JAC_LAUNCHES}, table gradient {hk.BWD_LAUNCHES}, pixel "
+          f"rays {pr.LAUNCHES}, row gather {hk.GATHER_LAUNCHES}; expected "
+          f"{steps} + {evals} export evaluations, {steps}, {steps}, {steps}, "
+          f"0")
     log = stats["log"]
     check(all(math.isfinite(v) for row in log for v in row[1:]),
           f"non-finite recon log: {log}")
@@ -1518,7 +1653,8 @@ def phase_recon(root: str, device):
     ex = stats["export"]
     report(f"[11] recon CLI, {steps} steps on six {RECON_SIZE}^2 views: "
            f"launches per step: 1 encode, 1 encode with jacobian, 1 table "
-           f"gradient, 1 row gather (+{evals} export encodes); loss "
+           f"gradient, 1 pixel rays, no row gather (+{evals} export "
+           f"encodes); loss "
            f"{log[0][1]:.4f} (step {log[0][0]}) -> {log[-1][1]:.4f} (step "
            f"{log[-1][0]}), inv_s {log[0][3]:.1f} -> {log[-1][3]:.1f}; ms per"
            f" step (host synchronised, first step included) "
@@ -1553,9 +1689,10 @@ def trained_params(root: str, dtype, device):
     return conv(saved["params"])
 
 
-def profile_nsr_step(run, steps: int = 5) -> None:
+def profile_nsr_step(run, label: str, steps: int = 5):
     """Where one NSR step's device time goes (torch.profiler), and the hash
-    grid kernels' share of it."""
+    grid kernels' share of it; returns (device busy ms, kernel launches)
+    per step, or None when the profiler saw no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1572,8 +1709,9 @@ def profile_nsr_step(run, steps: int = 5) -> None:
                and not e.is_user_annotation]
     total = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     if total <= 0:
-        report("[12] profile: the profiler saw no device time (not measured)")
-        return
+        report(f"[12] profile ({label}): the profiler saw no device time "
+               f"(not measured)")
+        return None
     kernels.sort(key=lambda e: -e.self_device_time_total)
     hg = sum(e.self_device_time_total for e in kernels
              if "hashgrid" in e.key) / 1e3 / steps
@@ -1589,20 +1727,22 @@ def profile_nsr_step(run, steps: int = 5) -> None:
         f"{e.key[:48]} {e.self_device_time_total / 1e3 / steps:.3f} ms "
         f"x{e.count // steps}" for e in kernels[:8])
     launches = sum(e.count for e in kernels) / steps
-    report(f"[12] profile of {steps} production steps (bf16, kernel path): "
+    report(f"[12] profile of {steps} production steps (bf16, {label}): "
            f"device busy {total:.2f} ms of {wall:.2f} ms wall per step "
            f"({total / wall:.1%}, the profiler's overhead included), "
            f"hash-grid kernels {hg:.3f} ms ({hg / total:.1%} of device time: "
            f"{hg_parts}), "
            f"{launches:.0f} kernel launches per step; by kernel, per step: "
            f"{top}")
+    return total, launches
 
 
-def phase_nsr_step_vs_plain(root: str, device) -> None:
+def phase_nsr_step_vs_plain(root: str, device) -> dict:
     """One NSR step from the trained state and one set of draws, kernel path
     against plain path: in f32 against the plain path in float64, in bf16
-    (production) against the plain path in f32; ms per step of each path,
-    and a profile."""
+    (production) against the plain path in f32; ms per step of each path
+    and of the kernel path with the unfused pixel build, and a profile of
+    the last two."""
     import torch
 
     from drawingspinup_torch.core.contract import UidPaths
@@ -1695,15 +1835,21 @@ def phase_nsr_step_vs_plain(root: str, device) -> None:
 
     ms = {}
     cfg = recon_config()
-    for plain in (False, True):
+
+    def fresh_state():
         params = trained_params(root, torch.float32, device)
         params["geometry"]["table"] = [
             t.detach().to(cfg.sdf.grid.tdt).requires_grad_(True)
             for t in params["geometry"]["table"]]
         opt = nsr.make_optimizer(cfg)
-        state = nsr.TrainState(params, opt.init(params), step)
-        with plain_hashgrid() if plain else contextlib.nullcontext():
-            ms[plain] = cuda_ms(lambda: nsr.train_step(
+        return opt, nsr.TrainState(params, opt.init(params), step)
+
+    paths = {"kernel": contextlib.nullcontext, "plain": plain_hashgrid,
+             "unfused": unfused_pixels}
+    for name, ctx in paths.items():
+        opt, state = fresh_state()
+        with ctx():
+            ms[name] = cuda_ms(lambda: nsr.train_step(
                 cfg, opt, state, data32, draws32, n_active), reps=10)
     tables = {n: e for n, e in bf_k32[1].items() if "table" in n}
     others = {n: e for n, e in bf_k32[1].items() if "table" not in n}
@@ -1722,16 +1868,29 @@ def phase_nsr_step_vs_plain(root: str, device) -> None:
            f"{bf_p32[0]['loss']:.2e}, MLP and variance "
            f"{top({n: bf_p32[1][n] for n in others})}, tables "
            f"{top({n: bf_p32[1][n] for n in tables}, 6)}); median ms per "
-           f"production step (bf16, CUDA events): kernel {ms[False]:.2f}, "
-           f"plain {ms[True]:.2f}")
-    params = trained_params(root, torch.float32, device)
-    params["geometry"]["table"] = [
-        t.detach().to(cfg.sdf.grid.tdt).requires_grad_(True)
-        for t in params["geometry"]["table"]]
-    opt = nsr.make_optimizer(cfg)
-    state = nsr.TrainState(params, opt.init(params), step)
-    profile_nsr_step(lambda: nsr.train_step(cfg, opt, state, data32, draws32,
-                                            n_active))
+           f"production step (bf16, CUDA events): kernel {ms['kernel']:.2f}, "
+           f"kernel with the unfused pixel build {ms['unfused']:.2f}, plain "
+           f"{ms['plain']:.2f}")
+    prof = {}
+    for name in ("unfused", "kernel"):
+        opt, state = fresh_state()
+        label = "kernel path" + (", the unfused pixel build around the row "
+                                 "gather" if name == "unfused" else "")
+        with paths[name]():
+            prof[name] = profile_nsr_step(lambda: nsr.train_step(
+                cfg, opt, state, data32, draws32, n_active), label)
+    if prof["kernel"] and prof["unfused"]:
+        check(prof["unfused"][1] > prof["kernel"][1],
+              f"the fused pixel kernel did not cut the step's launches: "
+              f"{prof['unfused'][1]:.0f} -> {prof['kernel'][1]:.0f}")
+        report(f"[12] launches per production step: "
+               f"{prof['unfused'][1]:.0f} with the unfused pixel build, "
+               f"{prof['kernel'][1]:.0f} with the fused kernel "
+               f"({prof['unfused'][1] - prof['kernel'][1]:.0f} fewer); "
+               f"device busy {prof['unfused'][0]:.3f} -> "
+               f"{prof['kernel'][0]:.3f} ms; host clock {ms['unfused']:.2f} "
+               f"-> {ms['kernel']:.2f} ms")
+    return {"ms": ms, "profile": prof}
 
 
 def phase_export_vs_plain(root: str, device) -> None:
@@ -2047,13 +2206,215 @@ def phase_stage1(root: str, device) -> None:
            f"float64 forward {t64:.1f} s")
 
 
+def count_flops(model, *args) -> float:
+    """FLOPs of one forward of ``model``: 2 per multiply-add of every conv
+    and dense map (forward hooks) and of the attention products, 4·B·Sq·Sk·C
+    a call of ``models/attention_mv.py::attention_core``."""
+    import torch
+
+    from drawingspinup_torch.models import attention_mv as am
+
+    total = [0.0]
+
+    def conv(m, inp, out):          # Cout·Ho·Wo·N outputs × Cin·kh·kw
+        total[0] += 2.0 * out.numel() * m.weight[0].numel()
+
+    def dense(m, inp, out):         # outputs × in features
+        total[0] += 2.0 * out.numel() * m.weight.shape[1]
+
+    core = am.attention_core
+
+    def counted(q, k, v, heads):
+        total[0] += 4.0 * q.shape[0] * q.shape[1] * k.shape[1] * q.shape[2]
+        return core(q, k, v, heads)
+
+    hooks = [m.register_forward_hook(
+        conv if isinstance(m, torch.nn.Conv2d) else dense)
+        for m in model.modules()
+        if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear,
+                          am.Conv1x1Tokens))]
+    am.attention_core = counted
+    try:
+        with torch.inference_mode():
+            model(*args)
+    finally:
+        am.attention_core = core
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def phase_mv(root: str, device) -> None:
+    """Stage 2a: the mv CLI at full width on phase 15's first uid; one UNet
+    call in f32 against float64; the denoise loop's bit-identity; times by
+    part and a profile of one denoise step."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from drawingspinup_torch.cli import mv as cli_mv
+    from drawingspinup_torch.core.contract import VIEWS, UidPaths
+    from drawingspinup_torch.core.io import read_image_u8
+    from drawingspinup_torch.ops import diffusion as D
+    from drawingspinup_torch.pipelines import stage2_mv as mv
+
+    paths = UidPaths(root, MV_UID)
+    check(os.path.exists(paths.inpainted),
+          f"stage 2a needs stage 1's {paths.inpainted}")
+    # the CLI, the decoded images' finiteness recorded on the way
+    finite = []
+    decode = mv.MVPipeline.decode
+
+    def recorded(self, latents):
+        img = decode(self, latents)
+        finite.append(bool(torch.isfinite(img).all()))
+        return img
+
+    mv.MVPipeline.decode = recorded
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            cli_mv.main(["--uid", MV_UID, "--root", root, "--device",
+                         str(device), "--seed", str(MV_SEED)])
+        torch.cuda.synchronize()
+    finally:
+        mv.MVPipeline.decode = decode
+    wall = time.time() - t0
+    stats = dict(mv.LAST_STATS)
+    check(finite == [True], f"stage 2a: decoded images finite: {finite}")
+    for kind in ("normal", "color", "mask"):
+        for v in VIEWS:
+            a = read_image_u8(paths.mv(kind, v))
+            check(a.shape[:2] == (MV_OUT, MV_OUT)
+                  and (kind != "mask" or set(np.unique(a)) <= {0, 255}),
+                  f"{paths.mv(kind, v)}: shape {a.shape}")
+    front = read_image_u8(paths.mv("mask", "front"))[..., 0] > 127
+    alpha = read_image_u8(paths.inpainted)[..., 3] > 127
+    check(abs(front.mean() - alpha.mean()) < 0.01,
+          f"front mask covers {front.mean():.4f}, the drawing "
+          f"{alpha.mean():.4f}")
+
+    # one UNet call at batch 12 on the uid's conditioning: f32 vs float64
+    cfg = mv.MVPipelineConfig()
+    pipe = mv.MVPipeline.init_random(cfg, MV_SEED, device)
+    g = torch.Generator(device=device).manual_seed(MV_SEED + 1)
+    with torch.no_grad():
+        for n, p in pipe.unet.named_parameters():
+            if "attn_joint" in n and "to_out" in n:
+                p.copy_(torch.randn(p.shape, generator=g, device=device)
+                        / math.sqrt(p.shape[-1]))
+    image, _ = mv.load_input(paths, cfg.image_size, device)
+    views = list(VIEWS)
+    with torch.inference_mode():
+        embeds, cond = pipe.encode_image(image)
+        nv2 = 2 * len(views)
+        lat = torch.randn((nv2,) + tuple(cond.shape[1:]), generator=g,
+                          device=device)
+        ts = D.timesteps_for(cfg.ddim, cfg.num_inference_steps)
+        cam = torch.as_tensor(mv.sincos(mv.camera_task_embeddings(views)),
+                              device=device)
+        args32 = (torch.cat([lat, cond.expand(nv2, -1, -1, -1)], 1),
+                  torch.tensor(int(ts[len(ts) // 2]), device=device),
+                  embeds.expand(nv2, -1, -1).contiguous(), cam)
+
+        def cast(dt):
+            return tuple(a.to(dt) if a.is_floating_point() else a
+                         for a in args32)
+
+        y32 = pipe.unet(*args32).double()
+        u64 = copy.deepcopy(pipe.unet).double()
+        t0 = time.time()
+        y64 = u64(*cast(torch.float64))
+        torch.cuda.synchronize()
+        t64 = time.time() - t0
+        del u64
+        u16 = pipe.unet_in(torch.bfloat16)
+        args16 = cast(torch.bfloat16)
+        y16 = u16(*args16).double()
+    check(bool(torch.isfinite(y32).all() and torch.isfinite(y16).all()),
+          "stage 2a: non-finite UNet output")
+    norm = y64.norm()
+    rel32 = ((y32 - y64).norm() / norm).item()
+    rel16 = ((y16 - y64).norm() / norm).item()
+    check(rel32 <= MV_REL_L2,
+          f"stage 2a UNet, f32 vs float64 on the card: relative L2 "
+          f"{rel32:.3e} > {MV_REL_L2:g}")
+    flops = count_flops(u16, *args16)
+    with torch.inference_mode():
+        ms16 = cuda_ms(lambda: u16(*args16), reps=5)
+        ms32 = cuda_ms(lambda: pipe.unet(*args32), reps=3)
+        enc_ms = cuda_ms(lambda: pipe.encode_image(image), reps=3)
+        z = torch.randn((nv2,) + tuple(cond.shape[1:]), generator=g,
+                        device=device)
+        dec_ms = cuda_ms(lambda: pipe.decode_u8(z), reps=3)
+
+    # the denoise loop twice from one generator state, bit-identical
+    short = mv.MVPipeline(dataclasses.replace(
+        cfg, num_inference_steps=MV_SAME_STEPS), pipe.unet, pipe.vae,
+        pipe.clip)
+    runs = [short.denoise(embeds, cond, views, torch.Generator(
+        device=device).manual_seed(MV_SEED + 2)) for _ in range(2)]
+    check(torch.equal(runs[0], runs[1]),
+          "stage 2a: the denoise loop differs between two runs")
+
+    # one denoise step under the profiler
+    one = mv.MVPipeline(dataclasses.replace(cfg, num_inference_steps=1),
+                        pipe.unet, pipe.vae, pipe.clip)
+    gen = torch.Generator(device=device).manual_seed(MV_SEED + 3)
+    one.denoise(embeds, cond, views, gen)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        one.denoise(embeds, cond, views, gen)
+        torch.cuda.synchronize()
+        step_wall = 1e3 * (time.time() - t0)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    launches = sum(e.count for e in kernels)
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    top = "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f} ms "
+                    f"x{e.count}" for e in kernels[:6])
+    step_note = (f"one denoise step under the profiler: device busy "
+                 f"{busy:.2f} ms of {step_wall:.2f} ms wall "
+                 f"({busy / step_wall:.1%}, the profiler's overhead "
+                 f"included), {launches} kernel launches; top: {top}"
+                 if busy > 0 else "one denoise step: the profiler saw no "
+                 "device time (not measured)")
+    n_params = sum(p.numel() for p in pipe.unet.parameters())
+    report(f"[16] stage 2a: mv CLI at full width (UNet "
+           f"{n_params / 1e6:.1f} M parameters, joint mid attention; SD VAE;"
+           f" CLIP ViT-L/14; seeded), {cfg.num_inference_steps} DDIM steps "
+           f"over {nv2} images of {cond.shape[2]}^2 latents in "
+           f"{cfg.compute_dtype}, uid {MV_UID}: 18 PNGs of {MV_OUT}^2, "
+           f"decoded images finite; UNet call (batch {nv2}) f32 vs float64 "
+           f"on the card relative L2 {rel32:.3e} (limit {MV_REL_L2:g}; "
+           f"bf16 {rel16:.3e}; float64 call {t64:.1f} s); denoise loop "
+           f"bit-identical over two runs ({MV_SAME_STEPS} steps); UNet "
+           f"{ms16:.2f} ms a call in bf16, {ms32:.2f} in f32 (CUDA events; "
+           f"{flops / 1e12:.3f} TFLOP a call: {flops / ms16 / 1e9:.1f} "
+           f"TFLOP/s in bf16, {flops / ms32 / 1e9:.1f} in f32); CLI s: read "
+           f"{stats['read_s']:.2f}, encode {stats['encode_s']:.2f}, "
+           f"{cfg.num_inference_steps}-step loop {stats['denoise_s']:.2f} "
+           f"({1e3 * stats['denoise_s'] / cfg.num_inference_steps:.1f} ms a "
+           f"step), decode + upscale + u8 {stats['decode_u8_s']:.2f}, masks "
+           f"(host) {stats['masks_s']:.2f}, PNG writes "
+           f"{stats['write_s']:.2f}, CLI wall {wall:.1f} s a uid (weights "
+           f"drawn and cast included); steady encode {enc_ms:.1f} ms, decode "
+           f"+ upscale + u8 {dec_ms:.1f} ms (CUDA events); {step_note}")
+
+
 def kernels_line(per_shape, serving_launches, train_shapes, fwd_launches,
                  bwd_launches, hg_uniform, hg_rays, gather, gather_main,
-                 recon_launches) -> dict:
+                 pixel, recon_launches) -> dict:
     """The ``kernels`` JSON object from the phases' results: per kernel its
     launches on the main paths, error, times, bound and yardstick; the hash
     grid's at the production step on its own ray-ordered points, the
-    uniform points' beside."""
+    uniform points' beside; the row gather, which the recon step no longer
+    launches, inside the pixel-ray kernel's entry that took its place."""
     def production(rows):
         return next(r for r in rows if r["dtype"] == "bfloat16"
                     and r["n_active"] == HG_ACTIVE[-1])
@@ -2178,8 +2539,32 @@ def kernels_line(per_shape, serving_launches, train_shapes, fwd_launches,
         "partial_yardstick_ms": prod["scatter_ms"],
         "partial_yardstick_device_ms": prod["scatter_device_ms"],
     }, {
+        "name": "pixel_rays", "route": "cuda", "source": PIXEL_SOURCE,
+        "replaces": PIXEL_REPLACES, "launches": recon_launches["pixel_rays"],
+        "max_abs_err": pixel["err"], "ms": pixel["ms"],
+        "plain_ms": pixel["plain_ms"], "bound_ms": pixel["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "timed": f"one recon step's rays and target rows, {pixel['shape']} "
+                 f"(phase 10 medians); plain: the twin (eager ops, the rows "
+                 f"by tab[idx]); unfused: the same eager ops around the row "
+                 f"gather kernel, the step's build before the fused kernel; "
+                 f"no one PyTorch call computes the function, so library_ms "
+                 f"is null and index_select of the rows alone stands beside "
+                 f"as a partial yardstick; {TIMED}",
+        "device_ms": pixel["device_ms"],
+        "plain_device_ms": pixel["plain_device_ms"],
+        "unfused_ms": pixel["unfused_ms"],
+        "unfused_device_ms": pixel["unfused_device_ms"],
+        "partial_yardstick": "not the whole function: torch.index_select "
+                             "of the target rows alone",
+        "partial_yardstick_ms": pixel["index_select_ms"],
+        "partial_yardstick_device_ms": pixel["index_select_device_ms"],
+        "ray_ulps": list(pixel["ulps"]),
+    }, {
         "name": "row_gather", "route": "cuda", "source": GATHER_SOURCE,
         "replaces": GATHER_REPLACES, "launches": recon_launches["row_gather"],
+        "main_path": "off the recon step since pixel_rays fetches its rows; "
+                     "held to tab[idx] in phase 10",
         "max_abs_err": 0.0, "ms": gather[-1][0], "plain_ms": gather[-1][1],
         "bound_ms": gather_bound[0], "bound_by": gather_bound[1],
         "library_ms": gather[-1][2],
@@ -2193,6 +2578,7 @@ def kernels_line(per_shape, serving_launches, train_shapes, fwd_launches,
         "device_ms_main_path": gather_main["device_ms"],
         "plain_ms_main_path": gather_main["plain_ms"],
         "library_ms_main_path": gather_main["library_ms"],
+        "library_device_ms_main_path": gather_main["library_device_ms"],
         "bound_ms_main_path": gather_main["bound_ms"],
     }]}
 
@@ -2225,6 +2611,7 @@ def main() -> int:
         hg_uniform = phase_hashgrid_vs_plain(device, uniform_points(device),
                                              "uniform")
         gather, gather_main = phase_row_gather(device)
+        pixel = phase_pixel_rays(device)
         recon_launches = phase_recon(root, device)
         hg_rays = phase_hashgrid_vs_plain(device, step_points(root, device),
                                           "ray-ordered")
@@ -2232,10 +2619,11 @@ def main() -> int:
         phase_export_vs_plain(root, device)
         phase_renders(root, device)
         phase_stage1(root, device)
+        phase_mv(root, device)
 
     print(json.dumps(kernels_line(
         per_shape, serving_launches, train_shapes, fwd_launches, bwd_launches,
-        hg_uniform, hg_rays, gather, gather_main, recon_launches)))
+        hg_uniform, hg_rays, gather, gather_main, pixel, recon_launches)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -16,6 +16,9 @@ import os
 from dataclasses import dataclass
 from typing import List
 
+# the six generated views of stage 2a (and read by 2b), in order
+VIEWS = ("front", "front_right", "right", "back", "left", "front_left")
+
 
 @dataclass(frozen=True)
 class UidPaths:

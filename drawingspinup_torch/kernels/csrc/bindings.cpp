@@ -1,11 +1,11 @@
 // Python binding of the CUDA kernels' plain C interface.
 //
 // Pointers and the stream arrive as integers from the Python wrappers
-// (drawingspinup_torch/kernels/ric_conv.py and hashgrid.py), which check
-// device, dtype, shape and contiguity and allocate the outputs first. The
-// binding uses no ATen API, so it includes pybind11 alone (shipped with
-// torch's headers); the full torch/extension.h would add minutes of compile
-// time to every fresh build.
+// (drawingspinup_torch/kernels/ric_conv.py, hashgrid.py, pixel_rays.py),
+// which check device, dtype, shape and contiguity and allocate the outputs
+// first. The binding uses no ATen API, so it includes pybind11 alone
+// (shipped with torch's headers); the full torch/extension.h would add
+// minutes of compile time to every fresh build.
 #include <pybind11/pybind11.h>
 #include <pybind11/stl.h>
 
@@ -53,6 +53,12 @@ extern "C" int hashgrid_bwd_launch(const float* x, long long P, int n_active,
 extern "C" int row_gather_launch(const void* tab, long long T, int row_bytes,
                                  const int* idx, long long K, void* out,
                                  void* stream);
+extern "C" int pixel_rays_launch(const long long* vi, const long long* yi,
+                                 const long long* xi, long long R,
+                                 const float* c2w, const float* view_weights,
+                                 int V, int H, int W, const float* pixels,
+                                 float* rays_o, float* rays_d, float* px,
+                                 float* vw, void* stream);
 
 namespace {
 
@@ -142,6 +148,19 @@ int row_gather(std::uintptr_t tab, long long t, int row_bytes,
                            ptr<void>(stream));
 }
 
+int pixel_rays(std::uintptr_t vi, std::uintptr_t yi, std::uintptr_t xi,
+               long long r, std::uintptr_t c2w, std::uintptr_t view_weights,
+               int v, int h, int w, std::uintptr_t pixels,
+               std::uintptr_t rays_o, std::uintptr_t rays_d, std::uintptr_t px,
+               std::uintptr_t vw, std::uintptr_t stream) {
+  return pixel_rays_launch(ptr<const long long>(vi), ptr<const long long>(yi),
+                           ptr<const long long>(xi), r, ptr<const float>(c2w),
+                           ptr<const float>(view_weights), v, h, w,
+                           ptr<const float>(pixels), ptr<float>(rays_o),
+                           ptr<float>(rays_d), ptr<float>(px), ptr<float>(vw),
+                           ptr<void>(stream));
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -172,6 +191,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("row_gather", &row_gather,
         "Launch the fixed-width row gather kernel; returns the cudaError_t "
         "code.");
+  m.def("pixel_rays", &pixel_rays,
+        "Launch the fused pixel-ray kernel (rays, target rows and view "
+        "weights of one NSR step); returns the cudaError_t code.");
   m.def("error_string",
         [](int err) { return std::string(ric_conv_error_string(err)); },
         "cudaGetErrorString of a launch's return code.");

@@ -461,13 +461,6 @@ def row_gather(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 # dispatch and autograd
 # ---------------------------------------------------------------------------
 
-def gather_rows(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``tab[idx]``: the plain twin for a CPU tensor, the kernel for CUDA."""
-    if tab.device.type == "cpu":
-        return row_gather_reference(tab, idx)
-    return row_gather(tab, idx)
-
-
 class HashGridFunction(torch.autograd.Function):
     """The encode, differentiable in the tables only: positions carry no
     gradient in NSR (samples come from rays and stop-gradient'd t), so the

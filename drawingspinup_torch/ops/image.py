@@ -1,7 +1,8 @@
 """Image ops on tensors in (..., H, W, C) layout, as in
 ``drawingspinup_tpu/ops/image.py``: the Sobel edge map of a NOCS position
-render (stage-3 renders) and the bicubic resize of stage 1's input.
-``tests/test_torch_render.py`` holds each to its JAX original.
+render (stage-3 renders) and the resize of stage 1's input and of stage
+2a's images and masks. ``tests/test_torch_render.py`` and
+``tests/test_torch_stage2a.py`` hold each to its JAX original.
 """
 from __future__ import annotations
 
@@ -20,17 +21,25 @@ def _nchw(img: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, ...]]:
     return img.reshape(-1, h, w, c).permute(0, 3, 1, 2), lead
 
 
-def resize(img: torch.Tensor, shape: Tuple[int, int]) -> torch.Tensor:
-    """Bicubic resize of (..., H, W, C) → (..., h, w, C) with the semantics
-    of ``jax.image.resize(method="cubic")``: Keys' cubic with a = −0.5,
-    half-pixel centres, taps outside the image dropped and the weights
-    renormalised, and a kernel stretched by the scale when it shrinks
-    (antialiasing). ``F.interpolate``'s antialiased bicubic path computes
-    exactly that; its plain bicubic path (a = −0.75, clamped edge taps, no
-    antialiasing) does not."""
+def resize(img: torch.Tensor, shape: Tuple[int, int],
+           method: str = "bicubic") -> torch.Tensor:
+    """Resize (..., H, W, C) → (..., h, w, C) with the semantics of
+    ``jax.image.resize``. ``bicubic`` (its ``cubic``): Keys' cubic with
+    a = −0.5, half-pixel centres, taps outside the image dropped and the
+    weights renormalised, and a kernel stretched by the scale when it
+    shrinks (antialiasing). ``F.interpolate``'s antialiased bicubic path
+    computes exactly that; its plain bicubic path (a = −0.75, clamped edge
+    taps, no antialiasing) does not. ``nearest``: the source pixel whose
+    centre is nearest the target's, ``F.interpolate``'s ``nearest-exact``."""
     x, lead = _nchw(img.float())
-    y = F.interpolate(x, size=tuple(shape), mode="bicubic",
-                      align_corners=False, antialias=True)
+    if method == "bicubic":
+        y = F.interpolate(x, size=tuple(shape), mode="bicubic",
+                          align_corners=False, antialias=True)
+    elif method == "nearest":
+        y = F.interpolate(x, size=tuple(shape), mode="nearest-exact")
+    else:
+        raise ValueError(f"resize: method {method!r}; use 'bicubic' or "
+                         f"'nearest'")
     return y.permute(0, 2, 3, 1).reshape(lead + (shape[0], shape[1],
                                                   img.shape[-1]))
 

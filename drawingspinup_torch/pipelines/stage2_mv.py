@@ -1,0 +1,448 @@
+"""Stage 2a: multi-view diffusion generation (counterpart of
+``drawingspinup_tpu/pipelines/stage2_mv.py``, the reference's ``mv.py`` and
+Wonder3D's ``pipeline_mvdiffusion_image.py``).
+
+  drawing (stage 1's inpainted RGBA, darkened ×0.8 and composited on
+  white, 256²) → CLIP image embedding + VAE condition latents (one per
+  view × 2 domains) → camera Δelevation/Δazimuth ⊕ task one-hots → sincos
+  → 75-step DDIM over the 12-image batch through the MV-UNet (condition
+  latents concatenated to the noisy ones at every step) → VAE decode → 6
+  normals + 6 colours, bicubic to 1024² → per-view masks: front = the
+  drawing's alpha, back = mirrored, sides = background removal; writes
+  ``mv/{normal,color,mask}/<view>.png``.
+
+On the device: the UNet's params and activations in the compute dtype
+(bf16 by default), the latents and DDIM updates in f32, CLIP and the VAE in
+f32, and the decode, upscale and u8 quantisation. On the host: the masks
+(scipy) and the PNG writes. The random draws (the initial latents and one
+noise per step) come from an explicit ``torch.Generator`` or are handed in
+(``noises``), as the parity tests hand in JAX's.
+
+Weights: ``load_pretrained`` reads a local diffusers-layout Wonder3D
+directory (``utils/diffusers_port.py``); ``MVPipeline.init_random`` draws
+them from a seed on the device. The ISNet matte (``DSU_ISNET_CKPT``,
+``DSU_ISNET_ONNX``) is not ported and raises; without it the side-view
+masks come from the heuristic matte, reported as a degraded weight as in
+JAX.
+"""
+from __future__ import annotations
+
+import copy
+import dataclasses
+import math
+import os
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from drawingspinup_torch.core import weights_policy
+from drawingspinup_torch.core.contract import VIEWS, UidPaths
+from drawingspinup_torch.core.io import read_image, write_image
+from drawingspinup_torch.models.attention_mv import Attention, Conv1x1Tokens
+from drawingspinup_torch.models.clip_vision import (
+    CLIPEmbeddings, CLIPVisionConfig, CLIPVisionModelWithProjection,
+    preprocess as clip_preprocess,
+)
+from drawingspinup_torch.models.unet_mv2d import UNetMV2D, UNetMVConfig
+from drawingspinup_torch.models.vae import AutoencoderKL, VAEConfig
+from drawingspinup_torch.ops import diffusion as D
+from drawingspinup_torch.ops.image import resize
+
+# Wonder3D's training-camera positions (x, y, z) per view, from the
+# reference's fixed_poses (part of the model contract).
+WONDER3D_CAMERAS: Dict[str, Tuple[float, float, float]] = {
+    "front": (-1.1051002, -0.5968285, 0.3354838),
+    "front_right": (-0.4204443, -1.5601668, 0.8769869),
+    "right": (0.6846559, -0.9633385, 0.5415031),
+    "back": (1.1051002, 0.5968286, -0.3354838),
+    "left": (-0.6846559, 0.9633384, -0.5415032),
+    "front_left": (-1.7897565, 0.3665098, -0.2060194),
+    "back_left": (0.4204443, 1.5601668, -0.8769868),
+    "back_right": (1.7897564, -0.3665100, 0.2060193),
+    "top": (-0.0000000, 0.6370046, 1.1332367),
+}
+
+# the reference's four uids whose side-view masks come from the normal map
+# instead of the colour image (mv.py:115-122)
+NORMAL_MASK_UIDS = {"5269932f55b5456c9b76cacfe0477c36",
+                    "ff97c4c2e4d34790ad4d9cfae2c9b37b",
+                    "8cb0a6123ffb4ea5b2dd7ba0cb98ac61",
+                    "1b39b2d2a6cb4a72a452b2bdcd7c0590"}
+
+# stage timings of the last generate_uid call, in seconds (the device
+# synchronised at each part's end)
+LAST_STATS: Dict[str, float] = {}
+
+
+def camera_task_embeddings(views: List[str]) -> np.ndarray:
+    """(2·Nv, 5): [0, Δelevation, Δazimuth, normal one-hot, colour one-hot]
+    relative to the front view; normals first, then colours."""
+    def sph(c):
+        x, y, z = c
+        return np.arctan2(np.hypot(x, y), z), np.arctan2(y, x)
+
+    t0, a0 = sph(WONDER3D_CAMERAS["front"])
+    rows = []
+    for v in views:
+        t, a = sph(WONDER3D_CAMERAS[v])
+        rows.append([0.0, t - t0, (a - a0) % (2 * np.pi)])
+    cam = np.asarray(rows, np.float32)
+    normal_task = np.concatenate(
+        [cam, np.tile([[1.0, 0.0]], (len(views), 1))], axis=1)
+    color_task = np.concatenate(
+        [cam, np.tile([[0.0, 1.0]], (len(views), 1))], axis=1)
+    return np.concatenate([normal_task, color_task], axis=0).astype(np.float32)
+
+
+def sincos(emb: np.ndarray) -> np.ndarray:
+    """'e_de_da_sincos': concat(sin, cos)."""
+    return np.concatenate([np.sin(emb), np.cos(emb)], axis=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class MVPipelineConfig:
+    unet: UNetMVConfig = UNetMVConfig()
+    ddim: D.DDIMConfig = D.DDIMConfig()
+    vae: Optional[VAEConfig] = None          # default: the full SD VAE
+    image_size: int = 256
+    num_inference_steps: int = 75
+    guidance_scale: float = 1.0
+    eta: float = 1.0
+    out_size: int = 1024
+    # the UNet's compute dtype in the denoise loop (the reference samples in
+    # fp16); DDIM, CLIP and the VAE stay f32
+    compute_dtype: str = "bfloat16"
+
+    def vae_config(self) -> VAEConfig:
+        return self.vae if self.vae is not None else VAEConfig()
+
+    def clip_config(self) -> CLIPVisionConfig:
+        """ViT-L/14 for the 768-wide cross-attention, else a small encoder
+        of the UNet's width."""
+        if self.unet.cross_attention_dim == 768:
+            return CLIPVisionConfig()
+        # a small encoder for narrow test configs
+        return CLIPVisionConfig(image_size=32, patch_size=8, hidden_size=64,
+                                num_layers=2, num_heads=4,
+                                projection_dim=self.unet.cross_attention_dim)
+
+
+@torch.no_grad()
+def seeded_init(module: nn.Module, generator: torch.Generator) -> None:
+    """Weights drawn from ``generator`` on its device, in module order:
+    dense and conv weights normal with std 1/sqrt(fan-in) (flax's LeCun
+    scale), zero biases, identity norms, CLIP's class and position
+    embeddings normal with std 0.02, and the joint attentions' output
+    projections zero, as Wonder3D initialises them."""
+    dev = generator.device
+
+    def normal(p, std):
+        p.copy_(torch.randn(p.shape, generator=generator, device=dev) * std)
+
+    for m in module.modules():
+        if isinstance(m, (nn.Linear, nn.Conv2d, Conv1x1Tokens)):
+            normal(m.weight, 1.0 / math.sqrt(m.weight[0].numel()))
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, (nn.GroupNorm, nn.LayerNorm)):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, CLIPEmbeddings):
+            normal(m.class_embedding, 0.02)
+            normal(m.position_embedding.weight, 0.02)
+    for m in module.modules():
+        if isinstance(m, Attention) and m.zero_out:
+            m.to_out[0].weight.zero_()
+            m.to_out[0].bias.zero_()
+
+
+def build_modules(cfg: MVPipelineConfig, device
+                  ) -> Tuple[UNetMV2D, AutoencoderKL,
+                             CLIPVisionModelWithProjection]:
+    """The three modules with uninitialised storage on ``device`` (built on
+    the meta device, so the full-width UNet never touches the host)."""
+    with torch.device("meta"):
+        mods = (UNetMV2D(cfg.unet), AutoencoderKL(cfg.vae_config()),
+                CLIPVisionModelWithProjection(cfg.clip_config()))
+    return tuple(m.to_empty(device=device).eval() for m in mods)
+
+
+class MVPipeline:
+    """The three models and the generation loop."""
+
+    def __init__(self, cfg: MVPipelineConfig, unet: UNetMV2D,
+                 vae: AutoencoderKL, clip: CLIPVisionModelWithProjection):
+        self.cfg = cfg
+        self.unet, self.vae, self.clip = unet, vae, clip
+        self.device = next(unet.parameters()).device
+        self.acp = D.alphas_cumprod(cfg.ddim)
+        self._cast: Dict[torch.dtype, UNetMV2D] = {}
+
+    @staticmethod
+    def init_random(cfg: MVPipelineConfig, seed: int = 0,
+                    device="cuda") -> "MVPipeline":
+        """Weights drawn on ``device`` from ``seed``: the UNet, then the
+        VAE, then CLIP, from one generator."""
+        mods = build_modules(cfg, torch.device(device))
+        g = torch.Generator(device=device).manual_seed(int(seed))
+        for m in mods:
+            seeded_init(m, g)
+        return MVPipeline(cfg, *mods)
+
+    def unet_in(self, dtype: torch.dtype) -> UNetMV2D:
+        """The UNet with its params in ``dtype`` (a cached cast copy)."""
+        if dtype == next(self.unet.parameters()).dtype:
+            return self.unet
+        if dtype not in self._cast:
+            self._cast[dtype] = copy.deepcopy(self.unet).to(dtype)
+        return self._cast[dtype]
+
+    # -- conditioning -------------------------------------------------------
+    @torch.inference_mode()
+    def encode_image(self, image) -> Tuple[torch.Tensor, torch.Tensor]:
+        """image (H, W, 3) in [0, 1] on white → (CLIP tokens (1, 1, D),
+        condition latents (1, 4, H/8, W/8)), f32."""
+        x = image if torch.is_tensor(image) else torch.from_numpy(
+            np.asarray(image, np.float32))
+        x = x.to(self.device, torch.float32)[None]
+        embeds = self.clip(clip_preprocess(x,
+                                           self.cfg.clip_config().image_size))
+        latents = self.vae.encode_mode((x * 2.0 - 1.0).permute(0, 3, 1, 2))
+        return embeds[:, None, :], latents
+
+    # -- sampling -----------------------------------------------------------
+    @torch.inference_mode()
+    def denoise(self, embeds: torch.Tensor, cond: torch.Tensor,
+                views: Optional[List[str]] = None,
+                generator: Optional[torch.Generator] = None,
+                noises: Optional[Sequence[torch.Tensor]] = None
+                ) -> torch.Tensor:
+        """The denoised latents (2·Nv, 4, h, w), f32, normals first, from
+        ``encode_image``'s CLIP tokens and condition latents.
+
+        ``noises``: the initial latents and one noise per step (NCHW, f32);
+        without them both are drawn from ``generator`` in that order.
+        Classifier-free guidance (guidance ≠ 1) runs the UNet once a step on
+        the doubled batch [uncond | cond] (a zero CLIP embedding and zero
+        condition latents, the camera rows repeated), whose view and domain
+        folds pair its halves as the reference's (and JAX's) do."""
+        cfg = self.cfg
+        views = list(views or VIEWS)
+        nv2 = 2 * len(views)
+        dev = self.device
+        h, w = cond.shape[2:]
+        shape = (nv2, cond.shape[1], h, w)
+        ts = D.timesteps_for(cfg.ddim, cfg.num_inference_steps)
+        ts_prev = np.concatenate([ts[1:], [-1]])
+        if noises is not None and len(noises) != len(ts) + 1:
+            raise ValueError(f"noises: {len(noises)} tensors for "
+                             f"{len(ts)} steps; expected {len(ts) + 1}")
+
+        def draw(i: int) -> torch.Tensor:
+            if noises is not None:
+                return torch.as_tensor(noises[i], device=dev).float()
+            return torch.randn(shape, generator=generator, device=dev)
+
+        cdt = getattr(torch, cfg.compute_dtype)
+        unet = self.unet_in(cdt)
+        embeds_c = embeds.expand(nv2, -1, -1).to(cdt)
+        cond_c = cond.expand(nv2, -1, -1, -1).to(cdt)
+        cam_c = torch.as_tensor(sincos(camera_task_embeddings(views)),
+                                device=dev).to(cdt)
+        guidance = float(cfg.guidance_scale)
+        do_cfg = guidance != 1.0
+        if do_cfg:
+            embeds_c = torch.cat([torch.zeros_like(embeds_c), embeds_c])
+            cond_c = torch.cat([torch.zeros_like(cond_c), cond_c])
+            cam_c = torch.cat([cam_c, cam_c])
+        t_dev = torch.as_tensor(ts.astype(np.int64), device=dev)
+
+        latents = draw(0)
+        for i in range(len(ts)):
+            lat_in = latents.to(cdt)
+            if do_cfg:
+                lat_in = torch.cat([lat_in, lat_in])
+            eps = unet(torch.cat([lat_in, cond_c], dim=1), t_dev[i],
+                       embeds_c, cam_c).float()
+            if do_cfg:
+                uncond, cond_eps = eps.chunk(2)
+                eps = uncond + guidance * (cond_eps - uncond)
+            latents = D.ddim_step(cfg.ddim, self.acp, eps, int(ts[i]),
+                                  int(ts_prev[i]), latents, eta=cfg.eta,
+                                  noise=draw(i + 1))
+        return latents
+
+    @torch.inference_mode()
+    def decode(self, latents: torch.Tensor) -> torch.Tensor:
+        """(N, 4, h, w) → (N, H, W, 3) images in [0, 1], f32."""
+        img = self.vae.decode(latents).permute(0, 2, 3, 1)
+        return torch.clamp(img * 0.5 + 0.5, 0.0, 1.0)
+
+    @torch.inference_mode()
+    def decode_u8(self, latents: torch.Tensor) -> torch.Tensor:
+        """decode → bicubic to out_size → u8 as ``core/io.py::write_image``
+        quantises, floor(clip(x·255 + 0.5)), on the device."""
+        out = self.cfg.out_size
+        img = torch.clamp(resize(self.decode(latents), (out, out)), 0.0, 1.0)
+        return torch.clamp(img * 255.0 + 0.5, 0, 255).to(torch.uint8)
+
+    def __call__(self, image, views: Optional[List[str]] = None,
+                 generator: Optional[torch.Generator] = None,
+                 noises: Optional[Sequence[torch.Tensor]] = None
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+        """(normals (Nv, H, W, 3), colours (Nv, H, W, 3)) in [0, 1] on the
+        host. Without ``generator`` or ``noises`` the draws come from seed
+        0."""
+        nv = len(views or VIEWS)
+        if generator is None and noises is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        embeds, cond = self.encode_image(image)
+        latents = self.denoise(embeds, cond, views, generator, noises)
+        images = self.decode(latents).cpu().numpy()
+        return images[:nv], images[nv:]
+
+
+# ---------------------------------------------------------------------------
+# masks (mv.py:105-126)
+# ---------------------------------------------------------------------------
+
+ISNET_ITEM = "ROADMAP.md queue 1, item 6 (stage-2a leftovers)"
+
+
+def background_removal(img: np.ndarray, bg_color: float = 1.0,
+                       threshold: float = 0.1) -> np.ndarray:
+    """Foreground mask of a side view, (H, W) float: the heuristic
+    background-distance matte (pixels farther than ``threshold`` from the
+    background, closed twice, opened once, the largest component kept).
+    The reference's ISNet DIS matte is not ported: asking for it
+    (``DSU_ISNET_CKPT`` or ``DSU_ISNET_ONNX``) raises."""
+    for var in ("DSU_ISNET_CKPT", "DSU_ISNET_ONNX"):
+        if os.environ.get(var):
+            raise NotImplementedError(
+                f"{var} is set, but the ISNet background removal is not "
+                f"ported to drawingspinup_torch yet ({ISNET_ITEM}); unset it "
+                f"to use the heuristic matte")
+    weights_policy.report_degraded(
+        "isnet",
+        "side-view background removal using the heuristic "
+        "background-distance matte (the ISNet DIS matte is not ported)")
+    from scipy import ndimage
+    dist = np.abs(img - bg_color).max(axis=-1)
+    mask = dist > threshold
+    mask = ndimage.binary_closing(mask, iterations=2)
+    mask = ndimage.binary_opening(mask, iterations=1)
+    lab, n = ndimage.label(mask)
+    if n > 1:
+        sizes = ndimage.sum(mask, lab, range(1, n + 1))
+        mask = lab == (1 + np.argmax(sizes))
+    return mask.astype(np.float32)
+
+
+def derive_masks(uid: str, colors: np.ndarray, normals: np.ndarray,
+                 drawing_mask: np.ndarray, views: List[str]) -> np.ndarray:
+    """Per-view masks: front = the drawing mask; back = mirrored; sides =
+    background removal on the colour (the normal for 4 reference uids)."""
+    out = []
+    size = colors.shape[1]
+    if drawing_mask.shape[0] != size:
+        drawing_mask = resize(torch.from_numpy(
+            np.asarray(drawing_mask, np.float32)[..., None]), (size, size),
+            "nearest").numpy()[..., 0]
+    for i, v in enumerate(views):
+        if v == "front":
+            out.append((drawing_mask > 0.5).astype(np.float32))
+        elif v == "back":
+            out.append((drawing_mask[:, ::-1] > 0.5).astype(np.float32))
+        else:
+            src = normals[i] if uid in NORMAL_MASK_UIDS else colors[i]
+            out.append(background_removal(src))
+    return np.stack(out)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def load_input(paths: UidPaths, size: int, device,
+               save_name: str = "ffc_resnet"
+               ) -> Tuple[torch.Tensor, np.ndarray]:
+    """(the model's input (size, size, 3) on ``device``, the drawing mask
+    (H, W) on the host): stage 1's inpainted RGBA (the texture when there
+    is none), darkened ×0.8 and composited on white (the reference's
+    add_gray), bicubic to ``size``."""
+    inp_path = os.path.join(paths.char_dir, f"{save_name}_inpainted.png")
+    if not os.path.exists(inp_path):
+        inp_path = paths.texture               # the reference's fallback
+    rgba = read_image(inp_path)
+    if rgba.shape[-1] == 4:
+        alpha = rgba[..., 3:4]
+        image = rgba[..., :3] * 0.8 * alpha + (1.0 - alpha)
+        drawing_mask = rgba[..., 3]
+    else:
+        image = rgba[..., :3] * 0.8
+        drawing_mask = read_image(paths.mask)[..., 0]
+    image = resize(torch.from_numpy(np.ascontiguousarray(image)).to(device),
+                   (size, size))
+    return image, drawing_mask
+
+
+def generate_uid(root: str, uid: str, pipe: MVPipeline,
+                 views: Optional[List[str]] = None, seed: int = 0,
+                 save_name: str = "ffc_resnet",
+                 noises: Optional[Sequence[torch.Tensor]] = None
+                 ) -> List[str]:
+    """The mv.py flow for one uid: read stage 1's output, sample with the
+    draws of ``seed`` (or ``noises``), write
+    ``mv/{normal,color,mask}/<view>.png`` at ``out_size``; the parts'
+    seconds go to ``LAST_STATS``."""
+    paths = UidPaths(root, uid)
+    views = list(views or VIEWS)
+    dev = pipe.device
+    t0 = time.perf_counter()
+    image, drawing_mask = load_input(paths, pipe.cfg.image_size, dev,
+                                     save_name)
+    _sync(dev)
+    t1 = time.perf_counter()
+    embeds, cond = pipe.encode_image(image)
+    _sync(dev)
+    t_enc = time.perf_counter()
+    generator = torch.Generator(device=dev).manual_seed(int(seed))
+    latents = pipe.denoise(embeds, cond, views, generator, noises)
+    _sync(dev)
+    t2 = time.perf_counter()
+    u8 = pipe.decode_u8(latents).cpu().numpy()
+    nv = len(views)
+    normals_u8, colors_u8 = u8[:nv], u8[nv:]
+    t3 = time.perf_counter()
+    masks = derive_masks(uid, colors_u8.astype(np.float32) / 255.0,
+                         normals_u8.astype(np.float32) / 255.0,
+                         drawing_mask, views)
+    t4 = time.perf_counter()
+    written = []
+    for i, v in enumerate(views):
+        for kind, img in (("normal", normals_u8[i]), ("color", colors_u8[i]),
+                          ("mask", masks[i][..., None])):
+            p = paths.mv(kind, v)
+            write_image(p, img)
+            written.append(p)
+    t5 = time.perf_counter()
+    LAST_STATS.clear()
+    LAST_STATS.update({"read_s": t1 - t0, "encode_s": t_enc - t1,
+                       "denoise_s": t2 - t_enc, "decode_u8_s": t3 - t2,
+                       "masks_s": t4 - t3, "write_s": t5 - t4})
+    return written
+
+
+def load_pretrained(cfg: MVPipelineConfig, ckpt_dir: str,
+                    device="cuda") -> MVPipeline:
+    """The pipeline with a local diffusers-layout Wonder3D checkpoint
+    (``unet/``, ``vae/``, ``image_encoder/``) loaded strictly."""
+    from drawingspinup_torch.utils.diffusers_port import load_wonder3d
+
+    mods = build_modules(cfg, torch.device(device))
+    load_wonder3d(ckpt_dir, *mods)
+    return MVPipeline(cfg, *mods)

@@ -11,8 +11,9 @@ What differs from JAX, by design of the port:
   * Only analytic field gradients: JAX's ``grad_type`` option is dropped,
     since recon never sets it (``nsr_config_from_yaml`` does not read the
     yaml's ``finite_difference``).
-  * Per-pixel targets live packed in one (V·H·W, 12) f32 table, fetched
-    with the row-gather kernel (``kernels/hashgrid.py::gather_rows``).
+  * Per-pixel targets live packed in one (V·H·W, 12) f32 table; one
+    launch of the fused pixel-ray kernel (``kernels/pixel_rays.py``) fetches
+    a step's rows and builds its rays.
   * The optimizer is optax's ``adamw`` as ``make_optimizer`` configures it,
     written out: b1 0.9, b2 0.99, eps 1e-15, no weight decay, an f32 first
     moment, the second moment in the parameter's dtype (bf16 for bf16
@@ -27,7 +28,7 @@ from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from drawingspinup_torch.kernels.hashgrid import gather_rows
+from drawingspinup_torch.kernels import pixel_rays
 from drawingspinup_torch.models.fields import (
     RadianceConfig, SDFFieldConfig, init_radiance, init_sdf_field,
     init_variance, inv_s, radiance_forward, sdf_forward,
@@ -352,7 +353,7 @@ PIXEL_COLUMNS = 12       # rgb 3, normal 3, mask 1, t_range 2, pad 3
 
 def pack_pixels(data: Dict[str, torch.Tensor]) -> torch.Tensor:
     """The per-pixel targets as one (V·H·W, 12) f32 table: 48-byte rows for
-    the row-gather kernel."""
+    the pixel-ray kernel."""
     v, h, w = data["masks"].shape
     cols = [data["images"], data["normals"], data["masks"][..., None]]
     if "t_range" in data:
@@ -366,24 +367,14 @@ def sample_pixel_rays(data: Dict[str, torch.Tensor], draws: Draws):
     """The drawn (view, y, x) pixels → world ortho rays and per-pixel
     targets. data: images (V,H,W,3), normals (V,H,W,3), masks (V,H,W),
     view_weights (V,), c2w (V,3,4), optional t_range (V,H,W,2), and
-    ``pixels`` (``pack_pixels``)."""
+    ``pixels`` (``pack_pixels``). One launch of the fused pixel-ray kernel
+    on the card (``kernels/pixel_rays.py``), its plain twin on the CPU."""
     v, h, w = data["masks"].shape
-    vi, yi, xi = draws.vi, draws.yi, draws.xi
-    dt = data["c2w"].dtype
-    ox = ((xi.to(dt) + 0.5) / w - 0.5) * 2.0
-    oy = ((yi.to(dt) + 0.5) / h - 0.5) * 2.0
-    origins = torch.stack([ox, oy, torch.zeros_like(ox)], dim=-1)
-    dirs = torch.tensor([0.0, 0.0, 1.0], dtype=dt, device=ox.device
-                        ).expand(origins.shape)
-    c2w = data["c2w"][vi]
-    rays_d = torch.einsum("rij,rj->ri", c2w[:, :, :3], dirs)
-    rays_o = torch.einsum("rij,rj->ri", c2w[:, :, :3], origins) + c2w[:, :, 3]
-    rays_d = rays_d / torch.clamp(
-        torch.linalg.norm(rays_d, dim=-1, keepdim=True), min=1e-9)
-    flat = ((vi * h + yi) * w + xi).to(torch.int32)
-    px = gather_rows(data["pixels"], flat)
+    rays_o, rays_d, px, vw = pixel_rays.sample(
+        data["c2w"], data["view_weights"], data["pixels"], h, w, draws.vi,
+        draws.yi, draws.xi)
     targets = {"rgb": px[:, 0:3], "normal": px[:, 3:6], "mask": px[:, 6],
-               "view_weights": data["view_weights"][vi]}
+               "view_weights": vw}
     if "t_range" in data:
         targets["t_range"] = px[:, 7:9]
     return rays_o, rays_d, targets

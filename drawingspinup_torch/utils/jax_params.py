@@ -172,3 +172,91 @@ def ffc_params(params: Mapping[str, Any],
                 raise ValueError(f"duplicate converted key {key!r}")
             out[key] = torch.from_numpy(np.ascontiguousarray(a))
     return out
+
+
+# ---------------------------------------------------------------------------
+# stage 2a: the MV-UNet, the SD VAE and the CLIP image encoder
+# ---------------------------------------------------------------------------
+
+_MV_TOP = ((r"(down|up)(\d+)_res(\d+)", r"\1_blocks.\2.resnets.\3"),
+           (r"(down|up)(\d+)_attn(\d+)", r"\1_blocks.\2.attentions.\3"),
+           (r"down(\d+)_downsample", r"down_blocks.\1.downsamplers.0"),
+           (r"up(\d+)_upsample", r"up_blocks.\1.upsamplers.0"),
+           (r"mid_res(\d+)", r"mid_block.resnets.\1"),
+           (r"mid_attn", r"mid_block.attentions.0"),
+           (r"block(\d+)", r"transformer_blocks.\1"),
+           (r"layer(\d+)", r"vision_model.encoder.layers.\1"))
+_CLIP_TOP = {"patch_embedding": "vision_model.embeddings.patch_embedding",
+             "class_embedding": "vision_model.embeddings.class_embedding",
+             "position_embedding":
+                 "vision_model.embeddings.position_embedding.weight",
+             "pre_layrnorm": "vision_model.pre_layrnorm",
+             "post_layernorm": "vision_model.post_layernorm"}
+_CLIP_SUB = {"q_proj": "self_attn.q_proj", "k_proj": "self_attn.k_proj",
+             "v_proj": "self_attn.v_proj", "out_proj": "self_attn.out_proj",
+             "fc1": "mlp.fc1", "fc2": "mlp.fc2"}
+
+
+def _mv_name(part: str, path: Tuple[str, ...]) -> Tuple[str, bool]:
+    """(the port's key of a flax leaf path of the UNet, VAE or CLIP tree,
+    whether the leaf is a transformer's 1×1 proj_in/proj_out kernel)."""
+    names, proj = [], False
+    for i, p in enumerate(path):
+        if i == 0 and part == "clip" and p in _CLIP_TOP:
+            names.append(_CLIP_TOP[p])
+            continue
+        if i == len(path) - 1:
+            names.append({"kernel": "weight", "scale": "weight"}.get(p, p))
+            continue
+        for pat, rep in _MV_TOP:
+            if re.fullmatch(pat, p):
+                # a VAE's down/up sampler is the conv itself in flax
+                q = re.sub(pat, rep, p)
+                if q.endswith("samplers.0") and path[i + 1] != "conv":
+                    q += ".conv"
+                names.append(q)
+                break
+        else:
+            if p == "to_out":
+                names.append("to_out.0")
+            elif i > 0 and path[i - 1] == "ff":
+                names.append("net.0.proj" if p == "proj_in" else "net.2")
+            elif p in ("proj_in", "proj_out") and path[-1] == "kernel":
+                names.append(p)
+                proj = True
+            elif p in _CLIP_SUB and re.fullmatch(r"layer\d+", path[0]):
+                names.append(_CLIP_SUB[p])
+            else:
+                names.append(p)
+    return ".".join(names), proj
+
+
+def _mv_state(part: str, tree: Mapping[str, Any]
+              ) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    for path, leaf in _leaves(tree):
+        a = np.array(leaf, np.float32)
+        key, proj = _mv_name(part, path)
+        if path[-1] == "kernel":
+            if a.ndim == 4:
+                a = a.transpose(3, 2, 0, 1)          # HWIO → OIHW
+            elif proj:
+                a = a.T[:, :, None, None]             # 1×1 conv weight
+            else:
+                a = a.T                               # (in, out) → (out, in)
+        if key in out:
+            raise ValueError(f"duplicate converted key {key!r}")
+        out[key] = torch.from_numpy(np.ascontiguousarray(a))
+    return out
+
+
+def mv_params(params: Mapping[str, Any]) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The JAX stage-2a pipeline's params (``{"unet", "vae", "clip"}``, or
+    any one of them; numpy leaves) → ``{part: state_dict}`` of the port's
+    ``UNetMV2D``, ``AutoencoderKL`` and ``CLIPVisionModelWithProjection``
+    (diffusers' and transformers' names: the inverse of
+    ``drawingspinup_tpu/utils/diffusers_port.py``'s key maps). Dense
+    kernels (in, out) → (out, in); conv kernels HWIO → OIHW; a
+    transformer's proj_in/proj_out → (out, in, 1, 1), the checkpoint's 1×1
+    conv; ``scale`` → ``weight``."""
+    return {part: _mv_state(part, tree) for part, tree in params.items()}

@@ -364,8 +364,9 @@ def test_init_table_layout():
 def test_row_gather_twin_and_dispatch():
     tab = torch.randn(50, 16, dtype=torch.float32).to(torch.bfloat16)
     idx = torch.tensor([3, 0, 49, 3, 17], dtype=torch.int32)
-    assert torch.equal(hk.gather_rows(tab, idx), tab[idx.long()])
     assert torch.equal(hk.row_gather_reference(tab, idx), tab[idx.long()])
+    with pytest.raises(ValueError, match="CUDA"):
+        hk.row_gather(tab, idx)
 
 
 def test_kernel_wrappers_reject_cpu_tensors():

@@ -238,7 +238,7 @@ def test_device_setup_is_explicit(monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port (stages 1, 2b and 3) loads no
+    """Importing every module of the port (stages 1, 2a, 2b and 3) loads no
     JAX, flax, optax or orbax module and nothing of the JAX package, and
     builds neither the CUDA kernels nor the native library."""
     code = (
@@ -262,7 +262,10 @@ def test_port_imports_no_jax():
         "          'utils.synthetic', 'cli.run_render', 'render.animation',\n"
         "          'render.fbx', 'ops.image', 'cli.predict',\n"
         "          'pipelines.stage1', 'models.ffc', 'ops.fourier',\n"
-        "          'ops.inpaint'):\n"
+        "          'ops.inpaint', 'kernels.pixel_rays', 'cli.mv',\n"
+        "          'pipelines.stage2_mv', 'models.unet_mv2d',\n"
+        "          'models.attention_mv', 'models.vae', 'models.clip_vision',\n"
+        "          'ops.diffusion', 'utils.diffusers_port'):\n"
         "    assert 'drawingspinup_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
