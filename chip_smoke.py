@@ -18,7 +18,8 @@ mc512. Then the stage-3 renders of a rig of production size, stage 1
 (the predict CLI, LaMa's FFC ResNet at the full width of
 configs/lama-fourier.yaml, seeded weights) on eight 512² drawings, and
 stage 2a (the mv CLI, the Wonder3D MV-UNet, SD VAE and CLIP ViT-L/14 at
-full width, seeded weights, 75 DDIM steps) on one of stage 1's outputs.
+full width, seeded weights, 75 DDIM steps, and the ISNet matte) on one of
+stage 1's outputs, and last the batch sweep drawing → GIF over two uids.
 Phases:
 
   1. versions, and the card's name and power limit (nvidia-smi);
@@ -113,7 +114,11 @@ Phases:
      a profile of each of the last two: device busy and launches per step;
  13. the export's u8 field at mc512 from the trained params, kernel field
      against plain field: more than 1 apart on < 0.5 % of voxels, marched
-     vertex and face counts within 10 %;
+     vertex and face counts within 10 %; then the export at mc256 by each
+     chain JAX can take there (device-smooth; the level chain, as
+     DSU_DEVICE_SMOOTH=0 runs it, band-sparse; the level chain's dense grid,
+     which every R < 256 runs): each a non-empty mesh of the sphere's median
+     radius within 35 %, with its device and host seconds;
  14. the renders: run_render on a rig of 50 000 faces (the recon OBJ's
      f50000) animated over 2 s, 61 frames of 760², on the card and with
      --device cpu: equal frame counts and sizes, color and pos u8 more
@@ -142,8 +147,25 @@ Phases:
      (CUDA events) with its TFLOP/s (FLOPs counted from the shapes), the
      CLI's seconds by part (read, encode, 75-step loop, decode + upscale
      + u8, masks, PNG writes) and wall, steady encode and decode times, and
-     device busy and launches over one denoise step (torch.profiler).
-     Phases 14-16 launch none of the hand-written kernels.
+     device busy and launches over one denoise step (torch.profiler); then
+     ISNet DIS at full width (seeded weights written as a state_dict and
+     loaded through DSU_ISNET_CKPT, as the mv pipeline loads them) on the
+     uid's four side views of 1024^2: f32 within relative L2 1e-4 of
+     float64 on the card, the u8 masks differing from float64's on < 0.1 %
+     of pixels, ms per view. Phases 14-16 launch none of the hand-written
+     kernels;
+ 17. the sweep: two uids made from phase 15's drawings (the mv contract
+     filled by the sphere fixture, since seeded Wonder3D weights give no
+     usable views; a rig per uid; the second uid on the thinning list)
+     through pipelines/sweep.py's run_sweep with cli/sweep.py's stage
+     functions, stage1 → recon → render → train_style → test_style → gif,
+     at the production widths with phase 11's recon cut (600 steps) and
+     phases 4 and 7's --max-batches (100, 20): both uids done and no
+     failure, the log stage-major, every stage's outputs present, the
+     thinning uid's OBJ under the reference's thinning name, each kernel's
+     launches over the sweep as the stages' counts predict (the kernels
+     line's ``launches_sweep``), a resumed sweep running no stage; the
+     seconds per stage per uid.
 
 Kernel times (phases 3, 6, 9, 10) are medians of CUDA events around each
 call, the host's enqueueing included (``ms``, and every plain and library
@@ -204,6 +226,17 @@ MV_SEED = SEED + 500
 MV_REL_L2 = 1e-4        # the f32 UNet call vs float64 (stage 1's bound)
 MV_SAME_STEPS = 6       # the bit-identity check's denoise loop
 MV_OUT = 1024
+ISNET_REL_L2 = 1e-4     # phase 16: ISNet f32 vs float64 (stage 1's bound)
+# phase 13: the export chains at mc256 (JAX's dispatch: device-smooth, or
+# the level chain under DSU_DEVICE_SMOOTH=0, band-sparse at R >= 256)
+CHAIN_MC = 256
+SPHERE_RADIUS = 0.45        # utils/synthetic.py::write_sphere_mv's
+# phase 17: the sweep (cli/sweep.py's stage functions) over two uids made
+# from phase 15's drawings, one of them on the thinning list
+SWEEP_UIDS = ("sweep0", "sweep1")
+SWEEP_DRAWINGS = ("drawing1", "drawing2")
+SWEEP_STAGES = ("stage1", "recon", "render", "train_style", "test_style",
+                "gif")
 UID = "smoke"
 F32_TOL = 1e-3          # phase 5: tanh outputs of 21 reordered-sum layers
 REL_TOL = 1e-4          # phase 3: f32 sums of up to 9·C products, reordered
@@ -1938,6 +1971,68 @@ def phase_export_vs_plain(root: str, device) -> None:
            f"{diff.max().item()}); marched {len(vk)} vertices / {len(fk)} "
            f"faces vs {len(vp)} / {len(fp)}; band eval + smooth "
            f"{secs[0]:.2f} s (kernel) vs {secs[1]:.2f} s (plain)")
+    export_chains(cfg, params, front, device)
+
+
+def export_chains(cfg, params, front, device) -> None:
+    """The export at mc256 by each chain JAX can take there: device-smooth
+    (the default), the level chain as DSU_DEVICE_SMOOTH=0 runs it
+    (band-sparse), and the level chain's dense grid (what every R < 256
+    runs); each a non-empty mesh of the sphere's median radius within 35 %,
+    with its device and host seconds."""
+    import torch
+
+    from drawingspinup_torch.pipelines import stage2_export as ex
+
+    device_parts = ("bbox", "band_eval", "smooth_pack", "grid_eval")
+    host_parts = ("carve_smooth", "march", "remesh")
+    rows = []
+    old = os.environ.get("DSU_DEVICE_SMOOTH")
+    try:
+        for label, env in (("device-smooth", "1"),
+                           ("level (DSU_DEVICE_SMOOTH=0)", "0")):
+            os.environ["DSU_DEVICE_SMOOTH"] = env
+            torch.cuda.synchronize()
+            v, f, times = ex.export_mesh(cfg, params, CHAIN_MC,
+                                         cfg.max_steps, device, front,
+                                         RECON_FACES)
+            rows.append((label, v, f, times))
+    finally:
+        if old is None:
+            os.environ.pop("DSU_DEVICE_SMOOTH", None)
+        else:
+            os.environ["DSU_DEVICE_SMOOTH"] = old
+    check(rows[0][3]["chain"] == "device_smooth"
+          and rows[1][3]["chain"] == "level",
+          f"export chains at mc{CHAIN_MC}: "
+          f"{[r[3]['chain'] for r in rows]}")
+    ev = ex.FieldEvaluator(cfg, params, cfg.max_steps, device)
+    times = {}
+    level, vmin, vmax = ex.isosurface_level(ev, CHAIN_MC, cfg.radius,
+                                            sparse=False, times=times)
+    v, f = ex.isosurface_from_level(level, vmin, vmax, CHAIN_MC, front,
+                                    RECON_FACES, times=times)
+    rows.append(("level, dense grid", v, f, times))
+    out = []
+    for label, v, f, times in rows:
+        radius = float(np.median(np.linalg.norm(v, axis=1)))
+        check(len(f) > 1000
+              and abs(radius - SPHERE_RADIUS) / SPHERE_RADIUS < 0.35,
+              f"export at mc{CHAIN_MC}, {label}: {len(v)} vertices, "
+              f"{len(f)} faces, median radius {radius:.4f} (sphere "
+              f"{SPHERE_RADIUS})")
+        dev_s = sum(times.get(k, 0.0) for k in device_parts)
+        host_s = sum(times.get(k, 0.0) for k in host_parts)
+        out.append(f"{label}: device {dev_s:.2f} s ("
+                   + ", ".join(f"{k} {times[k]:.2f}" for k in device_parts
+                               if k in times)
+                   + f"), host {host_s:.2f} s ("
+                   + ", ".join(f"{k} {times[k]:.2f}" for k in host_parts
+                               if k in times)
+                   + f"), {len(v)} vertices / {len(f)} faces, median "
+                   f"radius {radius:.4f}")
+    report(f"[13] export chains at mc{CHAIN_MC} (sphere radius "
+           f"{SPHERE_RADIUS}): " + "; ".join(out))
 
 
 # ---------------------------------------------------------------------------
@@ -2407,11 +2502,226 @@ def phase_mv(root: str, device) -> None:
            f"+ upscale + u8 {dec_ms:.1f} ms (CUDA events); {step_note}")
 
 
+def phase_isnet(root: str, device) -> None:
+    """ISNet DIS at full width with seeded weights, loaded as the mv
+    pipeline loads them (a state_dict named by DSU_ISNET_CKPT), on the side
+    views of phase 16's uid: f32 against float64 on the card, the written
+    masks against float64's, ms per view."""
+    import torch
+
+    from drawingspinup_torch.core.contract import VIEWS, UidPaths
+    from drawingspinup_torch.core.io import read_image
+    from drawingspinup_torch.models.isnet import ISNetDIS
+    from drawingspinup_torch.pipelines import stage2_mv as mv
+
+    torch.manual_seed(SEED + 600)
+    model = ISNetDIS()
+    g = torch.Generator().manual_seed(SEED + 601)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                n = m.num_features
+                m.weight.copy_(1 + 0.1 * torch.randn(n, generator=g))
+                m.bias.copy_(0.1 * torch.randn(n, generator=g))
+                m.running_mean.copy_(0.1 * torch.randn(n, generator=g))
+                m.running_var.copy_(0.5 + torch.rand(n, generator=g))
+    ckpt = os.path.join(root, "isnet_seeded.pth")
+    torch.save(model.state_dict(), ckpt)
+    paths = UidPaths(root, MV_UID)
+    sides = [v for v in VIEWS if v not in ("front", "back")]
+    imgs = [read_image(paths.mv("color", v))[..., :3] for v in sides]
+    old = os.environ.get("DSU_ISNET_CKPT")
+    os.environ["DSU_ISNET_CKPT"] = ckpt
+    try:
+        masks = [mv.background_removal(im, device=device) for im in imgs]
+        torch.cuda.synchronize()
+        ms_view = cuda_ms(lambda: mv.background_removal(imgs[0],
+                                                        device=device),
+                          reps=3)
+        net = mv.isnet_model(device)
+    finally:
+        if old is None:
+            os.environ.pop("DSU_ISNET_CKPT")
+        else:
+            os.environ["DSU_ISNET_CKPT"] = old
+    x = torch.from_numpy(np.ascontiguousarray(imgs[0])).to(device)
+    x = (x - 0.5).permute(2, 0, 1)[None]
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: net(x), reps=3)
+        net64 = copy.deepcopy(net).double()
+        rels, shares = [], []
+        for im, m in zip(imgs, masks):
+            xi = torch.from_numpy(np.ascontiguousarray(im)).to(device)
+            xi = (xi - 0.5).permute(2, 0, 1)[None]
+            d64 = net64(xi.double())[0][0, 0]
+            d32 = net(xi)[0][0, 0].double()
+            rels.append(((d32 - d64).norm() / d64.norm()).item())
+            u8 = torch.floor(torch.clamp(torch.clamp(d64, 0, 1) * 255.0
+                                         + 0.5, 0, 255)).cpu().numpy()
+            got = np.floor(np.clip(m * 255.0 + 0.5, 0, 255))
+            shares.append(float((got != u8).mean()))
+        del net64
+    check(all(np.isfinite(m).all() and m.shape == im.shape[:2]
+              for m, im in zip(masks, imgs)),
+          "ISNet masks: non-finite or of the wrong shape")
+    check(max(rels) <= ISNET_REL_L2,
+          f"ISNet f32 vs float64 on the card: relative L2 {max(rels):.3e} > "
+          f"{ISNET_REL_L2:g}")
+    check(max(shares) < MASK_SHARE,
+          f"ISNet masks differ from float64's on {max(shares):.4%} of "
+          f"pixels")
+    n_params = sum(p.numel() for p in net.parameters())
+    report(f"[16] ISNet DIS at full width ({n_params / 1e6:.1f} M parameters,"
+           f" seeded, loaded through DSU_ISNET_CKPT) on {len(sides)} side "
+           f"views of {imgs[0].shape[0]}^2: f32 vs float64 on the card "
+           f"relative L2 {max(rels):.3e} (limit {ISNET_REL_L2:g}), u8 masks "
+           f"differ on {max(shares):.4%} of pixels (limit {MASK_SHARE:.1%}), "
+           f"mask mean {np.mean([m.mean() for m in masks]):.3f}; "
+           f"background_removal {ms_view:.2f} ms a view (host to host), the "
+           f"network's forward {fwd_ms:.2f} ms (CUDA events)")
+
+
+def phase_sweep(root: str, device) -> dict:
+    """Two uids through ``run_sweep`` with ``cli/sweep.py``'s stage
+    functions, drawing to GIF; returns the kernel launches of that run and
+    the seconds per stage per uid."""
+    import torch
+
+    from drawingspinup_torch.cli import sweep as sweep_cli
+    from drawingspinup_torch.core.contract import UidPaths
+    from drawingspinup_torch.core.io import read_image, write_image
+    from drawingspinup_torch.kernels import hashgrid as hk
+    from drawingspinup_torch.kernels import pixel_rays as pr
+    from drawingspinup_torch.kernels import ric_conv as rk
+    from drawingspinup_torch.pipelines import stage2_recon
+    from drawingspinup_torch.pipelines import sweep
+    from drawingspinup_torch.utils.synthetic import make_rig_fbx, \
+        write_sphere_mv
+
+    for uid, src in zip(SWEEP_UIDS, SWEEP_DRAWINGS):
+        paths = UidPaths(root, uid)
+        rgba = read_image(UidPaths(root, src).texture)
+        write_image(paths.texture, rgba)
+        write_image(paths.texture_with_bg, rgba[..., :3] * rgba[..., 3:]
+                    + (1 - rgba[..., 3:]))
+        # the mv contract (seeded Wonder3D weights give no usable views)
+        write_sphere_mv(root, uid, size=RECON_SIZE)
+        # the rig, without the bar's OBJ: the recon stage writes the mesh
+        os.makedirs(paths.fbx_dir, exist_ok=True)
+        for action in ("rest_pose",) + ACTIONS:
+            make_rig_fbx(os.path.join(paths.fbx_dir, f"{action}.fbx"),
+                         action != "rest_pose", **STAGE3_RIG)
+    uids = os.path.join(root, "sweep_uids.json")
+    thin = os.path.join(root, "sweep_thinning.json")
+    with open(uids, "w") as f:
+        json.dump(list(SWEEP_UIDS), f)
+    with open(thin, "w") as f:
+        json.dump([SWEEP_UIDS[1]], f)
+    yaml = os.path.join(REPO, LAMA_YAML)
+    fns = sweep_cli.stage_functions(
+        root, str(device),
+        predict_args=[yaml, f"pretrained.path="
+                      f"{os.path.join(root, 'lama_seeded.pth')}",
+                      "--size", str(DRAWING_SIZE), "--batch-size", "1"],
+        recon_overrides=[*RECON_OVERRIDES,
+                         f"dataset.thinning_uid_list_file={thin}"],
+        train_args=[["--max-batches", str(n), "--seed", str(SEED)]
+                    for n in TRAIN_BATCHES],
+        allow_degraded=True)
+    log = os.path.join(root, "sweep_log.jsonl")
+    rk.LAUNCHES = rk.BWD_LAUNCHES = 0
+    hk.FWD_LAUNCHES = hk.FWD_JAC_LAUNCHES = hk.BWD_LAUNCHES = 0
+    hk.GATHER_LAUNCHES = pr.LAUNCHES = 0
+    t0 = time.time()
+    with contextlib.redirect_stdout(sys.stderr):
+        # no resume on this first run: train_style's eval writes the
+        # res_stage frames by which a resumed sweep counts test_style done
+        result = sweep.run_sweep(root, uids,
+                                 {s: fns[s] for s in SWEEP_STAGES},
+                                 resume=False, log_path=log)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {"ric_conv_fwd": rk.LAUNCHES, "ric_conv_bwd": rk.BWD_LAUNCHES,
+                "hashgrid_fwd": hk.FWD_LAUNCHES + hk.FWD_JAC_LAUNCHES,
+                "hashgrid_bwd": hk.BWD_LAUNCHES,
+                "pixel_rays": pr.LAUNCHES, "row_gather": hk.GATHER_LAUNCHES}
+    with open(log) as f:
+        records = [json.loads(line) for line in f]
+    failed = [r for r in records if r["stage"] == "FAILED"]
+    check(not failed and result["ok"] == list(SWEEP_UIDS),
+          f"sweep: {result}; failures: "
+          f"{[(r['uid'], r['error'], r['traceback'][-600:]) for r in failed]}")
+    done = [r["uid"] for r in records if r["stage"] == "done"]
+    check(done == list(SWEEP_UIDS), f"sweep: done records {done}")
+    order = [(r["uid"], r["stage"]) for r in records
+             if r["stage"] != "done"]
+    check(order == [(u, s) for s in SWEEP_STAGES for u in SWEEP_UIDS],
+          f"sweep: not stage-major: {order}")
+    n_frames = len(ACTIONS) * FRAMES_PER_ACTION + 1
+    steps = recon_config().max_steps
+    n = len(SWEEP_UIDS)
+    want_fwd = n * (FWD_PER_STEP * TRAIN_BATCHES[0]
+                    + RIC_PER_FRAME * 2 * n_frames)
+    check(launches["ric_conv_fwd"] == want_fwd
+          and launches["ric_conv_bwd"] == n * BWD_PER_STEP * TRAIN_BATCHES[0]
+          and launches["pixel_rays"] == n * steps
+          and launches["hashgrid_bwd"] == n * steps
+          and hk.FWD_JAC_LAUNCHES == n * steps
+          and hk.FWD_LAUNCHES > n * steps
+          and launches["row_gather"] == 0,
+          f"sweep launches {launches} (encode without the jacobian "
+          f"{hk.FWD_LAUNCHES}); expected RIC forward {want_fwd}, backward "
+          f"{n * BWD_PER_STEP * TRAIN_BATCHES[0]}, per recon step one pixel "
+          f"rays, one table gradient, one encode with and one without the "
+          f"jacobian, plus the export's encodes, no row gather")
+    names = [stage2_recon.export_name(steps, RECON_MC, RECON_FACES, True,
+                                      True, thinned, True, True) + ".obj"
+             for thinned in (False, True)]
+    for uid, name in zip(SWEEP_UIDS, names):
+        paths = UidPaths(root, uid)
+        for stage in SWEEP_STAGES:
+            check(sweep.stage_done(paths, stage),
+                  f"sweep: {uid} has no {stage} outputs")
+        objs = sorted(f for f in os.listdir(paths.mesh_dir)
+                      if f.endswith(".obj"))
+        check(objs == [name], f"sweep: {uid}'s meshes {objs}, expected "
+                              f"{name}")
+        for action in ACTIONS + ("rest_pose",):
+            check(os.path.exists(paths.gif(action)),
+                  f"sweep: no {paths.gif(action)}")
+    # a resumed sweep runs no stage
+    calls = []
+    again = sweep.run_sweep(root, uids, {
+        s: (lambda uid, s=s: calls.append((uid, s))) for s in SWEEP_STAGES},
+        log_path=os.path.join(root, "sweep_resume.jsonl"))
+    check(not calls and again["ok"] == list(SWEEP_UIDS),
+          f"resumed sweep ran {calls}")
+    secs = {(r["uid"], r["stage"]): r["seconds"] for r in records
+            if r["stage"] in SWEEP_STAGES}
+    table = "; ".join(
+        f"{uid}: " + ", ".join(f"{s} {secs[uid, s]:.1f}"
+                               for s in SWEEP_STAGES)
+        + f" (total {sum(secs[uid, s] for s in SWEEP_STAGES):.1f})"
+        for uid in SWEEP_UIDS)
+    degraded = sorted({c for r in records
+                       for c in r.get("degraded_weights", [])})
+    report(f"[17] sweep (cli/sweep.py's stage functions, stage-major) of "
+           f"{n} uids, {', '.join(SWEEP_STAGES)}: both done, no failure, "
+           f"{SWEEP_UIDS[1]} thinned (its OBJ {names[1]}); a resumed sweep "
+           f"ran no stage; kernel launches "
+           + ", ".join(f"{k} {v}" for k, v in launches.items())
+           + f"; seconds per stage per uid: {table}; wall {wall:.1f} s; "
+           f"degraded weights logged: {degraded}")
+    return {"launches": launches, "seconds": secs}
+
+
 def kernels_line(per_shape, serving_launches, train_shapes, fwd_launches,
                  bwd_launches, hg_uniform, hg_rays, gather, gather_main,
-                 pixel, recon_launches) -> dict:
+                 pixel, recon_launches, sweep_launches) -> dict:
     """The ``kernels`` JSON object from the phases' results: per kernel its
-    launches on the main paths, error, times, bound and yardstick; the hash
+    launches on the main paths (``launches``: the stage-3 training path for
+    the RIC kernels, the recon CLI for the rest; ``launches_sweep``: phase
+    17's sweep of two uids), error, times, bound and yardstick; the hash
     grid's at the production step on its own ray-ordered points, the
     uniform points' beside; the row gather, which the recon step no longer
     launches, inside the pixel-ray kernel's entry that took its place."""
@@ -2453,7 +2763,7 @@ def kernels_line(per_shape, serving_launches, train_shapes, fwd_launches,
                       for k in ("enc", "jac")])
     hg_bwd_bound = bound([(1, *prod["bwd_work"], F32_FLOPS)])
     gather_bound = bound([(1, gather[-1][3], 0, F32_FLOPS)])
-    return {"kernels": [{
+    line = {"kernels": [{
         "name": "ric_conv_fwd", "route": "cuda", "source": RIC_SOURCE,
         "replaces": RIC_REPLACES, "launches": fwd_launches,
         "max_abs_err": max(max(r["err"] for r in per_shape),
@@ -2581,6 +2891,9 @@ def kernels_line(per_shape, serving_launches, train_shapes, fwd_launches,
         "library_device_ms_main_path": gather_main["library_device_ms"],
         "bound_ms_main_path": gather_main["bound_ms"],
     }]}
+    for k in line["kernels"]:
+        k["launches_sweep"] = sweep_launches[k["name"]]
+    return line
 
 
 def main() -> int:
@@ -2599,6 +2912,7 @@ def main() -> int:
     from drawingspinup_torch.kernels import ric_conv as rk
 
     device = device_setup.setup("cuda")
+    t_start = time.time()
     phase_versions()
     phase_build()
     per_shape = phase_kernel_vs_plain(device)
@@ -2620,10 +2934,15 @@ def main() -> int:
         phase_renders(root, device)
         phase_stage1(root, device)
         phase_mv(root, device)
+        phase_isnet(root, device)
+        sweep_run = phase_sweep(root, device)
 
+    report(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} s "
+           f"(the builds included)")
     print(json.dumps(kernels_line(
         per_shape, serving_launches, train_shapes, fwd_launches, bwd_launches,
-        hg_uniform, hg_rays, gather, gather_main, pixel, recon_launches)))
+        hg_uniform, hg_rays, gather, gather_main, pixel, recon_launches,
+        sweep_run["launches"])))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

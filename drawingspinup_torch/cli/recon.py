@@ -2,9 +2,10 @@
 
 ``python -m drawingspinup_torch.cli.recon --uid <uid> --root <root>
 [--config path.yaml] [--device cuda|cpu] [key=value ...]``; with no
-``--uid`` it runs the uid list in sequence, thinning for the uids of the
-thinning list (not ported yet: such a uid raises). The flags and overrides
-of ``drawingspinup_tpu/cli/recon.py``, without ``--prewarm``.
+``--uid`` it runs the uid list in sequence. A uid on the thinning list
+(``dataset.thinning_uid_list_file``) is exported with its thin parts
+flattened (``export.thinning``, ``export.thinning_type``). The flags and
+overrides of ``drawingspinup_tpu/cli/recon.py``, without ``--prewarm``.
 """
 from __future__ import annotations
 
@@ -50,6 +51,7 @@ def main(argv=None) -> int:
             mc_resolution=iso.get("resolution", 512),
             face_count=geo.get("face_count", 50000),
             thinning=bool(exp.get("thinning", True)) and uid in thinning_uids,
+            thinning_type=exp.get("thinning_type", "double"),
             smoothing=exp.get("smoothing", True),
             shearing=exp.get("shearing", True),
             color_back_projection=exp.get("color_back_projection", True),

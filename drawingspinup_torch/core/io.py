@@ -73,13 +73,26 @@ def write_gif(path: str, frames: Sequence[np.ndarray], duration_ms: int = 30,
 
 
 def write_obj(path: str, vertices: np.ndarray, faces: np.ndarray,
-              vertex_colors: Optional[np.ndarray] = None) -> None:
+              vertex_colors: Optional[np.ndarray] = None,
+              uvs: Optional[np.ndarray] = None,
+              texture_png: Optional[np.ndarray] = None) -> None:
     """OBJ export: vertices (V,3) f32, faces (F,3) 0-based, optional
-    per-vertex colors (V,3) in [0,1] as ``v x y z r g b``."""
+    per-vertex colors (V,3) in [0,1] as ``v x y z r g b``, optional
+    per-vertex uvs (V,2) with a texture image written beside the OBJ and a
+    minimal .mtl."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     v = np.asarray(vertices, np.float32)
     f = np.asarray(faces, np.int64) + 1
     lines: List[str] = []
+    if uvs is not None and texture_png is not None:
+        mtl_path = os.path.splitext(path)[0] + ".mtl"
+        tex_path = os.path.splitext(path)[0] + ".png"
+        write_image(tex_path, texture_png)
+        with open(mtl_path, "w") as m:
+            m.write("newmtl material_0\nKd 1 1 1\nmap_Kd "
+                    + os.path.basename(tex_path) + "\n")
+        lines.append(f"mtllib {os.path.basename(mtl_path)}")
+        lines.append("usemtl material_0")
     if vertex_colors is not None:
         c = np.clip(np.asarray(vertex_colors, np.float32), 0, 1)
         for p, col in zip(v, c):
@@ -88,8 +101,15 @@ def write_obj(path: str, vertices: np.ndarray, faces: np.ndarray,
     else:
         for p in v:
             lines.append(f"v {p[0]:.6f} {p[1]:.6f} {p[2]:.6f}")
-    for tri in f:
-        lines.append(f"f {tri[0]} {tri[1]} {tri[2]}")
+    if uvs is not None:
+        for t in np.asarray(uvs, np.float32):
+            lines.append(f"vt {t[0]:.6f} {t[1]:.6f}")
+        for tri in f:
+            lines.append(f"f {tri[0]}/{tri[0]} {tri[1]}/{tri[1]} "
+                         f"{tri[2]}/{tri[2]}")
+    else:
+        for tri in f:
+            lines.append(f"f {tri[0]} {tri[1]} {tri[2]}")
     with open(path, "w") as fh:
         fh.write("\n".join(lines) + "\n")
 

@@ -1,6 +1,6 @@
 """ctypes bindings to the repo's native C++ code (``native/*.cc`` at the
 root of the checkout): quadric decimation, z-buffer rasterization, ±z
-raycasts, marching tetrahedra on a u8 field and Telea inpainting.
+raycasts, marching tetrahedra on a u8 or f32 field and Telea inpainting.
 
 A copy of ``drawingspinup_tpu/native/__init__.py`` trimmed to what the
 port runs. At first use it compiles ``native/decimate.cc``,
@@ -80,6 +80,9 @@ def _load() -> ctypes.CDLL:
             lib.dsu_march_tets_run_u8.argtypes = [_u8p, ci, ctypes.c_float,
                                                   _i64p, _i64p]
             lib.dsu_march_tets_run_u8.restype = ctypes.c_int64
+            lib.dsu_march_tets_run.argtypes = [_f32p, ci, ctypes.c_float,
+                                               _i64p, _i64p]
+            lib.dsu_march_tets_run.restype = ctypes.c_int64
             lib.dsu_march_tets_fetch.argtypes = [ctypes.c_int64, _f32p, _i32p]
             lib.dsu_march_tets_fetch.restype = None
             lib.dsu_telea_inpaint.argtypes = [_f32p, _u8p, ci, ci, ci, ci]
@@ -143,17 +146,23 @@ def raycast_z(verts: np.ndarray, faces: np.ndarray, queries: np.ndarray,
 
 
 def march_tets(field: np.ndarray, level: float):
-    """Marching tetrahedra over an (N,N,N) uint8 field at ``level`` (in u8
-    units) → (verts (V,3) f32 index coords, faces (F,3) int64)."""
+    """Marching tetrahedra over an (N,N,N) uint8 field (``level`` in u8
+    units) or float32 field → (verts (V,3) f32 index coords, faces (F,3)
+    int64)."""
     lib = _load()
     n = field.shape[0]
-    if field.shape != (n, n, n) or field.dtype != np.uint8:
-        raise ValueError(f"march_tets: need a cubic uint8 field, got "
-                         f"{field.dtype} {field.shape}")
+    if field.shape != (n, n, n) or field.dtype not in (np.uint8,
+                                                       np.float32):
+        raise ValueError(f"march_tets: need a cubic uint8 or float32 field, "
+                         f"got {field.dtype} {field.shape}")
     f = np.ascontiguousarray(field)
     nv, nf = ctypes.c_int64(0), ctypes.c_int64(0)
-    h = lib.dsu_march_tets_run_u8(_ptr(f, _u8p), n, ctypes.c_float(level),
-                                  ctypes.byref(nv), ctypes.byref(nf))
+    if f.dtype == np.uint8:
+        h = lib.dsu_march_tets_run_u8(_ptr(f, _u8p), n, ctypes.c_float(level),
+                                      ctypes.byref(nv), ctypes.byref(nf))
+    else:
+        h = lib.dsu_march_tets_run(_ptr(f, _f32p), n, ctypes.c_float(level),
+                                   ctypes.byref(nv), ctypes.byref(nf))
     verts = np.empty((nv.value, 3), np.float32)
     faces = np.empty((nf.value, 3), np.int32)
     lib.dsu_march_tets_fetch(h, _ptr(verts, _f32p), _ptr(faces, _i32p))

@@ -1,8 +1,10 @@
-"""Stage-2b export: trained SDF → carved, smoothed u8 occupancy on the device
-→ marching tetrahedra → quadric remesh (counterpart of the production
-export of ``drawingspinup_tpu/pipelines/stage2_recon.py``:
-``isosurface_device`` :573, ``isosurface_from_smoothed`` :588).
+"""Stage-2b export: trained SDF → occupancy → marching tetrahedra → quadric
+remesh, by one of the two chains of
+``drawingspinup_tpu/pipelines/stage2_recon.py``, chosen as ``recon_uid``
+chooses there (``use_device_smooth``).
 
+Device-smooth chain (``isosurface_device`` :573, ``isosurface_from_smoothed``
+:588), for R ≥ 256 with R % 4 == 0 unless ``DSU_DEVICE_SMOOTH`` is ""/"0":
   1. ``bbox_pass``: the SDF on a coarse (R/4+1)³ grid over the AABB; the
      gaussian-smoothed negative region + 10 % margin is the fine grid's
      extent (scipy on the host, as JAX).
@@ -16,13 +18,28 @@ export of ``drawingspinup_tpu/pipelines/stage2_recon.py``:
   3. ``isosurface_from_smoothed``: the native extractor on the u8 field at
      0.5, vertices to world coordinates, remesh to ``face_count``.
 
-Field values go through bf16 on their way to the grid, as JAX's export
-evaluator rounds them. Every R % 4 == 0 takes this path, at 64 as at 512.
+Level chain (``isosurface_level`` :608, ``isosurface_from_level`` :627),
+every other case:
+  1. ``bbox_pass(use_blocks=False)``: the same bounds from a coarse grid
+     spaced as ``np.linspace``, (R/4+1)³ where the fine grid is sparse,
+     else min(R, 128)³;
+  2. the SDF on the R³ grid over that extent on the device: dense
+     (``dense_grid``) below R = 256 or where R % 4 ≠ 0, else band-sparse
+     as step 2 above with the values kept (``sparse_level``, which is how
+     ``DSU_DEVICE_SMOOTH=0`` runs at R ≥ 256);
+  3. ``isosurface_from_level`` on the host: front-mask carve (PIL bicubic),
+     ``smooth_binary`` (scipy's gaussian), the native extractor on the f32
+     field at 0.5, remesh.
+
+Every field evaluation runs through ``FieldEvaluator`` (the hash-grid
+encode kernel on the card) at the export's band state, and its values go
+through bf16, as JAX's export evaluators round them.
 """
 from __future__ import annotations
 
+import os
 import time
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,7 +48,9 @@ import torch.nn.functional as F
 from drawingspinup_torch.models.fields import sdf_forward
 from drawingspinup_torch.models.hashgrid import progressive_mask
 from drawingspinup_torch.render import mesh_post
-from drawingspinup_torch.render.marching import marching_tetrahedra
+from drawingspinup_torch.render.marching import (
+    marching_tetrahedra, smooth_binary,
+)
 
 BLOCK = 4
 BAND_CELLS = 2.0
@@ -75,6 +94,29 @@ class FieldEvaluator:
                           dim=-1).reshape(-1, 3)
         return self(self._points(idx, vmin, vmax, res)).reshape(res, res, res)
 
+    def dense_grid(self, vmin: np.ndarray, vmax: np.ndarray, res: int
+                   ) -> torch.Tensor:
+        """(res, res, res) values on the slab grid of JAX's
+        ``eval_sdf_grid``: x at ``np.linspace(vmin[0], vmax[0], res)`` in
+        f32, y and z at ``jnp.linspace``'s start·(1 − t) + stop·t."""
+        dev = self.device
+        xs = torch.from_numpy(np.linspace(vmin[0], vmax[0], res,
+                                          dtype=np.float32)).to(dev)
+        t = torch.arange(res, device=dev, dtype=torch.float32) / (res - 1)
+        lin = [float(vmin[k]) * (1 - t) + float(vmax[k]) * t
+               for k in (1, 2)]
+        ys, zs = torch.meshgrid(lin[0], lin[1], indexing="ij")
+        plane = torch.stack([torch.zeros_like(ys), ys, zs],
+                            dim=-1).reshape(-1, 3)
+        per = max(1, EVAL_CHUNK // plane.shape[0])
+        out = []
+        for i in range(0, res, per):
+            x = xs[i:i + per]
+            pts = plane.repeat(len(x), 1)
+            pts[:, 0] = x.repeat_interleave(plane.shape[0])
+            out.append(self(pts))
+        return torch.cat(out).reshape(res, res, res)
+
     def _points(self, idx: torch.Tensor, vmin, vmax, res: int):
         inv_denom = torch.tensor(np.float32(1.0 / (res - 1)),
                                  device=self.device)
@@ -94,16 +136,20 @@ class FieldEvaluator:
         return self(self._points(idx, vmin, vmax, res)).reshape(-1, b ** 3)
 
 
-def bbox_pass(ev: FieldEvaluator, resolution: int, radius: float
+def bbox_pass(ev: FieldEvaluator, resolution: int, radius: float,
+              sparse: bool = True, use_blocks: bool = True
               ) -> Tuple[np.ndarray, np.ndarray]:
-    """Fine-grid extent: the smoothed negative region of a coarse
-    (R/4+1)³ grid over the AABB, + 10 % margin."""
+    """Fine-grid extent: the smoothed negative region of a coarse grid over
+    the AABB, + 10 % margin. The grid is (R/4+1)³ when ``sparse``, else
+    min(R, 128)³, spaced as the fine blocks (``use_blocks``) or as the
+    slabs."""
     from scipy.ndimage import gaussian_filter
 
-    coarse_res = resolution // 4 + 1
     lo = np.array([-radius] * 3, np.float32)
     hi = np.array([radius] * 3, np.float32)
-    level = ev.grid(lo, hi, coarse_res).cpu().numpy()
+    coarse_res = resolution // 4 + 1 if sparse else min(resolution, 128)
+    level = (ev.grid if use_blocks else ev.dense_grid)(lo, hi, coarse_res)
+    level = level.cpu().numpy()
     neg = np.argwhere(gaussian_filter((level <= 0).astype(np.float32),
                                       1.0) > 0.5)
     if len(neg) == 0:
@@ -250,21 +296,109 @@ def isosurface_from_smoothed(smoothed_u8: np.ndarray, vmin: np.ndarray,
     return verts, faces
 
 
+def use_device_smooth(resolution: int) -> bool:
+    """JAX's choice of export chain (``recon_uid``, stage2_recon.py:880):
+    device-smooth for R ≥ 256 with R % 4 == 0 unless ``DSU_DEVICE_SMOOTH``
+    is "" or "0", the level chain otherwise."""
+    return (resolution >= 256 and resolution % 4 == 0
+            and os.environ.get("DSU_DEVICE_SMOOTH", "1") not in ("", "0"))
+
+
+def sparse_level(ev: FieldEvaluator, vmin: np.ndarray, vmax: np.ndarray,
+                 resolution: int) -> torch.Tensor:
+    """The SDF on the R³ grid from a coarse (R/4+1)³ slab grid and the band
+    blocks at full resolution, the other blocks filled from their cell's
+    low corner (only the sign matters there): JAX's
+    ``eval_sdf_grid_sparse``."""
+    R, b = resolution, BLOCK
+    if R % b:
+        raise ValueError(f"export resolution {R} is not a multiple of {b}")
+    nb = R // b
+    coarse = ev.dense_grid(vmin, vmax, nb + 1)
+    ids = band_blocks(coarse, vmin, vmax)
+    grid = coarse[:-1, :-1, :-1, None, None, None].expand(
+        nb, nb, nb, b, b, b).clone()
+    if len(ids):
+        grid[ids[:, 0], ids[:, 1], ids[:, 2]] = \
+            ev.blocks(ids, vmin, vmax, R).reshape(-1, b, b, b)
+    return grid.permute(0, 3, 1, 4, 2, 5).reshape(R, R, R)
+
+
+def isosurface_level(ev: FieldEvaluator, resolution: int, radius: float,
+                     sparse: Optional[bool] = None,
+                     times: Optional[Dict[str, float]] = None
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The level chain's device half: bbox, then the SDF on the R³ grid,
+    band-sparse where R ≥ 256 and R % 4 == 0 unless ``sparse`` says →
+    (level (R, R, R) f32 on the host, vmin, vmax)."""
+    if sparse is None:
+        sparse = resolution >= 256 and resolution % BLOCK == 0
+    t0 = time.time()
+    vmin, vmax = bbox_pass(ev, resolution, radius, sparse, use_blocks=False)
+    t1 = time.time()
+    level = sparse_level(ev, vmin, vmax, resolution) if sparse \
+        else ev.dense_grid(vmin, vmax, resolution)
+    level = level.cpu().numpy()
+    if times is not None:
+        times["bbox"] = t1 - t0
+        times["grid_eval"] = time.time() - t1
+    return level, vmin, vmax
+
+
+def isosurface_from_level(level: np.ndarray, vmin: np.ndarray,
+                          vmax: np.ndarray, resolution: int,
+                          front_mask: Optional[np.ndarray] = None,
+                          face_count: int = 50000, remeshing: bool = True,
+                          times: Optional[Dict[str, float]] = None
+                          ) -> Tuple[np.ndarray, np.ndarray]:
+    """The level chain's host half: front-mask carve, binary smoothing,
+    marching tetrahedra at 0.5, remesh."""
+    t0 = time.time()
+    binary = level <= 0
+    if front_mask is not None:
+        crop = front_crop(front_mask, vmin, vmax, resolution)
+        binary = binary & (crop[:, None, :] > 127)
+    smoothed = smooth_binary(binary.astype(np.float32), 1.0)
+    t1 = time.time()
+    verts, faces = marching_tetrahedra(smoothed, 0.5)
+    verts = verts / (resolution - 1)
+    verts = vmin[None, :] + verts * (vmax - vmin)[None, :]
+    t2 = time.time()
+    if remeshing and len(faces) > face_count:
+        verts, faces = mesh_post.remesh(verts, faces, face_count)
+    if times is not None:
+        times["carve_smooth"] = t1 - t0
+        times["march"] = t2 - t1
+        times["remesh"] = time.time() - t2
+    return verts, faces
+
+
 def export_mesh(cfg, params, resolution: int, step: int, device,
                 front_mask: Optional[np.ndarray] = None,
                 face_count: int = 50000
-                ) -> Tuple[np.ndarray, np.ndarray, Dict[str, float]]:
-    """bbox → band field → march → remesh; returns (verts, faces, times),
-    times holding each part's seconds and ``field_evals``, the field
+                ) -> Tuple[np.ndarray, np.ndarray, Dict[str, Any]]:
+    """The chain ``use_device_smooth`` picks, bbox to remesh; returns
+    (verts, faces, times), times holding each part's seconds, ``chain``
+    ("device_smooth" or "level") and ``field_evals``, the field
     evaluations it ran."""
-    times: Dict[str, float] = {}
+    times: Dict[str, Any] = {}
     ev = FieldEvaluator(cfg, params, step, device)
-    t0 = time.time()
-    vmin, vmax = bbox_pass(ev, resolution, cfg.radius)
-    times["bbox"] = time.time() - t0
-    field = smoothed_field(ev, vmin, vmax, resolution, front_mask, times)
-    field = field.cpu().numpy()
-    verts, faces = isosurface_from_smoothed(field, vmin, vmax, resolution,
-                                            face_count, times=times)
+    if use_device_smooth(resolution):
+        times["chain"] = "device_smooth"
+        t0 = time.time()
+        vmin, vmax = bbox_pass(ev, resolution, cfg.radius)
+        times["bbox"] = time.time() - t0
+        field = smoothed_field(ev, vmin, vmax, resolution, front_mask, times)
+        field = field.cpu().numpy()
+        verts, faces = isosurface_from_smoothed(field, vmin, vmax,
+                                                resolution, face_count,
+                                                times=times)
+    else:
+        times["chain"] = "level"
+        level, vmin, vmax = isosurface_level(ev, resolution, cfg.radius,
+                                             times=times)
+        verts, faces = isosurface_from_level(level, vmin, vmax, resolution,
+                                             front_mask, face_count,
+                                             times=times)
     times["field_evals"] = ev.launches
     return verts, faces, times

@@ -20,10 +20,13 @@ noise per step) come from an explicit ``torch.Generator`` or are handed in
 
 Weights: ``load_pretrained`` reads a local diffusers-layout Wonder3D
 directory (``utils/diffusers_port.py``); ``MVPipeline.init_random`` draws
-them from a seed on the device. The ISNet matte (``DSU_ISNET_CKPT``,
-``DSU_ISNET_ONNX``) is not ported and raises; without it the side-view
-masks come from the heuristic matte, reported as a degraded weight as in
-JAX.
+them from a seed on the device. The side views' masks come from ISNet DIS
+on the device (``models/isnet.py``) when ``DSU_ISNET_CKPT`` names its
+weights (a torch ``state_dict`` or an ``.npz`` of the same keys); a set
+path that does not load raises, where JAX falls back to the heuristic
+matte. Without it they come from the heuristic matte, reported as a
+degraded weight as in JAX. ``DSU_ISNET_ONNX`` raises: onnxruntime is not a
+dependency of the port.
 """
 from __future__ import annotations
 
@@ -309,26 +312,57 @@ class MVPipeline:
 # masks (mv.py:105-126)
 # ---------------------------------------------------------------------------
 
-ISNET_ITEM = "ROADMAP.md queue 1, item 6 (stage-2a leftovers)"
+ONNX_ITEM = "ROADMAP.md queue 3 (the ISNet onnx route)"
+_ISNET_CACHE: Dict[Tuple[str, str], nn.Module] = {}
+
+
+def isnet_model(device) -> Optional[nn.Module]:
+    """ISNet with the weights ``DSU_ISNET_CKPT`` names, in eval mode on
+    ``device`` (loaded once per path and device), or None when the
+    variable is unset. A path that does not load raises."""
+    path = os.environ.get("DSU_ISNET_CKPT")
+    if not path:
+        return None
+    key = (path, str(device))
+    if key not in _ISNET_CACHE:
+        from drawingspinup_torch.models.isnet import (
+            ISNetDIS, load_isnet_state,
+        )
+        if not os.path.isfile(path):
+            raise FileNotFoundError(f"DSU_ISNET_CKPT={path}: no such file")
+        if path.endswith(".npz"):
+            with np.load(path) as z:
+                state = {k: z[k] for k in z.files}
+        else:
+            state = torch.load(path, map_location="cpu")
+        model = load_isnet_state(ISNetDIS(), state)
+        _ISNET_CACHE[key] = model.to(device).eval()
+    return _ISNET_CACHE[key]
 
 
 def background_removal(img: np.ndarray, bg_color: float = 1.0,
-                       threshold: float = 0.1) -> np.ndarray:
-    """Foreground mask of a side view, (H, W) float: the heuristic
-    background-distance matte (pixels farther than ``threshold`` from the
-    background, closed twice, opened once, the largest component kept).
-    The reference's ISNet DIS matte is not ported: asking for it
-    (``DSU_ISNET_CKPT`` or ``DSU_ISNET_ONNX``) raises."""
-    for var in ("DSU_ISNET_CKPT", "DSU_ISNET_ONNX"):
-        if os.environ.get(var):
-            raise NotImplementedError(
-                f"{var} is set, but the ISNet background removal is not "
-                f"ported to drawingspinup_torch yet ({ISNET_ITEM}); unset it "
-                f"to use the heuristic matte")
+                       threshold: float = 0.1, device="cuda") -> np.ndarray:
+    """Foreground mask of a side view (H, W) float in [0, 1]: ISNet DIS on
+    ``device`` when ``DSU_ISNET_CKPT`` is set (JAX's ``isnet_predict``:
+    /255, mean 0.5, std 1, the finest side output, clipped); otherwise the
+    heuristic background-distance matte (pixels farther than ``threshold``
+    from the background, closed twice, opened once, the largest component
+    kept). ``DSU_ISNET_ONNX`` raises."""
+    model = isnet_model(device)
+    if model is not None:
+        from drawingspinup_torch.models.isnet import isnet_predict
+        x = torch.from_numpy(np.ascontiguousarray(img, np.float32))
+        return isnet_predict(model, x.to(device)).cpu().numpy()
+    if os.environ.get("DSU_ISNET_ONNX"):
+        raise NotImplementedError(
+            f"DSU_ISNET_ONNX is set, but the port runs ISNet from a torch or "
+            f"npz state_dict (DSU_ISNET_CKPT), not through onnxruntime "
+            f"({ONNX_ITEM}); unset it")
     weights_policy.report_degraded(
         "isnet",
         "side-view background removal using the heuristic "
-        "background-distance matte (the ISNet DIS matte is not ported)")
+        "background-distance matte (no ISNet weights: set DSU_ISNET_CKPT "
+        "to the torch/npz DIS checkpoint for reference-grade masks)")
     from scipy import ndimage
     dist = np.abs(img - bg_color).max(axis=-1)
     mask = dist > threshold
@@ -342,9 +376,11 @@ def background_removal(img: np.ndarray, bg_color: float = 1.0,
 
 
 def derive_masks(uid: str, colors: np.ndarray, normals: np.ndarray,
-                 drawing_mask: np.ndarray, views: List[str]) -> np.ndarray:
+                 drawing_mask: np.ndarray, views: List[str],
+                 device="cuda") -> np.ndarray:
     """Per-view masks: front = the drawing mask; back = mirrored; sides =
-    background removal on the colour (the normal for 4 reference uids)."""
+    background removal on the colour (the normal for 4 reference uids), on
+    ``device`` where ISNet runs."""
     out = []
     size = colors.shape[1]
     if drawing_mask.shape[0] != size:
@@ -358,7 +394,7 @@ def derive_masks(uid: str, colors: np.ndarray, normals: np.ndarray,
             out.append((drawing_mask[:, ::-1] > 0.5).astype(np.float32))
         else:
             src = normals[i] if uid in NORMAL_MASK_UIDS else colors[i]
-            out.append(background_removal(src))
+            out.append(background_removal(src, device=device))
     return np.stack(out)
 
 
@@ -420,7 +456,7 @@ def generate_uid(root: str, uid: str, pipe: MVPipeline,
     t3 = time.perf_counter()
     masks = derive_masks(uid, colors_u8.astype(np.float32) / 255.0,
                          normals_u8.astype(np.float32) / 255.0,
-                         drawing_mask, views)
+                         drawing_mask, views, device=dev)
     t4 = time.perf_counter()
     written = []
     for i, v in enumerate(views):

@@ -5,8 +5,9 @@
 mv/{color,normal,mask}/<view>.png → NeuS training (progressive hash-grid
 band: ``n_active = current_level(step)`` per step) → one params checkpoint
 at ``max_steps`` under ``mesh/ckpt/``, written before the export → the
-production export (``stage2_export.py``) → smoothing, color
-back-projection, shear → ``mesh/it{N}-mc{R}-f{F}[_c]_r[_s][_cbp].obj``.
+export, by the chain JAX takes at that resolution (``stage2_export.py``) →
+thinning, smoothing, color back-projection, shear →
+``mesh/it{N}-mc{R}-f{F}[_c]_r[_t][_s][_cbp].obj``.
 
 A finished uid resumes from its checkpoint and re-exports. The data part
 lives in ``stage2_data.py`` and the export in ``stage2_export.py``.
@@ -81,7 +82,8 @@ def _restore_params(state: nsr.TrainState, saved) -> None:
 
 def recon_uid(root: str, uid: str, cfg: nsr.NSRConfig, *,
               mc_resolution: int = 512, face_count: int = 50000,
-              thinning: bool = False, smoothing: bool = True,
+              thinning: bool = False, thinning_type: str = "double",
+              smoothing: bool = True,
               shearing: bool = True, color_back_projection: bool = True,
               ortho_scale: float = 1.35, front_cutting: bool = True,
               seed: int = 123456, im_size: int = 1024, log_every: int = 100,
@@ -183,7 +185,8 @@ def recon_uid(root: str, uid: str, cfg: nsr.NSRConfig, *,
     mesh_post.save_mesh(
         out_path, verts, faces, vert_colors=vert_colors,
         front_mask=drawing_mask, front_color=front_color,
-        back_color=back_color, thinning=thinning, smoothing=smoothing,
+        back_color=back_color, thinning=thinning,
+        thinning_type=thinning_type, smoothing=smoothing,
         color_back_projection=color_back_projection, shearing=shearing,
         ortho_scale=ortho_scale, export_uv=export_uv)
     times["save"] = time.time() - t0
@@ -193,13 +196,13 @@ def recon_uid(root: str, uid: str, cfg: nsr.NSRConfig, *,
                        "ckpt_s": t_ckpt, "steps": cfg.max_steps - start_step})
     phases = ", ".join(f"{k} levels {ms:.2f} ms/step"
                        for k, ms in phase_ms.items())
-    parts = "  ".join(f"{k} {times[k]:.2f}s" for k in
-                      ("bbox", "band_eval", "smooth_pack", "march", "remesh",
-                       "save"))
+    parts = "  ".join(f"{k} {v:.2f}s" for k, v in times.items()
+                      if isinstance(v, float))
     print(f"[recon {uid}] trained {cfg.max_steps} steps in {train_time:.1f}s "
           f"→ {out_path}\n"
           f"[recon {uid}] phases: data+hull {t_data:.1f}s  ckpt {t_ckpt:.1f}s"
-          f"  {parts}  ({phases or 'no training'})")
+          f"  {times['chain']} export: {parts}  "
+          f"({phases or 'no training'})")
     return out_path
 
 

@@ -1,8 +1,10 @@
 """Convert a flax ``{params, batch_stats}`` tree of the stage-3 models
 into the port's ``state_dict``, a JAX NSR state (params and optax state,
 stage 2b) into the port's params dict and moments (``nsr_params``,
-``nsr_opt_state``), and the stage-1 FFC generator's variables into its
-``state_dict`` (``ffc_params``, at the end of this module).
+``nsr_opt_state``), the stage-1 FFC generator's variables into its
+``state_dict`` (``ffc_params``), the stage-2a pipeline's params
+(``mv_params``) and ISNet's variables (``isnet_params``, at the end of this
+module).
 
 The input is nested dicts of numpy arrays (``np.asarray`` of each leaf of
 flax variables); no JAX is needed. Rules, for GeneratorJ, GeneratorJ_RIC,
@@ -260,3 +262,40 @@ def mv_params(params: Mapping[str, Any]) -> Dict[str, Dict[str, torch.Tensor]]:
     transformer's proj_in/proj_out → (out, in, 1, 1), the checkpoint's 1×1
     conv; ``scale`` → ``weight``."""
     return {part: _mv_state(part, tree) for part, tree in params.items()}
+
+
+# ---------------------------------------------------------------------------
+# ISNet (stage-2a background removal)
+# ---------------------------------------------------------------------------
+
+_ISNET_LEAF = {("conv", "kernel"): ".weight", ("conv", "bias"): ".bias",
+               ("bn", "scale"): ".weight", ("bn", "bias"): ".bias",
+               ("bn", "mean"): ".running_mean", ("bn", "var"): ".running_var"}
+
+
+def _isnet_name(path: Tuple[str, ...]) -> str:
+    """A flax ISNet leaf path → upstream's name, as JAX's
+    ``port_isnet_torch_state`` maps it (``_src_names``)."""
+    if path[-2].startswith("side"):
+        return path[-2] + {"kernel": ".weight", "bias": ".bias"}[path[-1]]
+    mod, leaf_mod = list(path[:-2]), path[-2]
+    child = leaf_mod if mod[-1] == "conv_in" else \
+        {"conv": "conv_s1", "bn": "bn_s1"}[leaf_mod]
+    return ".".join(mod + [child]) + _ISNET_LEAF[(leaf_mod, path[-1])]
+
+
+def isnet_params(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX's ISNetDIS variables (``{"params", "batch_stats"}``, numpy
+    leaves) → the port's ``ISNetDIS`` ``state_dict`` in upstream's names
+    (conv kernels HWIO → OIHW); no ``num_batches_tracked``."""
+    out: Dict[str, torch.Tensor] = {}
+    for coll in ("params", "batch_stats"):
+        for path, leaf in _leaves(variables[coll]):
+            a = np.array(leaf, np.float32)
+            if path[-1] == "kernel":
+                a = a.transpose(3, 2, 0, 1)
+            key = _isnet_name(path)
+            if key in out:
+                raise ValueError(f"duplicate converted key {key!r}")
+            out[key] = torch.from_numpy(np.ascontiguousarray(a))
+    return out

@@ -45,6 +45,8 @@ from drawingspinup_torch.render import mesh_post as tpost
 from drawingspinup_torch.utils import jax_params
 from drawingspinup_torch.utils.synthetic import write_sphere_mv
 from test_torch_nsr import configs
+from torch_native_guard import ensure_jax_native
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 YAML = "drawingspinup_tpu/configs/neus-ortho.yaml"
@@ -63,6 +65,13 @@ TINY_OVERRIDES = [
     "model.texture.mlp_network_config.n_neurons=32",
     "export.thinning=false",
 ]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native():
+    """JAX's native library, built under a lock if another worker's
+    build raced this one's."""
+    ensure_jax_native()
 
 
 @pytest.fixture(scope="module")
@@ -273,7 +282,7 @@ def test_front_crop_march_remesh_and_save_mesh_are_the_originals(
         sphere, tmp_path):
     """From a u8 sphere field: the native march (vertex for vertex), the
     front crop, the remesh, and ``save_mesh``'s OBJ bytes with and without
-    color back-projection."""
+    color back-projection, with thinning and with the UV atlas."""
     n = 48
     g = np.linspace(-1, 1, n)
     r = np.sqrt(sum(a ** 2 for a in np.meshgrid(g, g, g, indexing="ij")))
@@ -305,9 +314,18 @@ def test_front_crop_march_remesh_and_save_mesh_are_the_originals(
         jpost.save_mesh(str(tmp_path / "j.obj"), verts, rf, **kw)
         assert (tmp_path / "t.obj").read_bytes() == \
             (tmp_path / "j.obj").read_bytes()
-    for kw in ({"thinning": True}, {"export_uv": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tpost.save_mesh(str(tmp_path / "x.obj"), verts, rf, **kw)
+    # thinning and the UV atlas: every file written byte-equal
+    for i, kw in enumerate(({"front_mask": mask, "front_color": color,
+                             "thinning": True},
+                            {"vert_colors": cols, "export_uv": True,
+                             "color_back_projection": False})):
+        for d, mod in ((f"t{i}", tpost), (f"j{i}", jpost)):
+            mod.save_mesh(str(tmp_path / d / "m.obj"), verts, rf, **kw)
+        t_files = sorted((tmp_path / f"t{i}").iterdir())
+        j_files = sorted((tmp_path / f"j{i}").iterdir())
+        assert [p.name for p in t_files] == [p.name for p in j_files]
+        for a, b in zip(t_files, j_files):
+            assert a.read_bytes() == b.read_bytes(), a.name
 
 
 # ---------------------------------------------------------------------------

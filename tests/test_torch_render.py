@@ -33,8 +33,16 @@ from drawingspinup_torch.render import animation as tanim
 from drawingspinup_torch.render import fbx as tfbx
 from drawingspinup_torch.utils import synthetic
 from test_fbx_render import make_rig_fbx as j_make_rig_fbx
+from torch_native_guard import ensure_jax_native
 
 ALPHA_EDGE_SHARE = 0.005    # the smoke run's card-vs-CPU limit
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native():
+    """JAX's native library, built under a lock if another worker's
+    build raced this one's."""
+    ensure_jax_native()
 
 
 def _scene_arrays(scene):

@@ -46,6 +46,7 @@ from drawingspinup_torch.pipelines import stage1 as ts1
 from drawingspinup_torch.utils.jax_params import ffc_params
 from drawingspinup_torch.utils.synthetic import write_drawing_uid
 from test_stage1 import make_synthetic_uid
+from torch_native_guard import ensure_jax_native
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 1e-5
@@ -55,6 +56,13 @@ TINY_OVERRIDES = ["generator.ngf=8", "generator.n_downsampling=2",
                   "generator.n_blocks=1"]
 YAML = os.path.join(REPO, "drawingspinup_torch", "configs",
                     "lama-fourier.yaml")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native():
+    """JAX's native library, built under a lock if another worker's
+    build raced this one's."""
+    ensure_jax_native()
 
 
 def _nchw(x):

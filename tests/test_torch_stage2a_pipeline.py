@@ -268,11 +268,16 @@ def test_mv_cli_matches_jax_generate_uid(tiny, tmp_path, monkeypatch):
 
 
 def test_isnet_requests_raise(monkeypatch):
+    """The heuristic matte without ISNet; a ``DSU_ISNET_CKPT`` that does
+    not load and any ``DSU_ISNET_ONNX`` raise (the matte that loads is
+    held to JAX's in ``tests/test_torch_isnet.py``)."""
     img = np.ones((16, 16, 3), np.float32)
     img[4:12, 4:12] = 0.2
     assert tmv.background_removal(img)[8, 8] == 1.0
-    for var in ("DSU_ISNET_CKPT", "DSU_ISNET_ONNX"):
-        monkeypatch.setenv(var, "/nonexistent/isnet")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tmv.background_removal(img)
-        monkeypatch.delenv(var)
+    monkeypatch.setenv("DSU_ISNET_CKPT", "/nonexistent/isnet.pth")
+    with pytest.raises(FileNotFoundError, match="DSU_ISNET_CKPT"):
+        tmv.background_removal(img, device="cpu")
+    monkeypatch.delenv("DSU_ISNET_CKPT")
+    monkeypatch.setenv("DSU_ISNET_ONNX", "/nonexistent/isnet.onnx")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tmv.background_removal(img, device="cpu")
