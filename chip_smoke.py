@@ -19,8 +19,9 @@ mc512. Then the stage-3 renders of a rig of production size, stage 1
 configs/lama-fourier.yaml, seeded weights) on eight 512² drawings, and
 stage 2a (the mv CLI, the Wonder3D MV-UNet, SD VAE and CLIP ViT-L/14 at
 full width, seeded weights, 75 DDIM steps, and the ISNet matte) on one of
-stage 1's outputs, and last the batch sweep drawing → GIF over two uids.
-Phases:
+stage 1's outputs, the batch sweep drawing → GIF over two uids, and last
+stage-1 training (train_lama on BiCar renders at full width) and stage 1
+with the lama-regular.yaml generator. Phases:
 
   1. versions, and the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels (RIC conv forward and backward, hash-grid encode
@@ -134,7 +135,10 @@ Phases:
      distance beside), the thresholded contour masks differing on < 0.1 %
      of pixels; ms per drawing at batch 1 and 8 (CUDA events), cuFFT's
      share of the device time (torch.profiler), threshold + Telea host
-     seconds per drawing and the CLI's wall seconds per uid;
+     seconds per drawing and the CLI's wall seconds per uid; the cost of
+     the reflect pads' one path: ms per drawing at batch 8, device busy
+     and launches per forward with models/ffc.py's reflect_pad2d and with
+     PyTorch's reflection pad in its place, in one call;
  16. stage 2a: the mv CLI at full width (UNet 320/640/1280/1280 with joint
      mid attention, SD VAE, CLIP ViT-L/14; 256² input, 12 images of 32²
      latents, 75 DDIM steps in bf16, eta 1, 1024² output), seeded weights,
@@ -165,7 +169,31 @@ Phases:
      thinning uid's OBJ under the reference's thinning name, each kernel's
      launches over the sweep as the stages' counts predict (the kernels
      line's ``launches_sweep``), a resumed sweep running no stage; the
-     seconds per stage per uid.
+     seconds per stage per uid;
+ 18. stage-1 training: render/bicar.py renders 8 coloured OBJs (bars and
+     spheres from utils/synthetic.py), then cli/train_lama.py trains LaMa's
+     FFC ResNet at LamaTrainConfig's full width (ngf 64, 3 downsamplings,
+     9 blocks) for 12 steps at batch 8 on 512² crops of 572² loads: every
+     loss finite, the mean BCE of the last 5 steps below the first 5's;
+     two runs of 2 steps from one seed bit-identical (and, reported only,
+     how many tensors differ with PyTorch's reflection pad in place of
+     reflect_pad2d); one f32 step on 2
+     crops against the same step in float64 on the card (losses within
+     relative 1e-4, every gradient within relative L2 1e-2; the
+     transposed convolutions' biases, whose exact gradient is 0 under a
+     train-mode batch norm, reported apart); the saved step_12.pt loaded
+     strictly by the predict CLI on phase 15's drawings; ms per step (host
+     clock, the first step excluded), data seconds per batch, device busy
+     and launches per step (torch.profiler) and TFLOP/s from the counted
+     convolution FLOPs (3 × the forward's);
+ 19. stage 1 with lama-regular.yaml: the predict CLI with pix2pixHD's
+     GlobalGenerator at the yaml's width (ngf 64, 3 downsamplings, 9
+     blocks, BN, 4 → 1 sigmoid), seeded weights under the reference's
+     names loaded through pretrained.path, on phase 15's 8 drawings: every
+     output written with the input's alpha; f32 logits within relative L2
+     1e-4 of float64 on the card, thresholded masks differing on < 0.1 %
+     of pixels; ms per drawing at batch 8. Phases 18-19 launch none of
+     the hand-written kernels.
 
 Kernel times (phases 3, 6, 9, 10) are medians of CUDA events around each
 call, the host's enqueueing included (``ms``, and every plain and library
@@ -237,6 +265,15 @@ SWEEP_UIDS = ("sweep0", "sweep1")
 SWEEP_DRAWINGS = ("drawing1", "drawing2")
 SWEEP_STAGES = ("stage1", "recon", "render", "train_style", "test_style",
                 "gif")
+# phase 18: LaMa training at full width; phase 19: lama-regular.yaml
+LAMA_OBJS = 8
+LAMA_STEPS = 12
+LAMA_BATCH = 8
+LAMA_SIZE = 512
+LAMA_F64_BATCH = 2          # the float64 comparison's step: 2 crops of 512²
+LAMA_PROFILE_STEPS = 2
+LAMA_LOSS_TOL = 1e-4        # the f32 step's losses vs float64
+REGULAR_YAML = "drawingspinup_torch/configs/lama-regular.yaml"
 UID = "smoke"
 F32_TOL = 1e-3          # phase 5: tanh outputs of 21 reordered-sum layers
 REL_TOL = 1e-4          # phase 3: f32 sums of up to 9·C products, reordered
@@ -2243,6 +2280,21 @@ def phase_stage1(root: str, device) -> None:
         xd8, xd1 = x8.to(device), x1.to(device)
         ms1 = cuda_ms(lambda: card(xd1), reps=5)
         ms8 = cuda_ms(lambda: card(xd8), reps=5) / DRAWINGS
+        # the pads' one path (reflect_pad2d, for the training step's
+        # deterministic backward) against PyTorch's reflection pad, in
+        # this call: shipped, F.pad, F.pad, shipped
+        pad_ms = {"reflect_pad2d": [], "F.pad": []}
+        for name in ("reflect_pad2d", "F.pad", "F.pad", "reflect_pad2d"):
+            with (torch_reflect_pads() if name == "F.pad"
+                  else contextlib.nullcontext()):
+                pad_ms[name].append(cuda_ms(lambda: card(xd8), reps=5)
+                                    / DRAWINGS)
+        pad_prof = {}
+        for name in pad_ms:
+            with (torch_reflect_pads() if name == "F.pad"
+                  else contextlib.nullcontext()):
+                pad_prof[name] = device_profile(
+                    lambda: card(xd8), 2, os.path.join(root, "stage1_trace"))
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -2277,6 +2329,11 @@ def phase_stage1(root: str, device) -> None:
                 f"(torch.fft's ops) {fft:.2f} ms ({fft / busy:.1%}); top "
                 f"kernels: {top}") if busy > 0 else \
         "cuFFT share not measured (the profiler saw no device time)"
+    pad_note = "; ".join(
+        f"{n} {np.mean(v):.2f} ms per drawing at batch {DRAWINGS} "
+        f"({', '.join(f'{t:.2f}' for t in v)}), device busy "
+        f"{pad_prof[n][0]:.2f} ms and {pad_prof[n][1]:.0f} launches a "
+        f"forward" for n, v in pad_ms.items())
     p_np = probs.permute(0, 2, 3, 1).float().cpu().numpy()
     t0 = time.time()
     for (rgb, alpha), prob in zip(inputs, p_np):
@@ -2295,7 +2352,8 @@ def phase_stage1(root: str, device) -> None:
            f"{flops / ms8 / 1e9:.1f} TFLOP/s at batch {DRAWINGS}; not the "
            f"port's setting: cuDNN autotuned among its deterministic "
            f"algorithms {tuned8[0]:.2f}, among all {tuned8[1]:.2f}); "
-           f"{fft_note}; threshold + Telea "
+           f"{fft_note}; the reflect pads, in this call: {pad_note}; "
+           f"threshold + Telea "
            f"{telea_s:.3f} host s per drawing; CLI wall {cli_s:.2f} s per "
            f"uid (checkpoint load and first-call set-up included); CPU "
            f"float64 forward {t64:.1f} s")
@@ -2629,9 +2687,7 @@ def phase_sweep(root: str, device) -> dict:
                     for n in TRAIN_BATCHES],
         allow_degraded=True)
     log = os.path.join(root, "sweep_log.jsonl")
-    rk.LAUNCHES = rk.BWD_LAUNCHES = 0
-    hk.FWD_LAUNCHES = hk.FWD_JAC_LAUNCHES = hk.BWD_LAUNCHES = 0
-    hk.GATHER_LAUNCHES = pr.LAUNCHES = 0
+    zero_launches()
     t0 = time.time()
     with contextlib.redirect_stdout(sys.stderr):
         # no resume on this first run: train_style's eval writes the
@@ -2713,6 +2769,325 @@ def phase_sweep(root: str, device) -> dict:
            + f"; seconds per stage per uid: {table}; wall {wall:.1f} s; "
            f"degraded weights logged: {degraded}")
     return {"launches": launches, "seconds": secs}
+
+
+def zero_launches() -> None:
+    """Every hand-written kernel's launch count set to 0."""
+    from drawingspinup_torch.kernels import hashgrid as hk
+    from drawingspinup_torch.kernels import pixel_rays as pr
+    from drawingspinup_torch.kernels import ric_conv as rk
+
+    rk.LAUNCHES = rk.BWD_LAUNCHES = 0
+    hk.FWD_LAUNCHES = hk.FWD_JAC_LAUNCHES = hk.BWD_LAUNCHES = 0
+    hk.GATHER_LAUNCHES = pr.LAUNCHES = 0
+
+
+def launches_total() -> int:
+    from drawingspinup_torch.kernels import hashgrid as hk
+    from drawingspinup_torch.kernels import pixel_rays as pr
+    from drawingspinup_torch.kernels import ric_conv as rk
+
+    return (rk.LAUNCHES + rk.BWD_LAUNCHES + hk.FWD_LAUNCHES
+            + hk.FWD_JAC_LAUNCHES + hk.BWD_LAUNCHES + hk.GATHER_LAUNCHES
+            + pr.LAUNCHES)
+
+
+def check_drawings(root: str, uids, what: str) -> None:
+    """Every drawing's ffc_resnet_inpainted.png written, alpha equal to the
+    input's."""
+    from drawingspinup_torch.core.contract import UidPaths
+    from drawingspinup_torch.core.io import read_image_u8
+
+    for u in uids:
+        p = UidPaths(root, u)
+        check(os.path.exists(p.inpainted), f"{what}: no {p.inpainted}")
+        out, tex = read_image_u8(p.inpainted), read_image_u8(p.texture)
+        check(out.shape == (DRAWING_SIZE, DRAWING_SIZE, 4)
+              and np.array_equal(out[..., 3], tex[..., 3]),
+              f"{what}: {p.inpainted}: shape {out.shape} or alpha differs "
+              f"from the input's")
+
+
+def device_profile(run, steps: int, logdir: str):
+    """(device busy ms, kernel launches) per call of ``run`` over
+    ``steps`` calls, from core/profiling.py's torch.profiler trace."""
+    import torch
+
+    from drawingspinup_torch.core import profiling
+
+    torch.cuda.synchronize()
+    with profiling.trace(logdir) as prof:
+        for _ in range(steps):
+            run()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    return busy, sum(e.count for e in kernels) / steps
+
+
+@contextlib.contextmanager
+def torch_reflect_pads():
+    """models/ffc.py's reflect pads (pix2pixHD's too) as PyTorch's own
+    ``F.pad(mode="reflect")``, whose CUDA backward adds with atomics, in
+    place of ``reflect_pad2d``: the yardstick of phases 15 and 18."""
+    import torch.nn.functional as F
+
+    from drawingspinup_torch.models import ffc
+
+    shipped = ffc.reflect_pad2d
+    ffc.reflect_pad2d = lambda x, ph, pw: F.pad(x, (pw, pw, ph, ph),
+                                                mode="reflect")
+    try:
+        yield
+    finally:
+        ffc.reflect_pad2d = shipped
+
+
+def phase_lama_train(root: str, device) -> None:
+    """BiCar renders, then the train_lama CLI at full width; losses,
+    bit-identity, f32 against float64, the saved generator in predict;
+    ms per step, data s per batch, device busy and launches, TFLOP/s."""
+    import torch
+
+    from drawingspinup_torch.cli import predict, train_lama
+    from drawingspinup_torch.core import profiling
+    from drawingspinup_torch.pipelines.stage1_data import BiCarDataset
+    from drawingspinup_torch.train import lama
+    from drawingspinup_torch.utils.synthetic import write_bicar_objs
+
+    obj_root, data, out = (os.path.join(root, d) for d in
+                           ("lama_objs", "lama_data", "lama_run"))
+    uids = write_bicar_objs(obj_root, LAMA_OBJS, SEED + 1800)
+    uid_json = os.path.join(root, "lama_uids.json")
+    with open(uid_json, "w") as f:
+        json.dump(uids, f)
+
+    # the CLI's own steps, their losses kept (read after the run)
+    logs, step_fn = [], lama.train_step
+
+    def recorded(cfg, state, batch):
+        state, step_logs = step_fn(cfg, state, batch)
+        logs.append(step_logs)
+        return state, step_logs
+
+    lama.train_step = recorded
+    profiling.reset_timings()
+    zero_launches()
+    buf = io.StringIO()
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(buf):
+            train_lama.main(["--data-root", data, "--uid-json", uid_json,
+                             "--out", out, "--steps", str(LAMA_STEPS),
+                             "--batch-size", str(LAMA_BATCH),
+                             "--size", str(LAMA_SIZE), "--render", obj_root,
+                             "--device", str(device), "--seed", str(SEED)])
+    finally:
+        lama.train_step = step_fn
+    wall = time.time() - t0
+    check(launches_total() == 0, "train_lama launched a hand-written kernel")
+    saved = json.loads(buf.getvalue().strip().splitlines()[-1])["saved"]
+    check(os.path.exists(saved), f"train_lama wrote no {saved}")
+    bce = [float(x["bce"]) for x in logs]
+    check(len(logs) == LAMA_STEPS and all(
+        math.isfinite(float(v)) for x in logs for v in x.values()),
+        f"train_lama: {len(logs)} steps, losses {logs}")
+    check(np.mean(bce[-5:]) < np.mean(bce[:5]),
+          f"train_lama: the BCE did not fall: {bce}")
+    render_s = profiling.samples("train_lama/render")[0]
+    data_s = float(np.mean(profiling.samples("train_lama/data")))
+    steps_s = profiling.samples("train_lama/step")
+    step_ms = 1e3 * float(np.mean(steps_s[1:]))
+
+    # two runs of two steps from one seed: bit-identical
+    cfg = lama.LamaTrainConfig(batch_size=LAMA_BATCH)
+    it = BiCarDataset(data, uid_json, "train", seed=SEED + 1,
+                      crop_size=LAMA_SIZE,
+                      load_size=int(LAMA_SIZE * 572 / 512)).batches(
+        LAMA_BATCH)
+    batches = [next(it) for _ in range(2)]
+
+    def two_runs():
+        """The generator tensors that differ between two runs of the
+        two steps from one seed, and the state of the last run."""
+        runs = []
+        for _ in range(2):
+            state = lama.init_state(cfg, torch.Generator().manual_seed(SEED),
+                                    size=LAMA_SIZE, device=device)
+            for b in batches:
+                state, _ = lama.train_step(cfg, state, b)
+            runs.append({k: v.clone() for k, v in
+                         state.generator.state_dict().items()})
+        return [k for k in runs[0]
+                if not torch.equal(runs[0][k], runs[1][k])], state
+
+    # the yardstick, reported only: whether F.pad's atomics reorder a sum
+    # in a given run is not fixed
+    with torch_reflect_pads():
+        fpad_differ = len(two_runs()[0])
+    differ, state = two_runs()
+    check(not differ, f"train_lama: two runs from one seed differ in "
+                      f"{len(differ)} tensors, e.g. {differ[:4]}")
+    n_tensors = len(state.generator.state_dict())
+
+    # device busy and launches per step, on the warm state
+    busy, n_launch = device_profile(
+        lambda: lama.train_step(cfg, state, batches[0]),
+        LAMA_PROFILE_STEPS, os.path.join(root, "lama_trace"))
+    x1 = lama.batch_tensors(batches[0], next(state.generator.parameters())
+                            )[0][:1]
+    flops = 3 * conv_flops(copy.deepcopy(state.generator).eval(), x1)
+
+    # one step in f32 and in float64 from one state, on LAMA_F64_BATCH crops
+    small = {k: v[:LAMA_F64_BATCH] for k, v in batches[1].items()}
+    grads, losses = [], []
+    for dtype in (torch.float32, torch.float64):
+        st = lama.init_state(cfg, torch.Generator().manual_seed(SEED + 2),
+                             size=LAMA_SIZE, device=device)
+        st.generator.to(dtype)
+        st.g_opt = lama.make_optimizer(st.generator, cfg.lr)
+        st, step_logs = lama.train_step(cfg, st, small)
+        losses.append({k: float(v) for k, v in step_logs.items()})
+        grads.append({n: p.grad.double() for n, p in
+                      st.generator.named_parameters()})
+        del st
+    layers = list(state.generator.model)
+    zero_grad = {f"model.{i}.bias" for i, m in enumerate(layers[:-1])
+                 if isinstance(m, torch.nn.ConvTranspose2d)}
+    loss_rel = max(abs(losses[0][k] - losses[1][k]) / abs(losses[1][k])
+                   for k in ("g_loss", "bce", "dice"))
+    rel = {n: float((g - grads[1][n]).norm() / grads[1][n].norm())
+           for n, g in grads[0].items() if n not in zero_grad}
+    worst = max(rel, key=rel.get)
+    check(loss_rel <= LAMA_LOSS_TOL,
+          f"train_lama f32 vs float64: losses {losses}")
+    check(rel[worst] <= GRAD_REL_TOL,
+          f"train_lama f32 vs float64: gradient {worst} relative L2 "
+          f"{rel[worst]:.3e} > {GRAD_REL_TOL:g}")
+    zero_norms = {n: (float(grads[0][n].norm()), float(grads[1][n].norm()))
+                  for n in sorted(zero_grad)}
+
+    # the trained generator, strictly loaded by the predict CLI
+    drawings = os.path.join(root, "drawing_uids.json")
+    with open(drawings) as f:
+        duids = json.load(f)
+    with contextlib.redirect_stdout(sys.stderr):
+        predict.main([os.path.join(REPO, LAMA_YAML),
+                      f"pretrained.path={saved}", f"uid_json={drawings}",
+                      "--root", root, "--device", str(device),
+                      "--batch-size", str(DRAWINGS),
+                      "--size", str(DRAWING_SIZE)])
+    check_drawings(root, duids, "predict with the trained LaMa")
+    check(launches_total() == 0, "phase 18 launched a hand-written kernel")
+    report(f"[18] stage-1 training: train_lama on {LAMA_OBJS} BiCar renders "
+           f"(render/bicar.py, {render_s:.2f} s), LamaTrainConfig at full "
+           f"width ({sum(p.numel() for p in state.generator.parameters()) / 1e6:.1f} M "
+           f"generator parameters), {LAMA_STEPS} steps at batch {LAMA_BATCH} "
+           f"of {LAMA_SIZE}^2 crops: losses finite, BCE first 5 "
+           f"{np.mean(bce[:5]):.4f} -> last 5 {np.mean(bce[-5:]):.4f} "
+           f"(per step {', '.join(f'{b:.4f}' for b in bce)}); two runs of 2 "
+           f"steps bit-identical (with PyTorch's reflection pad in place of "
+           f"reflect_pad2d, {fpad_differ} of {n_tensors} generator tensors "
+           f"differ); f32 vs float64 on the card "
+           f"({LAMA_F64_BATCH} crops): losses within {loss_rel:.2e} "
+           f"(limit {LAMA_LOSS_TOL:g}), gradients within relative L2 "
+           f"{rel[worst]:.2e} (limit {GRAD_REL_TOL:g}; worst {worst}; median "
+           f"{np.median(list(rel.values())):.2e}), the transposed convs' "
+           f"biases (exact gradient 0) |g| f32/f64 "
+           + ", ".join(f"{n} {a:.1e}/{b:.1e}"
+                       for n, (a, b) in zero_norms.items())
+           + f"; {os.path.basename(saved)} loaded strictly by predict on "
+           f"{len(duids)} drawings; {step_ms:.1f} ms per step (host clock, "
+           f"synchronised, the first step of {steps_s[0] * 1e3:.0f} ms "
+           f"excluded), data {data_s:.3f} s per batch (host), device busy "
+           f"{busy:.1f} ms and {n_launch:.0f} launches per step "
+           f"(torch.profiler), {flops * LAMA_BATCH / step_ms / 1e9:.1f} "
+           f"TFLOP/s ({flops / 1e9:.1f} GFLOP of convolutions per crop and "
+           f"step, 3 x the forward's); CLI wall {wall:.1f} s")
+
+
+def phase_lama_regular(root: str, device) -> None:
+    """The predict CLI with lama-regular.yaml (pix2pixHD's GlobalGenerator)
+    at full width on phase 15's drawings; f32 against float64 on the card;
+    ms per drawing."""
+    import torch
+
+    from drawingspinup_torch.cli import predict
+    from drawingspinup_torch.core.config import load_config
+    from drawingspinup_torch.core.contract import UidPaths
+    from drawingspinup_torch.pipelines import stage1
+
+    yaml = os.path.join(REPO, REGULAR_YAML)
+    lst = os.path.join(root, "drawing_uids.json")
+    with open(lst) as f:
+        uids = json.load(f)
+    inputs = [stage1.load_input(UidPaths(root, u), DRAWING_SIZE)
+              for u in uids]
+    x8 = torch.from_numpy(np.concatenate(
+        [np.stack([i[0] for i in inputs]), np.stack([i[1] for i in inputs])],
+        axis=-1)).permute(0, 3, 1, 2).contiguous()
+    thr = math.log(stage1.CONTOUR_THRESHOLD
+                   / (1 - stage1.CONTOUR_THRESHOLD))
+    # seeded weights, the head rescaled as in phase 15
+    model = stage1.build_generator(load_config(yaml))
+    predict.seeded_init(model, SEED + 1900)
+    model.to(device)
+    with torch.no_grad():
+        y = model.logits(x8[:1].to(device))
+        head = model.model[-1]
+        k = 2.0 / y.std()
+        head.weight.mul_(k)
+        head.bias.copy_(k * (head.bias - y.mean()) + thr)
+    ckpt = os.path.join(root, "lama_regular_seeded.pth")
+    torch.save({"state_dict": model.state_dict()}, ckpt)
+    zero_launches()
+    t0 = time.time()
+    with contextlib.redirect_stdout(sys.stderr):
+        predict.main([yaml, f"pretrained.path={ckpt}", f"uid_json={lst}",
+                      "--root", root, "--device", str(device),
+                      "--batch-size", str(DRAWINGS),
+                      "--size", str(DRAWING_SIZE)])
+    torch.cuda.synchronize()
+    cli_s = (time.time() - t0) / len(uids)
+    check(launches_total() == 0, "phase 19 launched a hand-written kernel")
+    check_drawings(root, uids, "predict with lama-regular.yaml")
+
+    cfg = load_config(yaml, [f"pretrained.path={ckpt}"])
+    card = stage1.build_generator(cfg)
+    predict.load_weights(card, cfg, SEED)
+    c64 = copy.deepcopy(card).double().to(device)
+    card.to(device)
+    x1 = x8[:1].to(device)
+    with torch.inference_mode():
+        y32 = card.logits(x1).double()
+        y64 = c64.logits(x1.double())
+    check(bool(torch.isfinite(y32).all()), "lama-regular: non-finite logits")
+    rel = ((y32 - y64).norm() / y64.norm()).item()
+    mask_off = ((y32 > thr) != (y64 > thr)).double().mean().item()
+    contour = (y64 > thr).double().mean().item()
+    check(rel <= LOGIT_REL_L2,
+          f"lama-regular logits f32 vs float64: relative L2 {rel:.3e} > "
+          f"{LOGIT_REL_L2:g}")
+    check(mask_off < MASK_SHARE,
+          f"lama-regular contour masks differ on {mask_off:.4%} of pixels")
+    del c64
+    xd8 = x8.to(device)
+    with torch.inference_mode():
+        ms8 = cuda_ms(lambda: card(xd8), reps=5) / DRAWINGS
+    flops = conv_flops(card, x1)
+    report(f"[19] stage 1 with lama-regular.yaml: predict on {len(uids)} "
+           f"drawings of {DRAWING_SIZE}^2, pix2pixHD's GlobalGenerator at "
+           f"the yaml's width ({sum(p.numel() for p in card.parameters()) / 1e6:.1f} M "
+           f"parameters, seeded, reference names, loaded through "
+           f"pretrained.path): every output written, alpha equal to the "
+           f"input's; logits f32 vs float64 on the card relative L2 "
+           f"{rel:.3e} (limit {LOGIT_REL_L2:g}), masks differ on "
+           f"{mask_off:.4%} of pixels ({contour:.1%} contour); forward "
+           f"{ms8:.2f} ms per drawing at batch {DRAWINGS} (CUDA events; "
+           f"{flops / 1e9:.1f} GFLOP a drawing, {flops / ms8 / 1e9:.1f} "
+           f"TFLOP/s); CLI wall {cli_s:.2f} s per uid")
 
 
 def kernels_line(per_shape, serving_launches, train_shapes, fwd_launches,
@@ -2936,6 +3311,8 @@ def main() -> int:
         phase_mv(root, device)
         phase_isnet(root, device)
         sweep_run = phase_sweep(root, device)
+        phase_lama_train(root, device)
+        phase_lama_regular(root, device)
 
     report(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} s "
            f"(the builds included)")

@@ -6,12 +6,17 @@
 ``drawingspinup_tpu/cli/predict.py`` (``indir``, ``uid_json``,
 ``generator.*``, ``pretrained.*``) plus ``--device`` and ``--seed``.
 
+The generator is ``generator.kind``'s: LaMa's FFC ResNet
+(``configs/lama-fourier.yaml``, the default) or pix2pixHD's
+GlobalGenerator (``configs/lama-regular.yaml``).
+
 Weights: ``pretrained.path`` (joined with ``pretrained.generator_checkpoint``
-when set) names a torch ``.ckpt``/``.pth`` holding the generator's
+when set) names a torch ``.ckpt``/``.pth``/``.pt`` holding the generator's
 ``state_dict`` (under a ``state_dict`` key, or at the top level) with
-upstream LaMa's names; it loads strictly, its BN ``num_batches_tracked``
-counters dropped. A directory (an orbax checkpoint of the JAX package)
-raises: convert it with ``utils/jax_params.py::ffc_params`` and
+upstream LaMa's names, as ``cli/train_lama.py`` writes it; it loads
+strictly, its BN ``num_batches_tracked`` counters dropped. A directory (an
+orbax checkpoint of the JAX package) raises: convert it with
+``utils/jax_params.py::ffc_params`` (or ``pix2pixhd_params``) and
 ``torch.save``. With no checkpoint the weights are drawn from ``--seed``
 (default: the config's ``seed``) by an explicit ``torch.Generator`` on the
 CPU, so every device gets the same weights.
@@ -28,7 +33,7 @@ import torch
 
 from drawingspinup_torch.core.config import Config, load_config
 from drawingspinup_torch.core.contract import load_uid_list
-from drawingspinup_torch.models.ffc import BatchNorm2d, FFCResNetGenerator
+from drawingspinup_torch.models.ffc import BatchNorm2d
 from drawingspinup_torch.pipelines import stage1
 
 DEFAULT_CFG = os.path.join(os.path.dirname(__file__), "..", "configs",
@@ -36,7 +41,7 @@ DEFAULT_CFG = os.path.join(os.path.dirname(__file__), "..", "configs",
 
 
 @torch.no_grad()
-def seeded_init(model: FFCResNetGenerator, seed: int) -> None:
+def seeded_init(model: torch.nn.Module, seed: int) -> None:
     """Normal conv and transposed-conv weights of std sqrt(2 / fan-in)
     (He), zero biases, identity batch norm, all drawn on the CPU from
     ``seed``."""
@@ -56,7 +61,7 @@ def seeded_init(model: FFCResNetGenerator, seed: int) -> None:
             m.running_var.fill_(1)
 
 
-def load_weights(model: FFCResNetGenerator, cfg: Config, seed: int) -> None:
+def load_weights(model: torch.nn.Module, cfg: Config, seed: int) -> None:
     """The configured checkpoint into ``model`` (strict), or the seeded
     init when none is configured."""
     pre = cfg.get("pretrained", Config())
@@ -65,8 +70,8 @@ def load_weights(model: FFCResNetGenerator, cfg: Config, seed: int) -> None:
     if path and os.path.isdir(path):
         raise ValueError(f"{path} is a directory (an orbax checkpoint of the "
                          "JAX package); convert it with "
-                         "drawingspinup_torch.utils.jax_params.ffc_params and "
-                         "torch.save")
+                         "drawingspinup_torch.utils.jax_params.ffc_params (or "
+                         "pix2pixhd_params) and torch.save")
     if path:
         state = torch.load(path, map_location="cpu")
         if isinstance(state, dict) and "state_dict" in state:

@@ -1,9 +1,11 @@
-"""LaMa's Fast Fourier Convolution generator (stage 1, contour removal),
-NCHW, inference only.
+"""LaMa's Fast Fourier Convolution networks (stage 1, contour removal),
+NCHW: the generator and the FFC discriminator, for inference and
+training.
 
-The port of ``drawingspinup_tpu/models/ffc.py``: FourierUnit,
-SpectralTransform (with the local Fourier unit), FFC, FFCBnAct,
-FFCResnetBlock and FFCResNetGenerator. Module and parameter names are
+The port of ``drawingspinup_tpu/models/ffc.py``: SELayer, FourierUnit,
+SpectralTransform (with the local Fourier unit), FFC (gated or not),
+FFCBnAct, FFCResnetBlock (inline or not), FFCResNetGenerator (with
+``out_ffc``) and FFCNLayerDiscriminator. Module and parameter names are
 upstream LaMa's (``saicinpainting/training/modules/ffc.py``), so a LaMa
 generator ``state_dict`` loads with ``load_state_dict(strict=True)`` once
 its ``num_batches_tracked`` counters are dropped; the JAX package's
@@ -12,14 +14,16 @@ its ``num_batches_tracked`` counters are dropped; the JAX package's
 
 A stream is the pair (local, global) of NCHW tensors; an absent stream
 is ``None``, and so is a branch whose input or output stream has no
-channels. Batch norm is the eval-mode affine map of the running
-statistics (eps 1e-5). Convolutions reflect-pad where LaMa does; the
+channels. Batch norm is flax's ``BatchNorm(momentum=0.9, epsilon=1e-5)``:
+in eval mode the affine map of the running statistics, in train mode the
+batch's mean and biased variance, with the running statistics moved by
+that same biased variance. Convolutions reflect-pad where LaMa does
+(``reflect_pad2d``, whose backward repeats bit for bit on the card); the
 upsampling is ``ConvTranspose2d(k=3, s=2, p=1, output_padding=1)``.
 
-Options that ``configs/lama-fourier.yaml`` leaves off (squeeze-excitation
-and spectral positional encoding in the Fourier unit, gated FFCs,
-``out_ffc``) raise ``NotImplementedError``; the FFC discriminator and the
-pix2pixHD generators are not ported.
+The squeeze-excitation layer keeps JAX's biases (flax ``Dense``), where
+upstream's ``Linear`` layers have none. A Fourier unit's ``fft_norm``
+other than ``ortho`` raises (JAX ignores it and runs ``ortho``).
 """
 from __future__ import annotations
 
@@ -34,11 +38,56 @@ from drawingspinup_torch.ops.fourier import irfft2_ortho, rfft2_ortho
 Stream = Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9       # flax's: running = 0.9 · running + 0.1 · batch
+
+
+class LeakyReLU(nn.Module):
+    """Leaky ReLU of slope 0.2 in ``jax.nn.leaky_relu``'s form: its
+    gradient at exactly 0 is 1 (``F.leaky_relu``'s is 0.2)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.where(x >= 0, x, 0.2 * x)
 
 
 def _act(name: str) -> nn.Module:
     return {"relu": nn.ReLU, "sigmoid": nn.Sigmoid, "tanh": nn.Tanh,
-            "identity": nn.Identity}[name]()
+            "leaky_relu_0.2": LeakyReLU, "identity": nn.Identity}[name]()
+
+
+def reflect_pad2d(x: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
+    """``F.pad(x, (pw, pw, ph, ph), mode="reflect")`` built from slices,
+    flips and concatenations: the same values, and a backward of plain
+    adds in a fixed order, so that a training step repeats bit for bit
+    (the CUDA reflection pad's backward adds with atomics)."""
+    if pw:
+        x = torch.cat([x[..., 1:pw + 1].flip(-1), x,
+                       x[..., -pw - 1:-1].flip(-1)], dim=-1)
+    if ph:
+        x = torch.cat([x[..., 1:ph + 1, :].flip(-2), x,
+                       x[..., -ph - 1:-1, :].flip(-2)], dim=-2)
+    return x
+
+
+class ReflectionPad2d(nn.Module):
+    """``nn.ReflectionPad2d(p)`` on ``reflect_pad2d``."""
+
+    def __init__(self, p: int):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return reflect_pad2d(x, self.p, self.p)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` whose ``padding_mode="reflect"`` pads with
+    ``reflect_pad2d`` (same parameters and names)."""
+
+    def _conv_forward(self, x, weight, bias):
+        if self.padding_mode != "reflect":
+            return super()._conv_forward(x, weight, bias)
+        return F.conv2d(reflect_pad2d(x, *self.padding), weight, bias,
+                        self.stride, 0, self.dilation, self.groups)
 
 
 def _stream(x: Union[torch.Tensor, Stream]) -> Stream:
@@ -46,8 +95,13 @@ def _stream(x: Union[torch.Tensor, Stream]) -> Stream:
 
 
 class BatchNorm2d(nn.Module):
-    """Eval-mode batch norm over channel dim 1 with LaMa's parameter names
-    (``weight``, ``bias``, ``running_mean``, ``running_var``)."""
+    """Batch norm over channel dim 1 with LaMa's parameter names
+    (``weight``, ``bias``, ``running_mean``, ``running_var``; no
+    ``num_batches_tracked``). In train mode it normalises by the batch's
+    mean and biased variance and moves the running statistics by that same
+    variance, as flax does; ``F.batch_norm`` would move ``running_var`` by
+    the unbiased one, so the update is written out. (flax computes the
+    variance as ``mean(x²) − mean(x)²``; the two agree to rounding.)"""
 
     def __init__(self, features: int):
         super().__init__()
@@ -57,33 +111,71 @@ class BatchNorm2d(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, False, 0.0, BN_EPS)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, BN_EPS)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            for stat, batch in ((self.running_mean, mean),
+                                (self.running_var, var)):
+                stat.copy_(BN_MOMENTUM * stat + (1 - BN_MOMENTUM) * batch)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            BN_EPS)
+
+
+class SELayer(nn.Module):
+    """Squeeze-excitation (upstream's ``squeeze_excitation.py``): global
+    average → Linear → ReLU → Linear → sigmoid, a gate per channel."""
+
+    def __init__(self, channels: int, reduction: int = 16):
+        super().__init__()
+        self.fc = nn.Sequential(nn.Linear(channels, channels // reduction),
+                                nn.ReLU(),
+                                nn.Linear(channels // reduction, channels),
+                                nn.Sigmoid())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.fc(x.mean(dim=(2, 3)))[:, :, None, None]
 
 
 class FourierUnit(nn.Module):
-    """rFFT2 → 1×1 conv + BN + ReLU over the interleaved channels
-    ``[c0_re, c0_im, c1_re, …]`` (upstream's ``stack(…, -1)`` order) →
-    irFFT2, the transforms in f32 at least."""
+    """rFFT2 → [the spectral positional encoding: a row and a column
+    coordinate in [0, 1] as two leading channels] → [squeeze-excitation] →
+    1×1 conv + BN + ReLU over the interleaved channels ``[c0_re, c0_im,
+    c1_re, …]`` (upstream's ``stack(…, -1)`` order) → irFFT2, the
+    transforms in f32 at least."""
 
     def __init__(self, in_channels: int, out_channels: int, groups: int = 1,
                  spectral_pos_encoding: bool = False, use_se: bool = False,
                  fft_norm: str = "ortho"):
         super().__init__()
-        if spectral_pos_encoding or use_se or fft_norm != "ortho":
+        if fft_norm != "ortho":
             raise NotImplementedError(
-                "FourierUnit: spectral_pos_encoding, use_se and fft_norm "
-                "other than 'ortho' are not ported")
-        self.conv_layer = nn.Conv2d(in_channels * 2, out_channels * 2, 1,
+                f"FourierUnit: fft_norm {fft_norm!r}; the port, as JAX, "
+                f"runs 'ortho' only")
+        self.spectral_pos_encoding = spectral_pos_encoding
+        cin = in_channels * 2 + (2 if spectral_pos_encoding else 0)
+        self.conv_layer = nn.Conv2d(cin, out_channels * 2, 1,
                                     groups=groups, bias=False)
         self.bn = BatchNorm2d(out_channels * 2)
         self.relu = nn.ReLU()
+        self.se = SELayer(cin) if use_se else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, c, h, w = x.shape
         re, im = rfft2_ortho(x)
         ff = torch.stack([re, im], dim=2).reshape(n, 2 * c, h, w // 2 + 1)
-        ff = self.relu(self.bn(self.conv_layer(ff.to(x.dtype))))
+        ff = ff.to(x.dtype)
+        if self.spectral_pos_encoding:
+            hh, ww = ff.shape[2:]
+            kw = dict(dtype=ff.dtype, device=ff.device)
+            rows = torch.arange(hh, **kw) / (hh - 1)
+            cols = torch.arange(ww, **kw) / (ww - 1)
+            ff = torch.cat([rows[:, None].expand(n, 1, hh, ww),
+                            cols[None, :].expand(n, 1, hh, ww), ff], dim=1)
+        if self.se is not None:
+            ff = self.se(ff)
+        ff = self.relu(self.bn(self.conv_layer(ff)))
         ff = ff.reshape(n, -1, 2, h, w // 2 + 1)
         return irfft2_ortho(ff[:, :, 0], ff[:, :, 1], (h, w)).to(x.dtype)
 
@@ -121,8 +213,10 @@ class SpectralTransform(nn.Module):
 
 
 class FFC(nn.Module):
-    """Two-stream convolution: local ← l2l(local) + g2l(global), global ←
-    l2g(local) + SpectralTransform(global)."""
+    """Two-stream convolution: local ← l2l(local) + g2l(global) · gate,
+    global ← l2g(local) · gate + SpectralTransform(global); with ``gated``
+    (and both a global input and a local output) the two gates are the
+    sigmoid of a 1×1 conv of both input streams, else 1."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  ratio_gin: float, ratio_gout: float, stride: int = 1,
@@ -131,8 +225,6 @@ class FFC(nn.Module):
                  padding_type: str = "reflect", gated: bool = False,
                  **spectral_kwargs):
         super().__init__()
-        if gated:
-            raise NotImplementedError("FFC: gated=True is not ported")
         in_cg = int(in_channels * ratio_gin)
         in_cl = in_channels - in_cg
         out_cg = int(out_channels * ratio_gout)
@@ -141,9 +233,9 @@ class FFC(nn.Module):
         def conv(cin: int, cout: int) -> Optional[nn.Conv2d]:
             if not (cin and cout):
                 return None
-            return nn.Conv2d(cin, cout, kernel_size, stride, padding,
-                             dilation, groups, bias,
-                             padding_mode=padding_type if padding else "zeros")
+            return Conv2d(cin, cout, kernel_size, stride, padding,
+                          dilation, groups, bias,
+                          padding_mode=padding_type if padding else "zeros")
 
         self.convl2l = conv(in_cl, out_cl)
         self.convl2g = conv(in_cl, out_cg)
@@ -151,19 +243,27 @@ class FFC(nn.Module):
         self.convg2g = SpectralTransform(
             in_cg, out_cg, stride, 1 if groups == 1 else groups // 2,
             enable_lfu, **spectral_kwargs) if in_cg and out_cg else None
+        self.gate = nn.Conv2d(in_channels, 2, 1) \
+            if gated and in_cg and out_cl else None
         self.has_l, self.has_g = out_cl > 0, out_cg > 0
 
     @staticmethod
-    def _sum(pairs) -> Optional[torch.Tensor]:
-        terms = [m(t) for m, t in pairs if m is not None]
+    def _sum(terms) -> Optional[torch.Tensor]:
+        terms = [m(t) if g is None else m(t) * g for m, t, g in terms
+                 if m is not None]
         return sum(terms[1:], terms[0]) if terms else None
 
     def forward(self, x: Union[torch.Tensor, Stream]) -> Stream:
         x_l, x_g = _stream(x)
-        out_l = self._sum(((self.convl2l, x_l), (self.convg2l, x_g))) \
-            if self.has_l else None
-        out_g = self._sum(((self.convl2g, x_l), (self.convg2g, x_g))) \
-            if self.has_g else None
+        g2l = l2g = None
+        if self.gate is not None:
+            gates = torch.sigmoid(self.gate(torch.cat(
+                [t for t in (x_l, x_g) if t is not None], dim=1)))
+            g2l, l2g = gates[:, :1], gates[:, 1:]
+        out_l = self._sum(((self.convl2l, x_l, None),
+                           (self.convg2l, x_g, g2l))) if self.has_l else None
+        out_g = self._sum(((self.convl2g, x_l, l2g),
+                           (self.convg2g, x_g, None))) if self.has_g else None
         return out_l, out_g
 
 
@@ -204,22 +304,31 @@ def _add(a: Optional[torch.Tensor], b: Optional[torch.Tensor]
 
 
 class FFCResnetBlock(nn.Module):
-    """Two 3×3 FFCBnAct with ReLU and a residual add on each stream."""
+    """Two 3×3 FFCBnAct with ReLU and a residual add on each stream; an
+    ``inline`` block takes and returns one tensor, its last
+    ``int(dim · ratio_gin)`` channels the global stream."""
 
     def __init__(self, dim: int, ratio_gin: float, ratio_gout: float,
                  dilation: int = 1, enable_lfu: bool = True,
-                 padding_type: str = "reflect"):
+                 padding_type: str = "reflect", inline: bool = False):
         super().__init__()
         kw = dict(ratio_gin=ratio_gin, ratio_gout=ratio_gout,
                   padding=dilation, dilation=dilation, activation="relu",
                   padding_type=padding_type, enable_lfu=enable_lfu)
         self.conv1 = FFCBnAct(dim, dim, 3, **kw)
         self.conv2 = FFCBnAct(dim, dim, 3, **kw)
+        self.inline = inline
+        self.global_in = int(dim * ratio_gin)
 
-    def forward(self, x: Union[torch.Tensor, Stream]) -> Stream:
+    def forward(self, x: Union[torch.Tensor, Stream]
+                ) -> Union[torch.Tensor, Stream]:
+        if self.inline:
+            cl = x.shape[1] - self.global_in
+            x = (x[:, :cl], x[:, cl:] if self.global_in else None)
         id_l, id_g = _stream(x)
         x_l, x_g = self.conv2(self.conv1((id_l, id_g)))
-        return _add(id_l, x_l), _add(id_g, x_g)
+        out = _add(id_l, x_l), _add(id_g, x_g)
+        return ConcatTupleLayer()(out) if self.inline else out
 
 
 class ConcatTupleLayer(nn.Module):
@@ -234,9 +343,10 @@ class FFCResNetGenerator(nn.Module):
     """The LaMa generator: reflect pad + 7×7 FFC → ``n_downsampling``
     stride-2 FFCs (the last one switches the global ratio to the resnet
     ratio) → ``n_blocks`` FFC residual blocks → transposed-conv
-    upsamplings with BN + ReLU → reflect pad + 7×7 conv head →
-    ``add_out_act``. ``model`` is upstream's ``nn.Sequential`` without the
-    output activation, so ``logits`` is the head before it."""
+    upsamplings with BN + ReLU → [an inline FFC residual block at ``ngf``,
+    ``out_ffc``] → reflect pad + 7×7 conv head → ``add_out_act``.
+    ``model`` is upstream's ``nn.Sequential`` without the output
+    activation, so ``logits`` is the head before it."""
 
     def __init__(self, input_nc: int = 4, output_nc: int = 1, ngf: int = 64,
                  n_downsampling: int = 3, n_blocks: int = 9,
@@ -246,10 +356,7 @@ class FFCResNetGenerator(nn.Module):
                  enable_lfu: bool = False, add_out_act: str = "sigmoid",
                  out_ffc: bool = False):
         super().__init__()
-        if out_ffc:
-            raise NotImplementedError("FFCResNetGenerator: out_ffc=True is "
-                                      "not ported")
-        layers = [nn.ReflectionPad2d(3),
+        layers = [ReflectionPad2d(3),
                   FFCBnAct(input_nc, ngf, 7, init_ratio_gin, init_ratio_gout,
                            activation="relu", enable_lfu=enable_lfu)]
         for i in range(n_downsampling):
@@ -273,7 +380,10 @@ class FFCResNetGenerator(nn.Module):
                                           3, stride=2, padding=1,
                                           output_padding=1),
                        BatchNorm2d(cout), nn.ReLU()]
-        layers += [nn.ReflectionPad2d(3), nn.Conv2d(ngf, output_nc, 7)]
+        if out_ffc:
+            layers.append(FFCResnetBlock(ngf, resnet_ratio, resnet_ratio,
+                                         enable_lfu=enable_lfu, inline=True))
+        layers += [ReflectionPad2d(3), nn.Conv2d(ngf, output_nc, 7)]
         self.model = nn.Sequential(*layers)
         self.out_act = _act(add_out_act) \
             if add_out_act and add_out_act != "none" else nn.Identity()
@@ -284,3 +394,42 @@ class FFCResNetGenerator(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.out_act(self.model(x))
+
+
+class FFCNLayerDiscriminator(nn.Module):
+    """LaMa's PatchGAN FFC discriminator: ``model0`` a 3×3 FFCBnAct at
+    ``ndf``, ``model1``…``model{n_layers - 1}`` stride-2 FFCBnAct doubling
+    the width up to ``max_features``, ``model{n_layers}`` a stride-1
+    FFCBnAct (width up to 512), all with leaky ReLU 0.2 and reflect pads,
+    then the 3×3 score conv ``model{n_layers + 1}``. Returns the score and
+    the ``n_layers + 1`` feature maps (the streams concatenated)."""
+
+    def __init__(self, input_nc: int = 1, ndf: int = 64, n_layers: int = 3,
+                 max_features: int = 512, init_ratio_gin: float = 0.0,
+                 init_ratio_gout: float = 0.0, ratio_gin: float = 0.0,
+                 ratio_gout: float = 0.0, enable_lfu: bool = False):
+        super().__init__()
+        self.n_layers = n_layers
+        kw = dict(padding=1, activation="leaky_relu_0.2",
+                  enable_lfu=enable_lfu)
+        setattr(self, "model0", nn.Sequential(FFCBnAct(
+            input_nc, ndf, 3, init_ratio_gin, init_ratio_gout, **kw)))
+        nf = ndf
+        for n in range(1, n_layers):
+            prev, nf = nf, min(nf * 2, max_features)
+            setattr(self, f"model{n}", nn.Sequential(FFCBnAct(
+                prev, nf, 3, ratio_gin, ratio_gout, stride=2, **kw)))
+        prev, nf = nf, min(nf * 2, 512)
+        setattr(self, f"model{n_layers}", nn.Sequential(
+            FFCBnAct(prev, nf, 3, ratio_gin, ratio_gout, **kw),
+            ConcatTupleLayer()))
+        setattr(self, f"model{n_layers + 1}",
+                nn.Sequential(nn.Conv2d(nf, 1, 3, padding=1)))
+
+    def forward(self, x: torch.Tensor):
+        feats = []
+        h: Union[torch.Tensor, Stream] = x
+        for n in range(self.n_layers + 1):
+            h = getattr(self, f"model{n}")(h)
+            feats.append(ConcatTupleLayer()(h))
+        return getattr(self, f"model{self.n_layers + 1}")(h), feats

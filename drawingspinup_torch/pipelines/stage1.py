@@ -15,7 +15,7 @@ and is not needed here.
 from __future__ import annotations
 
 import os
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -24,6 +24,7 @@ from drawingspinup_torch.core.config import Config
 from drawingspinup_torch.core.contract import UidPaths
 from drawingspinup_torch.core.io import read_image, write_image
 from drawingspinup_torch.models.ffc import FFCResNetGenerator
+from drawingspinup_torch.models.pix2pixhd import GlobalGenerator
 from drawingspinup_torch.ops.image import resize
 from drawingspinup_torch.ops.inpaint import telea_inpaint
 
@@ -31,15 +32,27 @@ CONTOUR_THRESHOLD = 0.2  # the reference's predict.py
 INPAINT_RADIUS = 3       # the reference's predict.py
 
 
-def build_generator(cfg: Optional[Config] = None) -> FFCResNetGenerator:
-    """The generator of a reference-style config's ``generator`` subtree
-    (``configs/lama-fourier.yaml``), on the CPU; kind ``ffc_resnet`` only
-    (``pix2pixhd_global`` is not ported)."""
+def build_generator(cfg: Optional[Config] = None
+                    ) -> Union[FFCResNetGenerator, GlobalGenerator]:
+    """The generator of a reference-style config's ``generator`` subtree,
+    on the CPU in eval mode, by ``generator.kind`` as the reference's
+    ``make_generator`` dispatches: ``ffc_resnet``
+    (``configs/lama-fourier.yaml``) or ``pix2pixhd_global``
+    (``configs/lama-regular.yaml``)."""
     g = (cfg or Config()).get("generator", Config())
     kind = g.get("kind", "ffc_resnet")
+    if kind == "pix2pixhd_global":
+        return GlobalGenerator(
+            input_nc=g.get("input_nc", 4),
+            output_nc=g.get("output_nc", 1),
+            ngf=g.get("ngf", 64),
+            n_downsampling=g.get("n_downsampling", 3),
+            n_blocks=g.get("n_blocks", 9),
+            conv_kind=g.get("conv_kind", "default"),
+            out_act=g.get("add_out_act", "sigmoid"),
+        ).eval()
     if kind != "ffc_resnet":
-        raise NotImplementedError(f"stage-1 generator kind {kind!r} is not "
-                                  f"ported; only 'ffc_resnet' is")
+        raise ValueError(f"unsupported stage-1 generator kind: {kind!r}")
     init = g.get("init_conv_kwargs", {})
     down = g.get("downsample_conv_kwargs", {})
     return FFCResNetGenerator(
@@ -55,7 +68,7 @@ def build_generator(cfg: Optional[Config] = None) -> FFCResNetGenerator:
         resnet_ratio=g.get("resnet_conv_kwargs", {}).get("ratio_gin", 0.75),
         enable_lfu=init.get("enable_lfu", False),
         add_out_act=g.get("add_out_act", "sigmoid"),
-    )
+    ).eval()
 
 
 def load_input(paths: UidPaths, size: int = 512
@@ -88,7 +101,7 @@ def postprocess_one(rgb: np.ndarray, alpha: np.ndarray,
 
 
 @torch.inference_mode()
-def contour_probs(model: FFCResNetGenerator, rgbs: np.ndarray,
+def contour_probs(model: torch.nn.Module, rgbs: np.ndarray,
                   alphas: np.ndarray) -> np.ndarray:
     """(B, H, W, 3) rgb and (B, H, W, 1) alpha → (B, H, W, 1) contour
     probabilities, one forward on the model's device."""
@@ -98,7 +111,7 @@ def contour_probs(model: FFCResNetGenerator, rgbs: np.ndarray,
     return model(x).permute(0, 2, 3, 1).float().cpu().numpy()
 
 
-def predict_uids(root: str, uids: Sequence[str], model: FFCResNetGenerator,
+def predict_uids(root: str, uids: Sequence[str], model: torch.nn.Module,
                  batch_size: int = 8, size: int = 512,
                  save_name: str = "ffc_resnet") -> List[str]:
     """Contour removal for a list of uids, ``batch_size`` drawings per

@@ -62,6 +62,21 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def xla_linspace(lo: float, hi: float, res: int, device) -> torch.Tensor:
+    """``jnp.linspace(lo, hi, res)`` in f32 as XLA compiles it for the CPU
+    in JAX's grid program: ``lo·(1 − i·c) + i·(hi·c)`` with
+    ``c = f32(1/(res − 1))``, ``1 − i·c`` and the last multiply-add each
+    rounded once (fused), and ``hi`` itself last. The products are exact
+    in float64, so each fused step is one float64 sum rounded to f32."""
+    c = np.float32(1.0 / (res - 1))
+    hc = float(np.float32(np.float32(hi) * c))
+    i = torch.arange(res - 1, dtype=torch.float64, device=device)
+    one_t = (1 - i * float(c)).float().double()
+    out = (float(np.float32(lo)) * one_t + (i * hc).float().double()).float()
+    return torch.cat([out, torch.tensor([float(np.float32(hi))],
+                                        device=device)])
+
+
 class FieldEvaluator:
     """The trained SDF at the export's band state (level mask and active
     levels of ``step``), evaluated in chunks without autograd, values
@@ -98,13 +113,11 @@ class FieldEvaluator:
                    ) -> torch.Tensor:
         """(res, res, res) values on the slab grid of JAX's
         ``eval_sdf_grid``: x at ``np.linspace(vmin[0], vmax[0], res)`` in
-        f32, y and z at ``jnp.linspace``'s start·(1 − t) + stop·t."""
+        f32, y and z at ``xla_linspace``'s."""
         dev = self.device
         xs = torch.from_numpy(np.linspace(vmin[0], vmax[0], res,
                                           dtype=np.float32)).to(dev)
-        t = torch.arange(res, device=dev, dtype=torch.float32) / (res - 1)
-        lin = [float(vmin[k]) * (1 - t) + float(vmax[k]) * t
-               for k in (1, 2)]
+        lin = [xla_linspace(vmin[k], vmax[k], res, dev) for k in (1, 2)]
         ys, zs = torch.meshgrid(lin[0], lin[1], indexing="ij")
         plane = torch.stack([torch.zeros_like(ys), ys, zs],
                             dim=-1).reshape(-1, 3)

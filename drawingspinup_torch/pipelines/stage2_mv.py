@@ -474,11 +474,14 @@ def generate_uid(root: str, uid: str, pipe: MVPipeline,
 
 
 def load_pretrained(cfg: MVPipelineConfig, ckpt_dir: str,
-                    device="cuda") -> MVPipeline:
+                    device="cuda", seed: int = 0) -> MVPipeline:
     """The pipeline with a local diffusers-layout Wonder3D checkpoint
-    (``unet/``, ``vae/``, ``image_encoder/``) loaded strictly."""
+    (``unet/``, ``vae/``, ``image_encoder/``) loaded strictly over the
+    weights ``init_random`` draws from ``seed``: what the checkpoint
+    lacks (a part directory, SD's half-width ``conv_out.bias``) keeps
+    that seeded init."""
     from drawingspinup_torch.utils.diffusers_port import load_wonder3d
 
-    mods = build_modules(cfg, torch.device(device))
-    load_wonder3d(ckpt_dir, *mods)
-    return MVPipeline(cfg, *mods)
+    pipe = MVPipeline.init_random(cfg, seed, device)
+    load_wonder3d(ckpt_dir, pipe.unet, pipe.vae, pipe.clip)
+    return pipe

@@ -13,7 +13,18 @@ key:
 * attention blocks saved by diffusers < 0.15 use ``query``/``key``/
   ``value``/``proj_attn``, renamed to ``to_q``/``to_k``/``to_v``/
   ``to_out.0``;
-* transformers' ``position_ids`` buffer is dropped.
+* transformers' ``position_ids`` buffer is dropped;
+* the UNet's ``conv_in.weight`` with fewer input channels than the model's
+  (Stable Diffusion's 4 against Wonder3D's 8) is zero-padded over the
+  extra channels (the reference's ``zero_init_conv_in``,
+  ``unet_mv2d_condition.py:1345-1351``), and a ``conv_out.weight`` with
+  half the model's output channels is copied into both halves, its bias
+  left at the module's init (``:1353-1358``), as JAX's ``overlay`` adapts
+  them;
+* a part whose directory is missing keeps its init weights, as in JAX.
+
+Any other missing, unexpected or mis-shaped key raises, where JAX's
+``overlay`` leaves that leaf at its init (``ROADMAP.md``, queue 3).
 
 The safetensors reader is plain numpy (an 8-byte little-endian header
 length, the JSON header, then the raw little-endian tensors; bf16 and f16
@@ -23,6 +34,7 @@ from __future__ import annotations
 
 import json
 import os
+import sys
 from typing import Dict
 
 import numpy as np
@@ -121,13 +133,38 @@ def convert_deprecated_attention(state: Dict[str, np.ndarray]
     return out
 
 
+def adapt_unet_shapes(state: Dict[str, np.ndarray],
+                      own: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """JAX ``overlay``'s two shape rules for the UNet's top-level convs
+    (OIHW here, HWIO there): a ``conv_in.weight`` with fewer input
+    channels is zero-padded over the rest; a ``conv_out.weight`` with half
+    the output channels is copied into both halves, and a ``conv_out.bias``
+    of half the width is replaced by ``own``'s (the module's init)."""
+    out = dict(state)
+    v, m = state.get("conv_in.weight"), own.get("conv_in.weight")
+    if v is not None and m is not None and v.shape[1] < m.shape[1] \
+            and v.shape[0] == m.shape[0] and v.shape[2:] == m.shape[2:]:
+        pad = np.zeros(tuple(m.shape), v.dtype)
+        pad[:, : v.shape[1]] = v
+        out["conv_in.weight"] = pad
+    v, m = state.get("conv_out.weight"), own.get("conv_out.weight")
+    if v is not None and m is not None and 2 * v.shape[0] == m.shape[0] \
+            and v.shape[1:] == m.shape[1:]:
+        out["conv_out.weight"] = np.concatenate([v, v], axis=0)
+    v, m = state.get("conv_out.bias"), own.get("conv_out.bias")
+    if v is not None and m is not None and 2 * v.shape[0] == m.shape[0]:
+        out["conv_out.bias"] = m.detach().cpu().float().numpy()
+    return out
+
+
 def load_part(module: torch.nn.Module, part: str,
               state: Dict[str, np.ndarray]) -> None:
-    """The renames of ``part`` (``unet``, ``vae`` or ``image_encoder``),
-    then a strict load into ``module`` (each tensor cast to the module's
-    dtype and device)."""
+    """The renames of ``part`` (``unet``, ``vae`` or ``image_encoder``) and
+    the UNet's shape rules, then a strict load into ``module`` (each
+    tensor cast to the module's dtype and device)."""
     if part == "unet":
-        state = rename_joint_keys(state)
+        state = adapt_unet_shapes(rename_joint_keys(state),
+                                  module.state_dict())
     if part in ("unet", "vae"):
         state = convert_deprecated_attention(state)
     state = {k: torch.from_numpy(np.ascontiguousarray(v))
@@ -137,10 +174,13 @@ def load_part(module: torch.nn.Module, part: str,
 
 def load_wonder3d(ckpt_dir: str, unet: torch.nn.Module, vae: torch.nn.Module,
                   clip: torch.nn.Module) -> None:
-    """Load ``ckpt_dir``'s three parts strictly into the modules."""
+    """Load ``ckpt_dir``'s three parts strictly into the modules; a part
+    without its directory keeps its weights."""
     for part, module in (("unet", unet), ("vae", vae),
                          ("image_encoder", clip)):
         sub = os.path.join(ckpt_dir, part)
         if not os.path.isdir(sub):
-            raise FileNotFoundError(f"{ckpt_dir}: no {part}/ directory")
+            print(f"[wonder3d] {ckpt_dir}: no {part}/ directory; {part} "
+                  f"keeps its init weights", file=sys.stderr)
+            continue
         load_part(module, part, read_part(sub))

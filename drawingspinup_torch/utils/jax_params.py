@@ -2,8 +2,10 @@
 into the port's ``state_dict``, a JAX NSR state (params and optax state,
 stage 2b) into the port's params dict and moments (``nsr_params``,
 ``nsr_opt_state``), the stage-1 FFC generator's variables into its
-``state_dict`` (``ffc_params``), the stage-2a pipeline's params
-(``mv_params``) and ISNet's variables (``isnet_params``, at the end of this
+``state_dict`` (``ffc_params``; a whole LaMa training state:
+``lama_state``), the pix2pixHD zoo's (``pix2pixhd_params``), the
+stage-2a pipeline's params (``mv_params``) and ISNet's variables
+(``isnet_params``, at the end of this
 module).
 
 The input is nested dicts of numpy arrays (``np.asarray`` of each leaf of
@@ -112,14 +114,19 @@ def nsr_opt_state(opt_state: Any, device="cpu"):
 # ---------------------------------------------------------------------------
 
 _FFC_RENAME = {"scale": "weight", "mean": "running_mean",
-               "var": "running_var", "conv": "conv_layer", "bn1": "conv1.1"}
+               "var": "running_var", "conv": "conv_layer", "bn1": "conv1.1",
+               "fc1": "fc.0", "fc2": "fc.2"}
 
 
 def _ffc_top(params: Mapping[str, Any]) -> Dict[str, str]:
-    """The flax generator's top-level names → the indices of upstream's
-    ``model`` Sequential: 0 pad, 1 init, the downsamples, the blocks, the
-    concat, per upsample [ConvTranspose, BN, ReLU], pad, head. Empty for
-    a tree that is not a whole generator."""
+    """The flax network's top-level names → upstream's: for the
+    generator the indices of its ``model`` Sequential (0 pad, 1 init, the
+    downsamples, the blocks, the concat, per upsample [ConvTranspose, BN,
+    ReLU], the inline ``out_ffc`` block if any, pad, head); for the
+    discriminator ``model<n>`` → ``model<n>.0``. Empty for a tree that is
+    a part of either."""
+    if "model0" in params:
+        return {k: f"{k}.0" for k in params if re.fullmatch(r"model\d+", k)}
     if "init" not in params:
         return {}
     nd = sum(1 for k in params if re.fullmatch(r"down\d+", k))
@@ -131,7 +138,11 @@ def _ffc_top(params: Mapping[str, Any]) -> Dict[str, str]:
     for i in range(nd):
         top[f"up{i}"] = f"model.{up + 3 * i}"
         top[f"up{i}_bn"] = f"model.{up + 3 * i + 1}"
-    top["head"] = f"model.{up + 3 * nd + 1}"
+    head = up + 3 * nd + 1
+    if "out_ffc_block" in params:
+        top["out_ffc_block"] = f"model.{head - 1}"
+        head += 1
+    top["head"] = f"model.{head}"
     return top
 
 
@@ -139,17 +150,20 @@ def ffc_params(params: Mapping[str, Any],
                batch_stats: Optional[Mapping[str, Any]] = None
                ) -> Dict[str, torch.Tensor]:
     """flax variables of ``drawingspinup_tpu/models/ffc.py`` (the whole
-    ``FFCResNetGenerator`` or one of its parts: ``FourierUnit``,
-    ``SpectralTransform``, ``FFCBnAct``, ``FFCResnetBlock``) → the
-    ``state_dict`` of the port's module of the same kind (upstream LaMa's
-    names, as ``drawingspinup_tpu/utils/torch_port.py`` maps them). Conv
-    kernels HWIO → OIHW; the upsampling kernels (kh, kw, in, out) →
-    ConvTranspose2d's (in, out, kh, kw); the flax ``BatchNorm_0`` wrapper
-    level drops out; ``scale``/``mean``/``var`` →
-    ``weight``/``running_mean``/``running_var``; the Fourier unit's
-    ``conv`` → ``conv_layer``; SpectralTransform's ``conv1``/``bn1`` →
-    ``conv1.0``/``conv1.1``."""
-    top = _ffc_top(params)
+    ``FFCResNetGenerator`` or ``FFCNLayerDiscriminator``, or one of their
+    parts: ``SELayer``, ``FourierUnit``, ``SpectralTransform``, ``FFC``,
+    ``FFCBnAct``, ``FFCResnetBlock``) → the ``state_dict`` of the port's
+    module of the same kind (upstream LaMa's names, as
+    ``drawingspinup_tpu/utils/torch_port.py`` maps them). Conv kernels
+    HWIO → OIHW; the upsampling kernels (kh, kw, in, out) →
+    ConvTranspose2d's (in, out, kh, kw); dense kernels (in, out) → (out,
+    in); the flax ``BatchNorm_0`` wrapper level drops out;
+    ``scale``/``mean``/``var`` → ``weight``/``running_mean``/
+    ``running_var``; the Fourier unit's ``conv`` → ``conv_layer``;
+    SpectralTransform's ``conv1``/``bn1`` → ``conv1.0``/``conv1.1``; the
+    squeeze-excitation's ``fc1``/``fc2`` → ``fc.0``/``fc.2``. Optimizer
+    moments of the params (same tree) convert the same way."""
+    top = _ffc_top({**(batch_stats or {}), **params})
     out: Dict[str, torch.Tensor] = {}
     for tree in (params, batch_stats or {}):
         for path, leaf in _leaves(tree):
@@ -168,8 +182,146 @@ def ffc_params(params: Mapping[str, Any],
                 names[-1] = "weight"
                 transposed = re.fullmatch(r"up\d+", path[0]) is not None \
                     and bool(top)
-                a = a.transpose((2, 3, 0, 1) if transposed else (3, 2, 0, 1))
+                a = a.T if a.ndim == 2 else a.transpose(
+                    (2, 3, 0, 1) if transposed else (3, 2, 0, 1))
             key = ".".join(names)
+            if key in out:
+                raise ValueError(f"duplicate converted key {key!r}")
+            out[key] = torch.from_numpy(np.ascontiguousarray(a))
+    return out
+
+
+def _adam_into(opt: torch.optim.Optimizer, module: torch.nn.Module,
+               adam: Any) -> None:
+    """optax ``scale_by_adam`` state (``count``, ``mu``, ``nu`` trees of
+    the params, read by attribute) → ``opt``'s per-parameter state, each
+    moment at its parameter's dtype and device."""
+    mu, nu = ffc_params(adam.mu), ffc_params(adam.nu)
+    count = float(np.asarray(adam.count))
+    for name, p in module.named_parameters():
+        opt.state[p] = {"step": torch.tensor(count),
+                        "exp_avg": mu[name].to(p),
+                        "exp_avg_sq": nu[name].to(p)}
+
+
+def lama_state(state: Any, cfg: Any, device="cpu",
+               dtype: torch.dtype = torch.float32):
+    """A JAX ``LamaState`` (``drawingspinup_tpu/train/lama.py``; numpy or
+    JAX leaves) → the port's ``train/lama.py::LamaState``: the generator's
+    params and batch statistics, the discriminator's params (JAX's state
+    keeps no discriminator statistics; the port's stay at init), both
+    optax ``adam`` states as the torch optimizers' moments and counts, and
+    the step, on ``device`` at ``dtype``. Needs no JAX."""
+    from drawingspinup_torch.train import lama
+
+    gen, disc = lama.build_models(cfg)
+    gen.load_state_dict(ffc_params(state.g_params, state.g_stats),
+                        strict=True)
+    sd = disc.state_dict()
+    sd.update(ffc_params(state.d_params))
+    disc.load_state_dict(sd, strict=True)
+    gen = gen.to(device, dtype).train()
+    disc = disc.to(device, dtype).train()
+    g_opt = lama.make_optimizer(gen, cfg.lr)
+    d_opt = lama.make_optimizer(disc, cfg.disc_lr)
+    _adam_into(g_opt, gen, state.g_opt[0])
+    _adam_into(d_opt, disc, state.d_opt[0])
+    return lama.LamaState(gen, disc, g_opt, d_opt,
+                          int(np.asarray(state.step)))
+
+
+# ---------------------------------------------------------------------------
+# stage 1: the pix2pixHD generators and discriminators
+# ---------------------------------------------------------------------------
+
+_P2P_LEAF = {"kernel": "weight", "scale": "weight", "mean": "running_mean",
+             "var": "running_var", "depthwise": "depthwise.weight",
+             "depthwise_bias": "depthwise.bias",
+             "pointwise": "pointwise.weight",
+             "pointwise_bias": "pointwise.bias"}
+
+
+def _p2p_top(module: torch.nn.Module) -> Dict[str, str]:
+    """The flax top-level names of ``module``'s JAX twin → the port's
+    prefixes (upstream's Sequential positions)."""
+    from drawingspinup_torch.models import pix2pixhd as p2p
+
+    if isinstance(module, p2p.NLayerDiscriminator):
+        top = {"conv0": "model0.0",
+               "conv_score": f"model{module.n_layers + 1}.0"}
+        for n in range(1, module.n_layers + 1):
+            top.update({f"conv{n}": f"model{n}.0", f"norm{n}": f"model{n}.1"})
+        return top
+    layers = list(module.model)
+    top = {"conv_in": "model.1", "conv_in_kernel": "model.1",
+           "conv_in_bias": "model.1", "norm_in": "model.2"}
+    blocks = [i for i, m in enumerate(layers)
+              if isinstance(m, (p2p.ResnetBlock, p2p.MultidilatedResnetBlock))]
+    for i in range((blocks[0] - 4) // 3):
+        top.update({f"down{i}{s}": f"model.{4 + 3 * i}"
+                    for s in ("", "_kernel", "_bias")})
+        top[f"down{i}_norm"] = f"model.{5 + 3 * i}"
+    top.update({f"block{i}": f"model.{b}" for i, b in enumerate(blocks)})
+    ups = [i for i, m in enumerate(layers)
+           if isinstance(m, (torch.nn.ConvTranspose2d,
+                             p2p.DepthwiseSeparableConv))
+           and i > blocks[-1]]
+    for j, u in enumerate(ups):
+        top.update({f"up{j}": f"model.{u}", f"up{j}_kernel": f"model.{u}",
+                    f"up{j}_bias": f"model.{u}",
+                    f"up{j}_norm": f"model.{u + 1}"})
+    top.update({"conv_out_kernel": f"model.{len(layers) - 1}",
+                "conv_out_bias": f"model.{len(layers) - 1}"})
+    return top
+
+
+def pix2pixhd_params(variables: Mapping[str, Any],
+                     module: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """flax variables (``{"params", "batch_stats"}``, numpy leaves) of a
+    ``drawingspinup_tpu/models/pix2pixhd.py`` generator (``_GlobalBase``
+    kinds, ``GlobalGeneratorFromSuperChannels``) or
+    ``NLayerDiscriminator`` → the ``state_dict`` of ``module``,
+    the port's twin, in upstream's names. Conv kernels HWIO → OIHW,
+    ConvTranspose kernels (kh, kw, in, out) → (in, out, kh, kw); a block's
+    ``conv1``/``norm1``/``conv2``/``norm2`` → ``conv_block`` positions
+    (1/2/5/6 for a ResnetBlock, 0/1/3/4 for a MultidilatedResnetBlock),
+    its inlined ``conv1_kernel`` (dilated) and ``input_conv_kernel`` →
+    ``conv_block.1.weight`` and ``input_conv.weight``; a multidilated
+    conv's ``kernel<j>``/``bias<j>`` → ``convs.<j>.weight``/``.bias``."""
+    from drawingspinup_torch.models import pix2pixhd as p2p
+
+    top = _p2p_top(module)
+    out: Dict[str, torch.Tensor] = {}
+    for coll in ("params", "batch_stats"):
+        for path, leaf in _leaves(variables.get(coll, {})):
+            a = np.array(leaf, np.float32)
+            names = [top[path[0]]]
+            block = module.get_submodule(names[0]) \
+                if re.fullmatch(r"block\d+", path[0]) else None
+            pos = ({"conv1": "0", "norm1": "1", "conv2": "3", "norm2": "4"}
+                   if isinstance(block, p2p.MultidilatedResnetBlock) else
+                   {"conv1": "1", "norm1": "2", "conv2": "5", "norm2": "6"})
+            for p in path[1:-1]:
+                names.append(f"conv_block.{pos[p]}" if block is not None
+                             else p)
+            last = path[-1] if len(path) > 1 else path[0]
+            m = re.fullmatch(r"(conv[12])_(kernel|bias)", last)
+            if block is not None and m:
+                names += [f"conv_block.{pos[m.group(1)]}", m.group(2)]
+            elif last.startswith("input_conv_"):
+                names += ["input_conv", last[len("input_conv_"):]]
+            elif re.fullmatch(r"(kernel|bias)\d+", last):
+                names += [f"convs.{last.lstrip('kernelbias')}",
+                          "kernel" if last.startswith("kernel") else "bias"]
+            else:
+                names.append(last.rsplit("_", 1)[-1]
+                             if len(path) == 1 else last)
+            if names[-1] == "kernel" or names[-1] in ("depthwise",
+                                                      "pointwise"):
+                up = re.fullmatch(r"up\d+_kernel", path[0])
+                a = a.transpose((2, 3, 0, 1) if up else (3, 2, 0, 1))
+            key = ".".join(_P2P_LEAF.get(n, n) for n in names[:-1]) + "." \
+                + _P2P_LEAF.get(names[-1], names[-1])
             if key in out:
                 raise ValueError(f"duplicate converted key {key!r}")
             out[key] = torch.from_numpy(np.ascontiguousarray(a))

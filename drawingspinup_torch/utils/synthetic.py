@@ -2,8 +2,9 @@
 ``drawingspinup_tpu/utils/synthetic.py`` (``tests/test_torch_recon.py``
 pins its files to the original's), the two-bone rig and bar mesh of
 ``tests/test_fbx_render.py`` (``tests/test_torch_render.py`` pins the FBX
-bytes) and the drawing of ``tests/test_stage1.py``
-(``tests/test_torch_stage1.py`` pins the PNG bytes)."""
+bytes), the drawing of ``tests/test_stage1.py``
+(``tests/test_torch_stage1.py`` pins the PNG bytes), and coloured OBJs for
+the BiCar renderer of stage-1 training."""
 from __future__ import annotations
 
 import os
@@ -11,7 +12,7 @@ import os
 import numpy as np
 
 from drawingspinup_torch.core.contract import UidPaths
-from drawingspinup_torch.core.io import write_image
+from drawingspinup_torch.core.io import write_image, write_obj
 
 
 def write_sphere_mv(root, uid, size=64, radius=0.45):
@@ -212,3 +213,42 @@ def write_drawing_uid(root, uid, size=64):
     rgba[..., 3] = (body | ring).astype(np.float32)
     write_image(paths.texture, rgba)
     return paths
+
+
+# ---------------------------------------------------------------------------
+# stage-1 training: coloured OBJs for render/bicar.py
+# ---------------------------------------------------------------------------
+
+def sphere_mesh(n=24, radius=0.6):
+    """A UV sphere: 2 n² vertices on n latitudes × 2 n longitudes."""
+    th, ph = np.meshgrid(np.linspace(0, np.pi, n),
+                         np.linspace(0, 2 * np.pi, 2 * n))
+    v = np.stack([np.sin(th) * np.cos(ph), np.sin(th) * np.sin(ph),
+                  np.cos(th)], -1).reshape(-1, 3) * radius
+    idx = np.arange(2 * n * n).reshape(2 * n, n)
+    a, b = idx[:-1, :-1].ravel(), idx[1:, :-1].ravel()
+    c, d = idx[1:, 1:].ravel(), idx[:-1, 1:].ravel()
+    f = np.concatenate([np.stack([a, b, c], 1), np.stack([a, c, d], 1)])
+    return v.astype(np.float32), f.astype(np.int64)
+
+
+def write_bicar_objs(root, n, seed=0):
+    """``n`` OBJs ``<root>/obj<i>/model.obj`` with vertex colours, for
+    ``render/bicar.py``: bars (``bar_mesh``) and spheres in turn, of seeded
+    proportions, coloured by a seeded linear ramp along a seeded
+    direction; returns the uids."""
+    rng = np.random.default_rng(seed)
+    uids = []
+    for i in range(n):
+        if i % 2:
+            v, f = sphere_mesh(radius=rng.uniform(0.4, 0.8))
+        else:
+            v, f = bar_mesh(half=rng.uniform(0.08, 0.3),
+                            height=rng.uniform(1.0, 2.0))
+        t = v @ rng.normal(size=3)
+        t = (t - t.min()) / max(float(np.ptp(t)), 1e-6)
+        lo, hi = rng.uniform(0, 1, 3), rng.uniform(0, 1, 3)
+        uids.append(f"obj{i}")
+        write_obj(os.path.join(root, uids[-1], "model.obj"), v, f,
+                  vertex_colors=lo + t[:, None] * (hi - lo))
+    return uids

@@ -288,3 +288,176 @@ def test_copies_are_the_originals(tmp_path):
         == (tmp_path / "t" / "toy" / "char" / "texture.png").read_bytes()
     assert ts1.CONTOUR_THRESHOLD == js1.CONTOUR_THRESHOLD
     assert ts1.INPAINT_RADIUS == js1.INPAINT_RADIUS
+
+
+# ---------------------------------------------------------------------------
+# the FFTs' gradients, the FFC options, train mode and the discriminator
+# ---------------------------------------------------------------------------
+
+def _vjp_rel(jfn, tfn, args, cot):
+    """Relative L2 of the port's VJP of ``tfn`` to JAX's of ``jfn`` on the
+    same NHWC ``args`` and output cotangents ``cot``, per argument."""
+    _, vjp = jax.vjp(jfn, *(jnp.asarray(a) for a in args))
+    want = vjp(tuple(jnp.asarray(c) for c in cot) if len(cot) > 1
+               else jnp.asarray(cot[0]))
+    targs = [_nchw(a).requires_grad_(True) for a in args]
+    outs = tfn(*targs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    torch.autograd.backward(outs, [_nchw(c) for c in cot])
+    return [_rel(_nhwc(t.grad), np.asarray(w)) for t, w in zip(targs, want)]
+
+
+@pytest.mark.parametrize("h,w", [(16, 16), (15, 17), (16, 12), (9, 9)])
+def test_fft_vjps_match_jax(h, w):
+    """The VJPs of both transforms against JAX's DFT matmuls' (odd and even
+    W): the in-place zeroing of the DC and Nyquist imaginary parts is legal
+    under autograd and gives JAX's zero gradient there."""
+    rng = np.random.default_rng(h * 100 + w)
+    wf = w // 2 + 1
+    x = rng.normal(size=(2, h, w, 3)).astype(np.float32)
+    cot = [rng.normal(size=(2, h, wf, 3)).astype(np.float32)
+           for _ in range(2)]
+    rels = _vjp_rel(jfourier.rfft2_ortho, tfourier.rfft2_ortho, [x], cot)
+    re, im = (rng.normal(size=(2, h, wf, 3)).astype(np.float32)
+              for _ in range(2))
+    g = rng.normal(size=(2, h, w, 3)).astype(np.float32)
+    rels += _vjp_rel(lambda a, b: jfourier.irfft2_ortho(a, b, (h, w)),
+                     lambda a, b: tfourier.irfft2_ortho(a, b, (h, w)),
+                     [re, im], [g])
+    assert max(rels) <= TOL, rels
+
+
+def _bias_noise(v, seed):
+    """``v`` with every non-BN bias redrawn (so that the biases' names are
+    checked too)."""
+    rng = np.random.default_rng(seed)
+    flat = tu.flatten_dict(v)
+    for k, a in flat.items():
+        if k[0] == "params" and k[-1] == "bias" and "BatchNorm_0" not in k:
+            flat[k] = (0.1 * rng.normal(size=a.shape)).astype(np.float32)
+    return tu.unflatten_dict(flat)
+
+
+POS_SE = {"spectral_pos_encoding": True, "use_se": True}
+OPTIONS = {
+    "se": (lambda: jffc.SELayer(), lambda: tffc.SELayer(32), 32),
+    "fourier_pos_se": (lambda: jffc.FourierUnit(8, **POS_SE),
+                       lambda: tffc.FourierUnit(8, 8, **POS_SE), 8),
+    "spectral_pos_se": (
+        lambda: jffc.SpectralTransform(16, enable_lfu=True, fu_kwargs=POS_SE),
+        lambda: tffc.SpectralTransform(8, 16, enable_lfu=True, **POS_SE), 8),
+    "gated_ffc": (
+        lambda: jffc.FFC(16, 3, 0.5, 0.5, padding=1, gated=True),
+        lambda: tffc.FFC(16, 16, 3, 0.5, 0.5, padding=1, gated=True), 16),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(OPTIONS))
+def test_ffc_options_match_jax(kind):
+    """The options that lama-fourier.yaml leaves off, forward and VJP
+    (input and every parameter) within relative L2 1e-5 of JAX."""
+    jmk, tmk, c = OPTIONS[kind]
+    rng = np.random.default_rng(len(kind))
+    x = rng.normal(size=(2, 16, 16, c)).astype(np.float32)
+    jm = jmk()
+    if kind == "gated_ffc":
+        xin = (jnp.asarray(x[..., :8]), jnp.asarray(x[..., 8:]))
+        fwd = lambda p, x_l, x_g: jm.apply({**v, "params": p},    # noqa
+                                           (x_l, x_g))
+    else:
+        xin = (jnp.asarray(x),)
+        fwd = lambda p, xx: jm.apply({**v, "params": p}, xx)      # noqa
+    v = _bias_noise(_variables(jm, xin if len(xin) > 1 else xin[0]), 1)
+    want, vjp = jax.vjp(fwd, v["params"], *xin)
+    want = want if isinstance(want, tuple) else (want,)
+    cot = [rng.normal(size=w.shape).astype(np.float32) for w in want]
+    jgrads = vjp(tuple(jnp.asarray(ct) for ct in cot) if len(cot) > 1
+                 else jnp.asarray(cot[0]))
+    tm = _load(tmk(), v)
+    tin = [_nchw(np.asarray(a)).requires_grad_(True) for a in xin]
+    got = tm(tuple(tin)) if len(tin) > 1 else tm(tin[0])
+    got = got if isinstance(got, tuple) else (got,)
+    for g, w in zip(got, want):
+        assert _rel(_nhwc(g.detach()), np.asarray(w)) <= TOL
+    torch.autograd.backward(got, [_nchw(ct) for ct in cot])
+    for t, w in zip(tin, jgrads[1:]):
+        assert _rel(_nhwc(t.grad), np.asarray(w)) <= TOL
+    want_p = ffc_params(jax.tree.map(np.asarray, jgrads[0]))
+    named = dict(tm.named_parameters())
+    assert named.keys() == want_p.keys()
+    for k, p in named.items():
+        g, w = p.grad.numpy(), want_p[k].numpy()
+        # (a ReLU unit of the excitation that is off for every sample
+        # gives both packages zero gradients)
+        assert np.linalg.norm(g - w) <= TOL * np.linalg.norm(w), k
+
+
+def test_out_ffc_generator_matches_jax():
+    x = np.random.default_rng(12).uniform(size=(2, 32, 32, 4)).astype(
+        np.float32)
+    kw = dict(ngf=8, n_downsampling=2, n_blocks=1, out_ffc=True)
+    jm = jffc.FFCResNetGenerator(**kw)
+    v = _variables(jm, jnp.asarray(x), seed=4)
+    want = np.asarray(jm.apply(v, jnp.asarray(x)))
+    tm = _load(tffc.FFCResNetGenerator(**kw), v)
+    assert isinstance(tm.model[-3], tffc.FFCResnetBlock)
+    with torch.no_grad():
+        assert _rel(_nhwc(tm(_nchw(x))), want) <= TOL
+
+
+def _stats_rel(tm, new_stats):
+    """Largest relative L2 of the port's running statistics to JAX's."""
+    want = ffc_params({}, jax.tree.map(np.asarray, new_stats))
+    sd = tm.state_dict()
+    assert want.keys() <= sd.keys() and want
+    return max(_rel(sd[k].numpy(), a.numpy()) for k, a in want.items())
+
+
+@pytest.mark.parametrize("net", ["generator", "discriminator"])
+def test_train_mode_matches_jax(net):
+    """Batch statistics in train mode: the output (the discriminator's
+    score and its 4 feature maps) and the moved running statistics within
+    relative L2 1e-5 of flax's ``apply(train=True, mutable=...)``; eval
+    mode uses JAX's own batch_stats."""
+    rng = np.random.default_rng(13)
+    if net == "generator":
+        x = rng.uniform(size=(2, 32, 32, 4)).astype(np.float32)
+        jm = jffc.FFCResNetGenerator(ngf=8, n_downsampling=2, n_blocks=1)
+        tm_fn = lambda: tffc.FFCResNetGenerator(ngf=8, n_downsampling=2,  # noqa
+                                                n_blocks=1)
+    else:
+        x = rng.normal(size=(2, 64, 64, 1)).astype(np.float32)
+        jm = jffc.FFCNLayerDiscriminator(ndf=8, n_layers=3)
+        tm_fn = lambda: tffc.FFCNLayerDiscriminator(1, ndf=8, n_layers=3)  # noqa
+    v = _variables(jm, jnp.asarray(x), seed=5)
+    for train in (False, True):
+        if train:
+            want, mut = jm.apply(v, jnp.asarray(x), train=True,
+                                 mutable=["batch_stats"])
+        else:
+            want = jm.apply(v, jnp.asarray(x))
+        tm = _load(tm_fn(), v).train(train)
+        with torch.no_grad():
+            got = tm(_nchw(x))
+        if net == "generator":
+            assert _rel(_nhwc(got), np.asarray(want)) <= TOL
+        else:
+            assert len(got[1]) == len(want[1]) == 4
+            for g, w in zip([got[0], *got[1]], [want[0], *want[1]]):
+                assert _rel(_nhwc(g), np.asarray(w)) <= TOL
+        if train:
+            assert _stats_rel(tm, mut["batch_stats"]) <= TOL
+
+
+@pytest.mark.parametrize("ph,pw", [(3, 3), (1, 2), (0, 1)])
+def test_reflect_pad_equals_torch(ph, pw):
+    """The pad built from flips equals ``F.pad(mode="reflect")``, values
+    and gradient, bit for bit."""
+    x = torch.randn(2, 3, 9, 11, dtype=torch.float64, requires_grad=True)
+    g = torch.randn(2, 3, 9 + 2 * ph, 11 + 2 * pw, dtype=torch.float64)
+    want = torch.nn.functional.pad(x, (pw, pw, ph, ph), mode="reflect")
+    (gw,) = torch.autograd.grad(want, x, g)
+    got = tffc.reflect_pad2d(x, ph, pw)
+    (gg,) = torch.autograd.grad(got, x, g)
+    assert torch.equal(got, want)
+    assert torch.allclose(gg, gw, rtol=0, atol=1e-15)

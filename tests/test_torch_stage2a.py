@@ -20,6 +20,10 @@ full-width schemas, against the JAX package on the CPU.
     hand (f32, f16 and bf16 tensors; Wonder3D's joint-attention names and
     the deprecated attention names) loads strictly and equal; a truncated
     header, a missing key and an unexpected key raise;
+  * Stable Diffusion's 4-channel ``conv_in``/``conv_out`` in a UNet of 8
+    in and 8 out: both packages' loaders give bit-equal tensors (JAX's
+    ``overlay`` zero-pads ``conv_in``, doubles ``conv_out``'s weight and
+    leaves its bias at init; a missing part directory is skipped);
   * the full-width UNet, VAE and CLIP built on the meta device have exactly
     the keys and shapes of the SD-1.5, SD-VAE and ViT-L/14 schemas of
     ``tests/test_unet_checkpoint_schema.py`` and
@@ -33,6 +37,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from drawingspinup_tpu.models import attention_mv as jattn
@@ -48,6 +53,7 @@ from drawingspinup_torch.ops import diffusion as TD
 from drawingspinup_torch.utils import diffusers_port as tport
 from mv_parity import (load_into, nchw, nhwc, rel_l2, seeded_tree,
                        write_safetensors)
+from drawingspinup_torch.utils.jax_params import mv_params
 from test_unet_checkpoint_schema import sd15_unet_checkpoint_schema
 from test_vae_clip_checkpoint_schema import (
     clip_vit_l14_checkpoint_schema, sd_vae_checkpoint_schema,
@@ -331,6 +337,102 @@ def test_loader_reads_handwritten_checkpoint(tmp_path):
     with pytest.raises(RuntimeError, match="Unexpected"):
         tport.load_part(pipe.clip, "image_encoder",
                         {**state, "vision_model.extra.weight": np.zeros(2)})
+
+
+def test_loader_adapts_sd_shaped_convs_as_jax(tmp_path, capsys):
+    """SD-shaped conv_in/conv_out (4 channels) in a UNet of 8 in, 8 out:
+    the port's strict loader gives every tensor bit-equal to JAX's
+    ``load_wonder3d_params`` on the same init; the vae/ and
+    image_encoder/ directories are missing, and both skip them."""
+    from drawingspinup_tpu.utils import diffusers_port as jport
+
+    kw = dict(TINY, cd_attention_mid=True, in_channels=8, out_channels=8)
+    b = 2 * kw["num_views"]
+    rng = np.random.default_rng(9)
+    args = tuple(jnp.asarray(a) for a in (
+        rng.standard_normal((b, 8, 8, 8)).astype(np.float32),
+        np.full((b,), 321, np.int32),
+        rng.standard_normal((b, 1, 16)).astype(np.float32),
+        rng.standard_normal((b, 10)).astype(np.float32)))
+    unet = junet.UNetMV2D(junet.UNetMVConfig(**kw))
+    init = seeded_tree(unet.init, *args, seed=0)
+    state = {k: v.numpy() for k, v in load_into(
+        tunet.UNetMV2D(tunet.UNetMVConfig(**kw)), "unet",
+        seeded_tree(unet.init, *args, seed=1)).state_dict().items()}
+    state["conv_in.weight"] = state["conv_in.weight"][:, :4]
+    state["conv_out.weight"] = state["conv_out.weight"][:4]
+    state["conv_out.bias"] = state["conv_out.bias"][:4]
+    d = tmp_path / "ckpt" / "unet"
+    d.mkdir(parents=True)
+    write_safetensors(str(d / "a.safetensors"), state)
+
+    want = jport.load_wonder3d_params(str(tmp_path / "ckpt"),
+                                      {"unet": init})["unet"]
+    # the one leaf JAX leaves at init: conv_out's bias of half the width
+    assert "1 unmapped" in capsys.readouterr().out.split("unet:")[1]
+    want = mv_params({"unet": jax.tree.map(np.asarray, want)})["unet"]
+    m = load_into(tunet.UNetMV2D(tunet.UNetMVConfig(**kw)), "unet", init)
+    before = {k: v.clone() for k, v in m.state_dict().items()}
+    tport.load_wonder3d(str(tmp_path / "ckpt"), m, None, None)
+    got = m.state_dict()
+    assert got.keys() == want.keys()
+    for k in got:
+        np.testing.assert_array_equal(got[k].numpy(), want[k].numpy(),
+                                      err_msg=k)
+    w_in, w_out = got["conv_in.weight"], got["conv_out.weight"]
+    assert w_in.shape[1] == 8 and not w_in[:, 4:].any()
+    np.testing.assert_array_equal(w_out[:4].numpy(), w_out[4:].numpy())
+    np.testing.assert_array_equal(got["conv_out.bias"].numpy(),
+                                  before["conv_out.bias"].numpy())
+    # a conv_in with more input channels than the model's still raises
+    state["conv_in.weight"] = np.zeros((32, 12, 3, 3), np.float32)
+    with pytest.raises(RuntimeError, match="size mismatch"):
+        tport.load_part(m, "unet", state)
+
+
+def test_load_pretrained_keeps_seeded_init_where_checkpoint_lacks(
+        tmp_path):
+    """``load_pretrained`` from a checkpoint with only ``unet/``, whose
+    conv_in/conv_out are SD-shaped (4 channels): every tensor is finite,
+    the VAE and CLIP equal ``init_random``'s from the same seed, conv_out's
+    bias keeps that init, and the rest is the checkpoint's."""
+    from drawingspinup_torch.pipelines import stage2_mv as tmv
+
+    cfg = tmv.MVPipelineConfig(
+        unet=tunet.UNetMVConfig(**dict(TINY, in_channels=8,
+                                       out_channels=8)),
+        vae=tvae.VAEConfig(block_out_channels=(8, 16), layers_per_block=1))
+    src = tmv.MVPipeline.init_random(cfg, seed=5, device="cpu")
+    state = {k: v.numpy().copy() for k, v in src.unet.state_dict().items()}
+    state["conv_in.weight"] = state["conv_in.weight"][:, :4]
+    state["conv_out.weight"] = state["conv_out.weight"][:4]
+    state["conv_out.bias"] = state["conv_out.bias"][:4] + 1.0
+    d = tmp_path / "ckpt" / "unet"
+    d.mkdir(parents=True)
+    write_safetensors(str(d / "a.safetensors"), state)
+
+    got = tmv.load_pretrained(cfg, str(tmp_path / "ckpt"), device="cpu")
+    ref = tmv.MVPipeline.init_random(cfg, seed=0, device="cpu")
+    for name in ("unet", "vae", "clip"):
+        for k, v in getattr(got, name).state_dict().items():
+            assert torch.isfinite(v).all(), (name, k)
+    for name in ("vae", "clip"):
+        want = getattr(ref, name).state_dict()
+        for k, v in getattr(got, name).state_dict().items():
+            torch.testing.assert_close(v, want[k], rtol=0, atol=0)
+    u = got.unet.state_dict()
+    torch.testing.assert_close(u["conv_out.bias"],
+                               ref.unet.state_dict()["conv_out.bias"],
+                               rtol=0, atol=0)
+    w_in, w_out = u["conv_in.weight"], u["conv_out.weight"]
+    np.testing.assert_array_equal(w_in[:, :4].numpy(),
+                                  state["conv_in.weight"])
+    assert not w_in[:, 4:].any()
+    for half in (w_out[:4], w_out[4:]):
+        np.testing.assert_array_equal(half.numpy(), state["conv_out.weight"])
+    for k, v in u.items():
+        if not k.startswith(("conv_in.", "conv_out.")):
+            np.testing.assert_array_equal(v.numpy(), state[k], err_msg=k)
 
 
 def test_full_width_modules_match_checkpoint_schemas():
