@@ -19,9 +19,12 @@ mc512. Then the stage-3 renders of a rig of production size, stage 1
 configs/lama-fourier.yaml, seeded weights) on eight 512² drawings, and
 stage 2a (the mv CLI, the Wonder3D MV-UNet, SD VAE and CLIP ViT-L/14 at
 full width, seeded weights, 75 DDIM steps, and the ISNet matte) on one of
-stage 1's outputs, the batch sweep drawing → GIF over two uids, and last
+stage 1's outputs, the batch sweep drawing → GIF over two uids,
 stage-1 training (train_lama on BiCar renders at full width) and stage 1
-with the lama-regular.yaml generator. Phases:
+with the lama-regular.yaml generator, and last the two per-character
+trainings and the latency sweep's training stages data-parallel over
+torch.distributed.
+Phases:
 
   1. versions, and the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels (RIC conv forward and backward, hash-grid encode
@@ -193,7 +196,27 @@ with the lama-regular.yaml generator. Phases:
      output written with the input's alpha; f32 logits within relative L2
      1e-4 of float64 on the card, thresholded masks differing on < 0.1 %
      of pixels; ms per drawing at batch 8. Phases 18-19 launch none of
-     the hand-written kernels.
+     the hand-written kernels;
+ 20. data parallelism over torch.distributed on the one card, at the
+     widths of phases 7 and 11 (configs/neus-ortho.yaml, 2048 rays, six
+     1024² views; config_stage1.yaml, 40 × 32² patches): (a) an NCCL
+     process group of one rank in this process: 3 dp steps of each
+     training bit-identical to 3 plain steps from one state on the same
+     draws, with the same kernel launches; (b) two ranks spawned on
+     cuda:0 over gloo (which reduces CUDA tensors through the host): one
+     dp step of each training, the ranks' parameters, gradients and
+     moments bit-identical to each other, and against the two shards
+     computed in this process with their gradients averaged by hand and
+     one update: losses within relative 1e-5 (NSR, bf16) and 1e-4 (stage
+     1), gradients and updates within relative L2 1e-2; the all-reduce's
+     bytes a step; (c) run_sweep's recon and train_style stages for one
+     uid over those two ranks (phase 17's cuts): done on both, rank 0
+     alone writing the OBJ, the checkpoints and the log (every write under
+     the data root raises on rank 1), the final parameters bit-identical
+     across the ranks, each rank's kernel launches as its steps predict
+     (the kernels line's ``launches_dp_ranks``). ms a step at world size
+     1 and with the two ranks sharing the card, which is not a scaling
+     figure. NCCL across more than one GPU is not run here.
 
 Kernel times (phases 3, 6, 9, 10) are medians of CUDA events around each
 call, the host's enqueueing included (``ms``, and every plain and library
@@ -274,6 +297,15 @@ LAMA_F64_BATCH = 2          # the float64 comparison's step: 2 crops of 512²
 LAMA_PROFILE_STEPS = 2
 LAMA_LOSS_TOL = 1e-4        # the f32 step's losses vs float64
 REGULAR_YAML = "drawingspinup_torch/configs/lama-regular.yaml"
+# phase 20: data parallelism on the one card: NCCL at world size 1 in
+# process, then DP_WORLD spawned gloo ranks sharing cuda:0
+DP_WORLD = 2
+DP_STEPS = 3            # (a): steps of each training, dp against plain
+DP_TIMED = 5            # steps timed after them
+DP_JOIN_S = 600         # a rank still running then fails the phase
+DP_UID = "dp0"          # (c): made from phase 17's first uid
+DP_SWEEP_STAGES = ("recon", "train_style")
+DP_NSR_LOSS_TOL = 1e-5  # an NSR step in bf16 against the same path
 UID = "smoke"
 F32_TOL = 1e-3          # phase 5: tanh outputs of 21 reordered-sum layers
 REL_TOL = 1e-4          # phase 3: f32 sums of up to 9·C products, reordered
@@ -3090,13 +3122,588 @@ def phase_lama_regular(root: str, device) -> None:
            f"TFLOP/s); CLI wall {cli_s:.2f} s per uid")
 
 
+# ---------------------------------------------------------------------------
+# phase 20: data parallelism over torch.distributed on the one card
+# ---------------------------------------------------------------------------
+
+def dp_nsr(root: str, device):
+    """(config, data, n_active at step 0) of the production NSR step on
+    phase 11's sphere uid."""
+    from drawingspinup_torch.core.contract import UidPaths
+    from drawingspinup_torch.pipelines import stage2_data
+
+    cfg = recon_config()
+    data = stage2_data.load_ortho_data(
+        UidPaths(root, RECON_UID), im_size=RECON_SIZE,
+        hull_trange=cfg.hull_trange, radius=cfg.radius, device=device)
+    return cfg, data, cfg.sdf.grid.current_level(0)
+
+
+def dp_gan(root: str, device):
+    """(config, keyframe) of the production stage-1 step on phase 7's
+    uid."""
+    from drawingspinup_torch.core.contract import UidPaths
+
+    return stage_config(1), keyframe(UidPaths(root, TRAIN_UID), 1, device)
+
+
+def host_copy(t):
+    return None if t is None else t.detach().to("cpu", copy=True)
+
+
+def nsr_snapshot(state) -> dict:
+    """A CPU copy of an NSR state's parameters, gradients and moments."""
+    from drawingspinup_torch.train import nsr
+
+    leaves = list(nsr.named_leaves(state.params))
+    return {"params": {n: host_copy(p) for n, p in leaves},
+            "grads": {n: host_copy(p.grad) for n, p in leaves},
+            "mu": {n: host_copy(v) for n, v in state.opt_state.mu.items()},
+            "nu": {n: host_copy(v) for n, v in state.opt_state.nu.items()}}
+
+
+def gan_snapshot(state, stepped: bool = True) -> dict:
+    """A CPU copy of a stage-3 state: G's and D's parameters and buffers,
+    and once it has ``stepped`` their gradients and both optimizers'
+    moments."""
+    out = {}
+    for part, module, opt in (("gen", state.gen, state.g_opt),
+                              ("disc", state.disc, state.d_opt)):
+        out[part] = {k: host_copy(v) for k, v in module.state_dict().items()}
+        if stepped:
+            out[f"{part}_grads"] = {k: host_copy(p.grad)
+                                    for k, p in module.named_parameters()}
+            out[f"{part}_moments"] = {
+                f"{k}.{m}": host_copy(opt.state[p][m])
+                for k, p in module.named_parameters()
+                for m in ("exp_avg", "exp_avg_sq")}
+    return out
+
+
+def same_bits(a: dict, b: dict) -> list:
+    """Names of the tensors of two snapshots that are not bit-identical."""
+    import torch
+
+    bad = []
+    for part, tensors in a.items():
+        for n, v in tensors.items():
+            w = b[part][n]
+            if v is None or w is None:
+                same = v is None and w is None
+            else:
+                same = v.dtype == w.dtype and torch.equal(v, w)
+            if not same:
+                bad.append(f"{part}.{n}")
+    return bad
+
+
+def rel_l2(got, want) -> float:
+    want = want.double()
+    n = want.norm().item()
+    d = (got.double() - want).norm().item()
+    return d / n if n else d
+
+
+def phase_dp_world1(root: str, device, tmp: str) -> dict:
+    """(a) NCCL at world size 1 in this process: DP_STEPS steps of each
+    training by the dp step against the plain step from one state on the
+    same draws, bit-identical, with the same kernel launches; ms a step of
+    each (host synchronised)."""
+    import functools
+
+    import torch
+    import torch.distributed as dist
+
+    from drawingspinup_torch.parallel import mesh
+    from drawingspinup_torch.train import gan, gan_parallel, nsr, \
+        nsr_parallel
+
+    rank, world, _ = mesh.init_dp(device, backend="nccl",
+                                  init_method=f"file://{tmp}/nccl_store")
+    check((rank, world, dist.get_backend()) == (0, 1, "nccl"),
+          f"NCCL group: rank {rank}, world {world}, {dist.get_backend()}")
+    try:
+        cfg, data, _ = dp_nsr(root, device)
+        v, h, w = data["masks"].shape
+        gcfg, kf = dp_gan(root, device)
+        runs = {}
+        for dp in (False, True):
+            opt = nsr.make_optimizer(cfg)
+            state = nsr.init_state(cfg, SEED, device)
+            fn = nsr_parallel.make_train_step_dp(cfg, opt, world) if dp \
+                else functools.partial(nsr.train_step, cfg, opt)
+            g = torch.Generator(device=device).manual_seed(SEED + 1)
+
+            def nsr_step():
+                draws = nsr.make_draws(cfg, v, h, w, g, device)
+                return fn(state, data, draws, n_active=cfg.sdf.grid
+                          .current_level(state.step))
+
+            zero_launches()
+            logs = [nsr_step() for _ in range(DP_STEPS)]
+            torch.cuda.synchronize()
+            nsr_launches = launches_by_kernel()
+            snap = nsr_snapshot(state)
+            snap["logs"] = {f"{i}.{k}": host_copy(x)
+                            for i, lg in enumerate(logs)
+                            for k, x in lg.items()}
+            nsr_ms = host_ms(nsr_step, DP_TIMED)
+
+            gstate = gan.init_state(gcfg, device, SEED)
+            gfn = gan_parallel.make_train_step_dp(gcfg, world) if dp \
+                else functools.partial(gan.train_step, gcfg)
+            gg = torch.Generator(device=device).manual_seed(SEED + 1)
+            zero_launches()
+            glogs = [gfn(gstate, kf, gg) for _ in range(DP_STEPS)]
+            torch.cuda.synchronize()
+            gan_launches = launches_by_kernel()
+            gsnap = gan_snapshot(gstate)
+            gsnap["logs"] = {f"{i}.{k}": host_copy(x)
+                             for i, lg in enumerate(glogs)
+                             for k, x in lg.items()}
+            gan_ms = host_ms(lambda: gfn(gstate, kf, gg), DP_TIMED)
+            runs[dp] = (snap, nsr_launches, nsr_ms, gsnap, gan_launches,
+                        gan_ms)
+    finally:
+        dist.destroy_process_group()
+    (ns, nl, nms, gs, gl, gms), (ns1, nl1, nms1, gs1, gl1, gms1) = \
+        runs[False], runs[True]
+    bad = same_bits(ns, ns1) + same_bits(gs, gs1)
+    check(not bad, f"[20a] dp steps at world 1 differ from the plain steps: "
+                   f"{bad[:8]}")
+    check(nl == nl1 and gl == gl1 and nl["pixel_rays"] == DP_STEPS
+          and gl["ric_conv_bwd"] == BWD_PER_STEP * DP_STEPS,
+          f"[20a] launches: NSR plain {nl}, dp {nl1}; stage 3 plain {gl}, "
+          f"dp {gl1}")
+    report(f"[20a] NCCL process group of 1 rank in process: {DP_STEPS} dp "
+           f"steps of each training bit-identical to the plain steps "
+           f"(parameters, gradients, moments, batch statistics, logs), the "
+           f"same launches (NSR {nl1}; stage 3 {gl1}); ms a step, host "
+           f"synchronised, {DP_TIMED} steps at world size 1: NSR plain "
+           f"{nms:.2f}, dp {nms1:.2f}; stage 1 plain {gms:.2f}, dp "
+           f"{gms1:.2f}")
+    return {"nsr_ms": nms1, "gan_ms": gms1, "nsr_plain_ms": nms,
+            "gan_plain_ms": gms}
+
+
+def host_ms(fn, steps: int) -> float:
+    """Host-clock ms a call of ``fn`` over ``steps`` calls, synchronised
+    at both ends."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(steps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.time() - t0) / steps
+
+
+def launches_by_kernel() -> dict:
+    from drawingspinup_torch.kernels import hashgrid as hk
+    from drawingspinup_torch.kernels import pixel_rays as pr
+    from drawingspinup_torch.kernels import ric_conv as rk
+
+    return {"ric_conv_fwd": rk.LAUNCHES, "ric_conv_bwd": rk.BWD_LAUNCHES,
+            "hashgrid_fwd": hk.FWD_LAUNCHES + hk.FWD_JAC_LAUNCHES,
+            "hashgrid_bwd": hk.BWD_LAUNCHES, "pixel_rays": pr.LAUNCHES,
+            "row_gather": hk.GATHER_LAUNCHES}
+
+
+def forbid_writes(root: str) -> list:
+    """Make every write under ``root`` in this process raise; returns the
+    list that records the paths it was asked to write."""
+    import builtins
+    import functools
+
+    root = os.path.realpath(root)
+    attempts = []
+
+    def guard(fn, writes):
+        @functools.wraps(fn)
+        def wrapped(path, *args, **kwargs):
+            if isinstance(path, (str, os.PathLike)) and os.path.realpath(
+                    path).startswith(root + os.sep) \
+                    and writes(*args, **kwargs):
+                attempts.append(os.fspath(path))
+                raise PermissionError(f"a rank other than 0 wrote {path}")
+            return fn(path, *args, **kwargs)
+        return wrapped
+
+    builtins.open = guard(builtins.open, lambda mode="r", *a, **k: any(
+        c in k.get("mode", mode) for c in "wax+"))
+    os.makedirs = guard(os.makedirs, lambda *a, **k: True)
+    os.mkdir = guard(os.mkdir, lambda *a, **k: True)
+    return attempts
+
+
+def dp_rank_steps(root: str, device, rank: int, world: int) -> dict:
+    """(b) on one rank: one dp step of each training at full width on this
+    rank's shard, then DP_TIMED more, timed."""
+    import torch
+
+    from drawingspinup_torch.parallel import mesh
+    from drawingspinup_torch.train import gan, gan_parallel, nsr, \
+        nsr_parallel
+
+    cfg, data, n_active = dp_nsr(root, device)
+    v, h, w = data["masks"].shape
+    state = nsr.init_state(cfg, SEED, device)
+    step = nsr_parallel.make_train_step_dp(cfg, nsr.make_optimizer(cfg),
+                                           world)
+    g = torch.Generator(device=device).manual_seed(mesh.rank_seed(SEED + 1))
+    logs = step(state, data, nsr.make_draws(step.draw_cfg, v, h, w, g,
+                                            device), n_active=n_active)
+    out = {"nsr": nsr_snapshot(state),
+           "nsr_logs": {k: host_copy(x) for k, x in logs.items()}}
+    out["nsr_ms"] = host_ms(lambda: step(state, data, nsr.make_draws(
+        step.draw_cfg, v, h, w, g, device), n_active=n_active), DP_TIMED)
+    gcfg, kf = dp_gan(root, device)
+    gstate = gan.init_state(gcfg, device, SEED)
+    gstep = gan_parallel.make_train_step_dp(gcfg, world)
+    gg = torch.Generator(device=device).manual_seed(mesh.rank_seed(SEED + 1))
+    glogs = gstep(gstate, kf, gg)
+    out["gan"] = gan_snapshot(gstate)
+    out["gan_logs"] = {k: host_copy(x) for k, x in glogs.items()}
+    out["gan_ms"] = host_ms(lambda: gstep(gstate, kf, gg), DP_TIMED)
+    out["per_rank"] = (step.rays_per_rank, gstep.per_rank)
+    return out
+
+
+def dp_rank_sweep(root: str, device, rank: int, world: int) -> dict:
+    """(c) on one rank: run_sweep's recon and train_style stages for
+    DP_UID over the ranks; the kernel launches of this rank, the final
+    parameters of each training, and (rank 1) the writes it attempted."""
+    import torch
+
+    from drawingspinup_torch.cli import sweep as sweep_cli
+    from drawingspinup_torch.pipelines import stage2_recon, sweep
+    from drawingspinup_torch.train import gan, nsr
+
+    dp_root = os.path.join(root, "dp")
+    attempts = forbid_writes(dp_root) if rank else []
+    seen = {}
+
+    def spy(module, name: str, index: int):
+        fn = getattr(module, name)
+
+        def wrapped(*args, **kwargs):
+            seen[name] = args[index]
+            return fn(*args, **kwargs)
+        setattr(module, name, wrapped)
+
+    spy(nsr, "train_step", 2)
+    spy(gan, "train_step_on_batch", 1)
+    fns = sweep_cli.stage_functions(
+        dp_root, str(device), recon_overrides=list(RECON_OVERRIDES),
+        train_args=[["--max-batches", str(n), "--seed", str(SEED)]
+                    for n in TRAIN_BATCHES], allow_degraded=True)
+    zero_launches()
+    t0 = time.time()
+    result = sweep.run_sweep(dp_root, os.path.join(dp_root, "uids.json"),
+                             {s: fns[s] for s in DP_SWEEP_STAGES})
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    stats = stage2_recon.LAST_STATS
+    return {"result": result, "launches": launches_by_kernel(),
+            "field_evals": stats.get("export", {}).get("field_evals"),
+            "recon_steps": stats["steps"], "wall": wall,
+            "nsr": {n: host_copy(p)
+                    for n, p in nsr.named_leaves(seen["train_step"].params)},
+            "gan": gan_snapshot(seen["train_step_on_batch"]),
+            "attempts": attempts}
+
+
+def dp_rank(task: str, rank: int, world: int, root: str, tmp: str) -> None:
+    """A spawned rank of phase 20: join the gloo group on cuda:0 as
+    torchrun's variables say, run ``task``, save what it saw."""
+    import torch
+    import torch.distributed as dist
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK="0")
+    from drawingspinup_torch.parallel import mesh
+
+    _, _, device = mesh.init_dp("cuda:0", backend="gloo",
+                                init_method=f"file://{tmp}/store_{task}")
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            out = {"steps": dp_rank_steps, "sweep": dp_rank_sweep}[task](
+                root, device, rank, world)
+        torch.save(out, os.path.join(tmp, f"out_{task}_{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(task: str, root: str, tmp: str) -> list:
+    """DP_WORLD spawned ranks of ``task`` on the one card → their
+    outputs; a rank that has not ended in DP_JOIN_S fails the phase."""
+    import multiprocessing
+
+    import torch
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=dp_rank, args=(task, r, DP_WORLD, root, tmp))
+             for r in range(DP_WORLD)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(DP_JOIN_S)
+        check(not any(p.is_alive() for p in procs),
+              f"[20] {task}: a rank still runs after {DP_JOIN_S} s")
+        check([p.exitcode for p in procs] == [0] * DP_WORLD,
+              f"[20] {task}: rank exit codes {[p.exitcode for p in procs]}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [torch.load(os.path.join(tmp, f"out_{task}_{r}.pt"),
+                       weights_only=False) for r in range(DP_WORLD)]
+
+
+def averaged_by_hand(shards) -> None:
+    """Run each ``shard(reduce)`` in a thread of its own; ``reduce``
+    averages each tensor over the shards by hand, ``(a + b) / n`` in the
+    tensor's dtype, as the ranks' all-reduce would."""
+    import threading
+
+    import torch
+
+    n = len(shards)
+    barrier = threading.Barrier(n)
+    lists = [None] * n
+    errors = []
+
+    def make_reduce(i):
+        def reduce(tensors):
+            lists[i] = list(tensors)
+            barrier.wait()
+            if i == 0:
+                with torch.no_grad():
+                    for group in zip(*lists):
+                        if group[0] is None:
+                            continue
+                        total = group[0].clone()
+                        for t in group[1:]:
+                            total += t
+                        total /= n
+                        for t in group:
+                            t.copy_(total)
+            barrier.wait()
+        return reduce
+
+    def run(i):
+        try:
+            shards[i](make_reduce(i))
+        except Exception as e:   # reported by the caller
+            errors.append(e)
+            barrier.abort()
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    check(not errors, f"[20b] the by-hand average failed: {errors}")
+
+
+def phase_dp_two_ranks(root: str, device, tmp: str) -> dict:
+    """(b) two gloo ranks on the one card, one dp step of each training at
+    full width, against the shards computed in this process, their
+    gradients averaged by hand, then one update."""
+    import dataclasses
+
+    import torch
+
+    from drawingspinup_torch.parallel import mesh
+    from drawingspinup_torch.pipelines.stage3_data import sample_patches
+    from drawingspinup_torch.train import gan, nsr
+
+    outs = spawn_ranks("steps", root, tmp)
+    for part in ("nsr", "gan"):
+        bad = same_bits(outs[0][part], outs[1][part])
+        check(not bad, f"[20b] ranks' {part} states differ: {bad[:8]}")
+    cfg, data, n_active = dp_nsr(root, device)
+    v, h, w = data["masks"].shape
+    rays, patches = outs[0]["per_rank"]
+    draw_cfg = dataclasses.replace(cfg, train_num_rays=rays)
+    states = [nsr.init_state(cfg, SEED, device) for _ in range(DP_WORLD)]
+    logs = [None] * DP_WORLD
+
+    def nsr_shard(r):
+        def run(reduce):
+            g = torch.Generator(device=device).manual_seed(
+                mesh.rank_seed(SEED + 1, r))
+            logs[r] = nsr.train_step(
+                cfg, nsr.make_optimizer(cfg), states[r], data,
+                nsr.make_draws(draw_cfg, v, h, w, g, device),
+                n_active=n_active, reduce=reduce)
+        return run
+
+    averaged_by_hand([nsr_shard(r) for r in range(DP_WORLD)])
+    want = nsr_snapshot(states[0])
+    got = outs[0]["nsr"]
+    worst = {"loss": max(abs(outs[0]["nsr_logs"][k].item() - x.item())
+                         / max(abs(x.item()), 1e-30)
+                         for k, x in logs[0].items())}
+    worst["grad"] = max(rel_l2(got["grads"][n], g_)
+                        for n, g_ in want["grads"].items() if g_ is not None)
+    p0 = nsr_snapshot(nsr.init_state(cfg, SEED, device))["params"]
+    worst["param"] = max(rel_l2(got["params"][n] - x, want["params"][n] - x)
+                         for n, x in p0.items()
+                         if want["grads"][n] is not None)
+    check(worst["loss"] <= DP_NSR_LOSS_TOL and worst["grad"] <= GRAD_REL_TOL
+          and worst["param"] <= GRAD_REL_TOL,
+          f"[20b] NSR dp step against the by-hand average: {worst}")
+    nsr_worst = worst
+
+    gcfg, kf = dp_gan(root, device)
+    gstates = [gan.init_state(gcfg, device, SEED) for _ in range(DP_WORLD)]
+    glogs = [None] * DP_WORLD
+
+    def gan_shard(r):
+        def run(reduce):
+            g = torch.Generator(device=device).manual_seed(
+                mesh.rank_seed(SEED + 1, r))
+            batch = sample_patches(kf, g, patches, gcfg.patch_size)
+            glogs[r] = gan.train_step_on_batch(gcfg, gstates[r], batch,
+                                               reduce=reduce)
+        return run
+
+    averaged_by_hand([gan_shard(r) for r in range(DP_WORLD)])
+    gwant = gan_snapshot(gstates[0])
+    ggot = outs[0]["gan"]
+    g0 = gan_snapshot(gan.init_state(gcfg, device, SEED), stepped=False)
+    worst = {"loss": max(abs(outs[0]["gan_logs"][k].item() - x.item())
+                         / max(abs(x.item()), 1e-30)
+                         for k, x in glogs[0].items())}
+    worst["grad"] = max(rel_l2(ggot[part][n], x)
+                        for part in ("gen_grads", "disc_grads")
+                        for n, x in gwant[part].items())
+    worst["param"] = max(rel_l2(ggot[part][n] - g0[part][n],
+                                x - g0[part][n])
+                         for part in ("gen", "disc")
+                         for n, x in gwant[part].items())
+    check(worst["loss"] <= STEP_REL_TOL and worst["grad"] <= GRAD_REL_TOL
+          and worst["param"] <= GRAD_REL_TOL,
+          f"[20b] stage-3 dp step against the by-hand average: {worst}")
+    nsr_bytes = sum(x.numel() * x.element_size()
+                    for x in want["grads"].values() if x is not None) \
+        + 4 * len(logs[0])
+    gan_bytes = sum(x.numel() * x.element_size()
+                    for part in ("gen_grads", "disc_grads")
+                    for x in gwant[part].values()) \
+        + sum(x.numel() * x.element_size() for k, x in gwant["gen"].items()
+              if "running_" in k) + 4 * len(glogs[0])
+    nsr_ms = [o["nsr_ms"] for o in outs]
+    gan_ms = [o["gan_ms"] for o in outs]
+    report(f"[20b] {DP_WORLD} gloo ranks on one card (spawned, cuda:0 "
+           f"each): one dp step of each training at full width, the two "
+           f"ranks' parameters, gradients and moments bit-identical; "
+           f"against the shards computed in one process, averaged by "
+           f"hand, then one update: NSR ({rays} rays a rank) losses within "
+           f"{nsr_worst['loss']:.2e}, gradients {nsr_worst['grad']:.2e}, "
+           f"updates {nsr_worst['param']:.2e} (relative L2); stage 1 "
+           f"({patches} patches a rank) losses within {worst['loss']:.2e}, "
+           f"gradients {worst['grad']:.2e}, updates {worst['param']:.2e}; "
+           f"all-reduce bytes a step: NSR {nsr_bytes} ({n_active} levels "
+           f"active), stage 1 {gan_bytes}; ms a step, host synchronised, "
+           f"{DP_TIMED} steps, ranks 0 and 1 sharing the card (not a "
+           f"scaling figure): NSR {nsr_ms[0]:.2f} / {nsr_ms[1]:.2f}, "
+           f"stage 1 {gan_ms[0]:.2f} / {gan_ms[1]:.2f}")
+    return {"nsr_ms": nsr_ms, "gan_ms": gan_ms, "nsr_bytes": nsr_bytes,
+            "gan_bytes": gan_bytes}
+
+
+def phase_dp_sweep(root: str, device, tmp: str) -> dict:
+    """(c) run_sweep's recon and train_style stages for one uid over two
+    gloo ranks on the card: rank 0 alone writes, the ranks end with the
+    same parameters, each rank's launches are what its steps predict."""
+    import shutil
+
+    from drawingspinup_torch.core.contract import UidPaths
+    from drawingspinup_torch.pipelines import stage2_recon, sweep
+    from drawingspinup_torch.utils.synthetic import write_sphere_mv
+
+    dp_root = os.path.join(root, "dp")
+    src, dst = UidPaths(root, SWEEP_UIDS[0]), UidPaths(dp_root, DP_UID)
+    write_sphere_mv(dp_root, DP_UID, size=RECON_SIZE)
+    shutil.copytree(src.char_dir, dst.char_dir, dirs_exist_ok=True)
+    for action in ("rest_pose",) + ACTIONS:
+        for kind in ("color", "pos", "edge"):
+            shutil.copytree(os.path.join(src.action_dir(action), kind),
+                            os.path.join(dst.action_dir(action), kind))
+    with open(os.path.join(dp_root, "uids.json"), "w") as f:
+        json.dump([DP_UID], f)
+    outs = spawn_ranks("sweep", root, tmp)
+    check(outs[1]["attempts"] == [],
+          f"[20c] rank 1 wrote {outs[1]['attempts'][:4]}")
+    for o in outs:
+        check(o["result"] == {"ok": [DP_UID], "failed": []},
+              f"[20c] sweep result {o['result']}")
+    bad = same_bits({"nsr": outs[0]["nsr"]}, {"nsr": outs[1]["nsr"]}) \
+        + same_bits(outs[0]["gan"], outs[1]["gan"])
+    check(not bad, f"[20c] the ranks' final parameters differ: {bad[:8]}")
+    with open(os.path.join(dp_root, "sweep_log.jsonl")) as f:
+        log = [(r["uid"], r["stage"]) for r in map(json.loads, f)]
+    check(log == [(DP_UID, s) for s in DP_SWEEP_STAGES] + [(DP_UID, "done")],
+          f"[20c] sweep log {log}")
+    steps = recon_config().max_steps
+    name = stage2_recon.export_name(steps, RECON_MC, RECON_FACES, True,
+                                    True, False, True, True) + ".obj"
+    check(os.path.exists(os.path.join(dst.mesh_dir, name))
+          and os.listdir(os.path.join(dst.mesh_dir, "ckpt"))
+          == [f"step_{steps}.pt"]
+          and sweep.stage_done(dst, "train_style"),
+          f"[20c] rank 0's outputs: {sorted(os.listdir(dst.mesh_dir))}")
+    n_frames = len(ACTIONS) * FRAMES_PER_ACTION + 1
+    for r, o in enumerate(outs):
+        evals = o["field_evals"] if r == 0 else 0
+        want = {"ric_conv_fwd": FWD_PER_STEP * TRAIN_BATCHES[0]
+                + (RIC_PER_FRAME * n_frames if r == 0 else 0),
+                "ric_conv_bwd": BWD_PER_STEP * TRAIN_BATCHES[0],
+                "hashgrid_fwd": 2 * steps + (evals or 0),
+                "hashgrid_bwd": steps, "pixel_rays": steps, "row_gather": 0}
+        check(o["recon_steps"] == steps and (r or evals)
+              and o["launches"] == want,
+              f"[20c] rank {r} launches {o['launches']}, expected {want} "
+              f"({steps} recon steps, {TRAIN_BATCHES[0]} stage-1 steps, "
+              f"rank 0's export evaluations {evals} and {n_frames} eval "
+              f"frames)")
+    report(f"[20c] run_sweep of {', '.join(DP_SWEEP_STAGES)} for {DP_UID} "
+           f"over {DP_WORLD} gloo ranks on one card (recon {steps} steps, "
+           f"stage-3 --max-batches {TRAIN_BATCHES}): done on both ranks, "
+           f"rank 0 alone wrote the OBJ, the checkpoints and the log (each "
+           f"write under the data root raises on rank 1), the final NSR and "
+           f"stage-2 parameters bit-identical across the ranks; launches "
+           f"per rank as the steps predict: rank 0 {outs[0]['launches']}, "
+           f"rank 1 {outs[1]['launches']}; wall {outs[0]['wall']:.1f} s")
+    return {"launches": [o["launches"] for o in outs],
+            "wall": outs[0]["wall"]}
+
+
+def phase_dp(root: str, device) -> dict:
+    """Phase 20: (a) NCCL at world size 1, (b) two gloo ranks on the card,
+    (c) the latency sweep's training stages over those two ranks."""
+    tmp = os.path.join(root, "dp_ranks")
+    os.makedirs(tmp)
+    one = phase_dp_world1(root, device, tmp)
+    two = phase_dp_two_ranks(root, device, tmp)
+    sweep_run = phase_dp_sweep(root, device, tmp)
+    return {"world1": one, "two": two, "sweep": sweep_run}
+
+
 def kernels_line(per_shape, serving_launches, train_shapes, fwd_launches,
                  bwd_launches, hg_uniform, hg_rays, gather, gather_main,
-                 pixel, recon_launches, sweep_launches) -> dict:
+                 pixel, recon_launches, sweep_launches, dp_launches
+                 ) -> dict:
     """The ``kernels`` JSON object from the phases' results: per kernel its
     launches on the main paths (``launches``: the stage-3 training path for
     the RIC kernels, the recon CLI for the rest; ``launches_sweep``: phase
-    17's sweep of two uids), error, times, bound and yardstick; the hash
+    17's sweep of two uids; ``launches_dp_ranks``: each rank's in phase
+    20's sweep over two ranks), error, times, bound and yardstick; the hash
     grid's at the production step on its own ray-ordered points, the
     uniform points' beside; the row gather, which the recon step no longer
     launches, inside the pixel-ray kernel's entry that took its place."""
@@ -3268,6 +3875,7 @@ def kernels_line(per_shape, serving_launches, train_shapes, fwd_launches,
     }]}
     for k in line["kernels"]:
         k["launches_sweep"] = sweep_launches[k["name"]]
+        k["launches_dp_ranks"] = [r[k["name"]] for r in dp_launches]
     return line
 
 
@@ -3313,13 +3921,14 @@ def main() -> int:
         sweep_run = phase_sweep(root, device)
         phase_lama_train(root, device)
         phase_lama_regular(root, device)
+        dp_run = phase_dp(root, device)
 
     report(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} s "
            f"(the builds included)")
     print(json.dumps(kernels_line(
         per_shape, serving_launches, train_shapes, fwd_launches, bwd_launches,
         hg_uniform, hg_rays, gather, gather_main, pixel, recon_launches,
-        sweep_run["launches"])))
+        sweep_run["launches"], dp_run["sweep"]["launches"])))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

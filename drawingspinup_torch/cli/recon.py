@@ -2,10 +2,13 @@
 
 ``python -m drawingspinup_torch.cli.recon --uid <uid> --root <root>
 [--config path.yaml] [--device cuda|cpu] [key=value ...]``; with no
-``--uid`` it runs the uid list in sequence. A uid on the thinning list
-(``dataset.thinning_uid_list_file``) is exported with its thin parts
-flattened (``export.thinning``, ``export.thinning_type``). The flags and
-overrides of ``drawingspinup_tpu/cli/recon.py``, without ``--prewarm``.
+``--uid`` it runs the uid list in sequence. Under
+``python -m torch.distributed.run --nproc-per-node N`` each uid trains
+data-parallel over the N GPUs, one rank a GPU, and rank 0 writes. A uid
+on the thinning list (``dataset.thinning_uid_list_file``) is exported
+with its thin parts flattened (``export.thinning``,
+``export.thinning_type``). The flags and overrides of
+``drawingspinup_tpu/cli/recon.py``, without ``--prewarm``.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ DEFAULT_CFG = os.path.join(os.path.dirname(__file__), "..", "configs",
 
 
 def main(argv=None) -> int:
-    from drawingspinup_torch.core import device as device_setup
+    from drawingspinup_torch.parallel import mesh
 
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--config", default=DEFAULT_CFG)
@@ -31,7 +34,7 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("overrides", nargs="*")
     args = ap.parse_args(argv)
-    device = device_setup.setup(args.device)
+    device = mesh.entry_device(args.device)
 
     cfg = load_config(args.config, args.overrides)
     root = args.root or cfg.dataset.data_root
@@ -60,7 +63,7 @@ def main(argv=None) -> int:
             seed=cfg.get("seed", 123456),
             im_size=cfg.dataset.get("imSize", [1024, 1024])[0],
             export_uv=exp.get("export_uv", False)))
-    print(json.dumps({"written": written}))
+    mesh.print_main(json.dumps({"written": written}))
     return 0
 
 

@@ -7,18 +7,30 @@ u.json [--stages stage1,mv,recon,render,train_style,gif] [--shard 0/4]
 Each stage runs the port's single-uid CLIs in process (``stage_functions``);
 a failure is isolated to its uid and logged to ``<root>/sweep_log.jsonl``
 (``pipelines/sweep.py``). The flags of ``drawingspinup_tpu/cli/sweep.py``,
-plus ``--device``. ``--pin-chip k`` restricts the process to GPU ``k``
-(``CUDA_VISIBLE_DEVICES``, set before CUDA initialises), for one sweep
-process per GPU with ``--shard k/n``. ``--mode latency`` (every uid over
-all local GPUs) is not ported: with more than one visible GPU it raises,
-with one it runs the single-GPU path. JAX's prewarm thread and its
-``TPU_*`` variables work around TPU program loads and have no counterpart.
+plus ``--device``. ``--mode throughput``: ``--pin-chip k`` restricts the
+process to GPU ``k`` (``CUDA_VISIBLE_DEVICES``, set before CUDA
+initialises), for one sweep process per GPU with ``--shard k/n``.
+``--mode latency`` (the default without ``--pin-chip``, as in JAX): every
+uid over all local GPUs, one process a GPU,
+
+    python -m torch.distributed.run --nproc-per-node N \
+        -m drawingspinup_torch.cli.sweep --mode latency --root ... --uids ...
+
+recon and train_style train data-parallel over the ranks, the other stages
+run on rank 0 while the others wait (stage 2a's batch split is not
+ported), and rank 0 keeps the log. JAX runs one SPMD process over its
+chips; torch has no counterpart, so without torchrun and with more than
+one visible GPU latency mode raises and names that line; with one GPU it
+runs the single-GPU path. JAX's prewarm thread and its ``TPU_*`` variables
+work around TPU program loads and have no counterpart.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import shlex
+import sys
 from typing import Callable, Dict, Sequence
 
 from drawingspinup_torch.pipelines.sweep import STAGES
@@ -87,8 +99,11 @@ def main(argv=None) -> int:
                     default=None,
                     help="'throughput': one sweep process per GPU over a "
                          "shard of the uids (--pin-chip k --shard k/n); "
-                         "'latency': every uid over all local GPUs (not "
-                         "ported: raises with more than one visible GPU)")
+                         "'latency': every uid data-parallel over all "
+                         "local GPUs, one rank a GPU under "
+                         "'python -m torch.distributed.run "
+                         "--nproc-per-node N'. Default: throughput when "
+                         "--pin-chip is given, latency otherwise")
     ap.add_argument("--pin-chip", type=int, default=None,
                     help="restrict this process to GPU k "
                          "(CUDA_VISIBLE_DEVICES, set before CUDA starts)")
@@ -108,22 +123,32 @@ def main(argv=None) -> int:
     if args.mode == "latency" and args.pin_chip is not None:
         ap.error("--mode latency uses all local GPUs per uid; drop "
                  "--pin-chip")
+    mode = args.mode or ("latency" if args.pin_chip is None
+                         else "throughput")
+    from drawingspinup_torch.parallel import mesh
+    if mode == "throughput" and mesh.env_world_size() > 1:
+        ap.error("--mode throughput is one sweep process per GPU "
+                 "(--pin-chip k); torchrun's ranks are --mode latency")
     if args.pin_chip is not None:
         os.environ["CUDA_VISIBLE_DEVICES"] = str(args.pin_chip)
 
     import torch
 
-    from drawingspinup_torch.core import device as device_setup
     from drawingspinup_torch.core import weights_policy
     from drawingspinup_torch.pipelines import sweep as sweep_mod
 
-    device = device_setup.setup(args.device)
-    if args.mode == "latency" and device.type == "cuda" \
-            and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            f"--mode latency over {torch.cuda.device_count()} GPUs: one uid "
-            f"data-parallel across GPUs is not ported (ROADMAP.md queue 1, "
-            f"multi-GPU); use --mode throughput --pin-chip k --shard k/n")
+    device = mesh.entry_device(args.device)
+    n_gpus = torch.cuda.device_count() if device.type == "cuda" else 0
+    if mode == "latency" and mesh.world_size() == 1 and n_gpus > 1:
+        rest = list(sys.argv[1:] if argv is None else argv)
+        if "--mode" in rest:
+            i = rest.index("--mode")
+            del rest[i:i + 2]
+        raise RuntimeError(
+            f"--mode latency over {n_gpus} GPUs runs one process a GPU: "
+            f"python -m torch.distributed.run --nproc-per-node {n_gpus} "
+            f"-m drawingspinup_torch.cli.sweep --mode latency "
+            f"{shlex.join(rest)}")
     stages = args.stages.split(",")
     unknown = sorted(set(stages) - set(STAGES))
     if unknown:
@@ -147,7 +172,7 @@ def main(argv=None) -> int:
                                      resume=not args.no_resume)
     finally:
         weights_policy.set_strict(False)
-    print(json.dumps({k: len(v) for k, v in result.items()}))
+    mesh.print_main(json.dumps({k: len(v) for k, v in result.items()}))
     return 0
 
 

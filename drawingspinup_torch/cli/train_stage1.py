@@ -1,6 +1,8 @@
 """Stage-3 CLI — train the stage-1 style translator for one uid (PyTorch
 port of ``drawingspinup_tpu/cli/train_stage1.py``: the same flags, plus
-``--device`` and ``--seed``)."""
+``--device`` and ``--seed``). Under ``python -m torch.distributed.run
+--nproc-per-node N`` the patch batch is data-parallel over the N GPUs,
+one rank a GPU, and rank 0 writes."""
 from __future__ import annotations
 
 import argparse
@@ -27,6 +29,7 @@ def run(stage: int, argv=None, description: str = __doc__) -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     from drawingspinup_torch.core import weights_policy
+    from drawingspinup_torch.parallel import mesh
     from drawingspinup_torch.pipelines import stage3_translate as st
     from drawingspinup_torch.train import gan
 
@@ -41,7 +44,7 @@ def run(stage: int, argv=None, description: str = __doc__) -> int:
         st.train_stage(args.root or extras["root_dir"], args.uid, stage,
                        use_mask=use_mask, use_pos=use_pos, seed=args.seed,
                        cfg=cfg, max_batches=args.max_batches,
-                       device=args.device)
+                       device=mesh.entry_device(args.device))
     finally:
         weights_policy.set_strict(False)
     return 0

@@ -1,0 +1,168 @@
+"""Process groups for the data-parallel trainings (counterpart of
+``drawingspinup_tpu/parallel/mesh.py``).
+
+JAX runs one SPMD process over a ``(dp, tp)`` device mesh: ``shard_map``
+hands each device its shard and ``lax.pmean`` averages over ``dp``. The
+port runs one process a GPU, as torchrun starts them: each rank samples and
+renders its own shard, ``all_mean_`` averages what JAX ``pmean``s, and
+every rank applies the same update, so all ranks hold the same bits. With
+one rank (no process group) every entry point takes its plain path. The
+tensor-parallel axis (``shard_params_tp``) is not ported.
+
+NCCL reduces CUDA tensors and gloo CPU tensors, unless the caller names a
+backend; gloo also reduces CUDA tensors, through the host, which lets two
+ranks share one card.
+"""
+from __future__ import annotations
+
+import os
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, TypeVar
+
+import torch
+import torch.distributed as dist
+
+from drawingspinup_torch.core import device as device_setup
+
+T = TypeVar("T")
+
+# Rank r's random stream of a training seeded s starts from
+# s + r * RANK_SEED_STRIDE (a prime): rank 0's is the plain path's own.
+RANK_SEED_STRIDE = 1_000_003
+
+
+def env_world_size() -> int:
+    """torchrun's ``WORLD_SIZE``, 1 outside torchrun."""
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
+def world_size() -> int:
+    """Ranks of the default process group; 1 when none was joined."""
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def is_main() -> bool:
+    return rank() == 0
+
+
+def print_main(*args, **kwargs) -> None:
+    """``print`` on rank 0 alone."""
+    if is_main():
+        print(*args, **kwargs)
+
+
+def rank_seed(seed: int, rank_: Optional[int] = None) -> int:
+    """This rank's seed of a random stream seeded ``seed``."""
+    return seed + (rank() if rank_ is None else rank_) * RANK_SEED_STRIDE
+
+
+def init_dp(device=None, backend: Optional[str] = None,
+            init_method: Optional[str] = None
+            ) -> Tuple[int, int, torch.device]:
+    """Join the default process group as torchrun's ``RANK``,
+    ``WORLD_SIZE`` and ``LOCAL_RANK`` say (or keep the one joined) →
+    (rank, world size, this rank's device).
+
+    device: None or a bare ``"cuda"`` is ``cuda:{LOCAL_RANK}``; an indexed
+    device is kept. backend: NCCL for a CUDA device, gloo for the CPU.
+    init_method: torchrun's ``env://`` (``MASTER_ADDR``, ``MASTER_PORT``)
+    unless given, e.g. ``file://<path>`` for ranks on one host."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+    dev = device_setup.setup(dev)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    if not dist.is_initialized():
+        dist.init_process_group(
+            backend or ("nccl" if dev.type == "cuda" else "gloo"),
+            init_method=init_method or "env://",
+            rank=int(os.environ.get("RANK", "0")),
+            world_size=env_world_size())
+    return dist.get_rank(), dist.get_world_size(), dev
+
+
+def entry_device(device) -> torch.device:
+    """The device of a CLI: this rank's (``init_dp``) under torchrun with
+    more than one rank or in a process group already joined, else
+    ``device`` as ``core/device.py`` sets it up."""
+    if dist.is_initialized() or env_world_size() > 1:
+        return init_dp(device)[2]
+    return device_setup.setup(device)
+
+
+def per_rank(total: int, world: int, tag: str, what: str) -> int:
+    """``ceil(total / world)``, at least 1, so that the ranks together
+    never take fewer than ``total``; notes a total that does not divide."""
+    n = max(-(-total // world), 1)
+    if n * world != total and is_main():
+        print(f"[{tag}] {what} {total} not divisible by dp={world}: using "
+              f"{n}/device ({n * world} total)")
+    return n
+
+
+@torch.no_grad()
+def all_mean_(tensors: Sequence[Optional[torch.Tensor]]) -> None:
+    """Average ``tensors`` over the ranks in place, as ``lax.pmean``: the
+    tensors of one dtype flattened into one bucket, one
+    ``all_reduce(SUM)`` a bucket, divided by the world size in that dtype,
+    copied back. None entries (a locked hash level's gradient) are
+    skipped: every rank passes the same list, its Nones at the same
+    places. Without a process group there is nothing to average."""
+    if not dist.is_initialized():
+        return
+    world = world_size()
+    buckets: Dict[torch.dtype, List[torch.Tensor]] = {}
+    for t in tensors:
+        if t is not None:
+            buckets.setdefault(t.dtype, []).append(t)
+    for group in buckets.values():
+        flat = torch.cat([t.reshape(-1) for t in group])
+        dist.all_reduce(flat)
+        flat /= world
+        for t, part in zip(group, flat.split([t.numel() for t in group])):
+            t.copy_(part.view(t.shape))
+
+
+def broadcast(obj: T) -> T:
+    """Rank 0's ``obj`` (picklable) on every rank."""
+    if world_size() == 1:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def any_rank(flag: bool) -> bool:
+    """Whether ``flag`` holds on any rank (on every rank alike)."""
+    if world_size() == 1:
+        return flag
+    flags: List[Optional[bool]] = [None] * world_size()
+    dist.all_gather_object(flags, bool(flag))
+    return any(flags)
+
+
+def on_main(fn: Callable[[], T]) -> T:
+    """``fn()`` on rank 0 alone: every rank waits for it and returns its
+    (picklable) result, or raises when it raised (rank 0 its own
+    exception, the others a ``RuntimeError`` naming it). The ranks' one
+    barrier: a bare barrier would leave them waiting for a rank 0 that
+    raised."""
+    if world_size() == 1:
+        return fn()
+    error: Optional[Exception] = None
+    outcome: Tuple[Optional[T], Optional[str]] = (None, None)
+    if is_main():
+        try:
+            outcome = (fn(), None)
+        except Exception as e:  # every rank must reach the broadcast
+            error, outcome = e, (None, f"{type(e).__name__}: {e}")
+    result, failure = broadcast(outcome)
+    if error is not None:
+        raise error
+    if failure is not None:
+        raise RuntimeError(f"rank 0 failed: {failure}")
+    return result

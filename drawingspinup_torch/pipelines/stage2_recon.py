@@ -14,6 +14,7 @@ lives in ``stage2_data.py`` and the export in ``stage2_export.py``.
 """
 from __future__ import annotations
 
+import functools
 import os
 import time
 from typing import Any, Dict
@@ -29,9 +30,10 @@ from drawingspinup_torch.models.fields import (
     MLPConfig, RadianceConfig, SDFFieldConfig,
 )
 from drawingspinup_torch.models.hashgrid import HashGridConfig
+from drawingspinup_torch.parallel import mesh
 from drawingspinup_torch.pipelines import stage2_data, stage2_export
 from drawingspinup_torch.render import mesh_post
-from drawingspinup_torch.train import nsr
+from drawingspinup_torch.train import nsr, nsr_parallel
 
 # Timings and counts of the last ``recon_uid`` run in this process: ms per
 # step of each band phase (host synchronised at the phase boundaries), the
@@ -89,7 +91,13 @@ def recon_uid(root: str, uid: str, cfg: nsr.NSRConfig, *,
               seed: int = 123456, im_size: int = 1024, log_every: int = 100,
               export_uv: bool = False, device="cuda") -> str:
     """Train NeuS on one uid's mv/ set and export the post-processed mesh;
-    returns the OBJ's path."""
+    returns the OBJ's path.
+
+    In a process group of more than one rank the step is data-parallel
+    (``train/nsr_parallel.py``, rank r's draws from
+    ``mesh.rank_seed(seed + 1)``): the resume decision is rank 0's, rank 0
+    alone writes the checkpoint and the OBJ, and every rank returns its
+    path."""
     device = torch.device(device)
     t_entry = time.time()
     paths = UidPaths(root, uid)
@@ -104,33 +112,42 @@ def recon_uid(root: str, uid: str, cfg: nsr.NSRConfig, *,
     state = nsr.init_state(cfg, seed, device)
     ckpt_root = os.path.join(paths.mesh_dir, "ckpt")
     start_step = 0
-    latest = ckpt.latest_step(ckpt_root)
+    latest = mesh.broadcast(ckpt.latest_step(ckpt_root))   # rank 0's
     if latest is not None and latest <= cfg.max_steps:
         # the one save happens at max_steps: a resume re-exports
         saved = ckpt.restore(os.path.join(ckpt_root, f"step_{latest}.pt"))
         _restore_params(state, saved["params"])
         state.step = start_step = latest
-        print(f"[recon {uid}] resumed from step {latest}")
+        mesh.print_main(f"[recon {uid}] resumed from step {latest}")
 
-    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    # data parallel over the ranks of the process group, when it has more
+    # than one: each rank draws its own shard of the rays
+    world = mesh.world_size()
+    if world > 1:
+        step_fn = nsr_parallel.production_train_step(cfg, opt)
+        draw_cfg = step_fn.draw_cfg
+        mesh.print_main(f"[recon {uid}] data-parallel over {world} ranks")
+    else:
+        step_fn, draw_cfg = functools.partial(nsr.train_step, cfg, opt), cfg
+    gen = torch.Generator(device=device).manual_seed(mesh.rank_seed(seed + 1))
     v, h, w = data["masks"].shape
     if start_step < cfg.max_steps:              # keep the draw stream aligned
         for _ in range(start_step):
-            nsr.make_draws(cfg, v, h, w, gen, device)
+            nsr.make_draws(draw_cfg, v, h, w, gen, device)
     phase_ms: Dict[int, float] = {}
     history = []                      # (step, loss, loss_mask, inv_s)
     t0 = t_phase = time.time()
     phase_start = start_step
     for step in range(start_step, cfg.max_steps):
         n_active = cfg.sdf.grid.current_level(step)
-        draws = nsr.make_draws(cfg, v, h, w, gen, device)
-        logs = nsr.train_step(cfg, opt, state, data, draws, n_active=n_active)
+        draws = nsr.make_draws(draw_cfg, v, h, w, gen, device)
+        logs = step_fn(state, data, draws, n_active=n_active)
         if log_every and step % log_every == 0:
             loss, mask, s = (float(logs[k])
                              for k in ("loss", "loss_mask", "inv_s"))
             history.append((step, loss, mask, s))
-            print(f"[recon {uid}] step {step}: loss={loss:.4f} "
-                  f"mask={mask:.4f} inv_s={s:.1f}")
+            mesh.print_main(f"[recon {uid}] step {step}: loss={loss:.4f} "
+                            f"mask={mask:.4f} inv_s={s:.1f}")
         last = step + 1 == cfg.max_steps
         if last or cfg.sdf.grid.current_level(step + 1) != n_active:
             _sync(device)
@@ -140,70 +157,76 @@ def recon_uid(root: str, uid: str, cfg: nsr.NSRConfig, *,
             t_phase, phase_start = now, step + 1
     _sync(device)
     train_time = time.time() - t0
-
-    t0 = time.time()
-    if cfg.max_steps > start_step:
-        ckpt.save(os.path.join(ckpt_root, f"step_{cfg.max_steps}.pt"),
-                  {"params": _host_params(state.params)})
-    t_ckpt = time.time() - t0
-
-    verts, faces, times = stage2_export.export_mesh(
-        cfg, state.params, mc_resolution, cfg.max_steps, device,
-        front_mask=front_mask if front_cutting else None,
-        face_count=face_count)
-
-    front_color = read_image(paths.mv("color", "front"))[..., :3] \
-        if color_back_projection else None
-    back_color = read_image(paths.mv("color", "back"))[..., :3] \
-        if color_back_projection else None
-    drawing_mask = read_image(paths.mask)[..., 0] \
-        if os.path.exists(paths.mask) else None
-    name = export_name(cfg.max_steps, mc_resolution, face_count,
-                       front_cutting, True, thinning, smoothing,
-                       color_back_projection)
-    out_path = os.path.join(paths.mesh_dir, name + ".obj")
-
-    vert_colors = None
-    if not color_back_projection:
-        # albedo from the radiance field, band frozen at the final step
-        from drawingspinup_torch.models.fields import (
-            radiance_forward, sdf_with_grad,
-        )
-        from drawingspinup_torch.models.hashgrid import progressive_mask
-        with torch.no_grad():
-            mask = progressive_mask(cfg.sdf.grid, cfg.max_steps, device)
-            _, grad, feat = sdf_with_grad(
-                cfg.sdf, state.params["geometry"],
-                torch.as_tensor(verts, dtype=torch.float32, device=device),
-                1e-3, mask)
-            n = grad / torch.clamp(torch.linalg.norm(grad, dim=-1,
-                                                     keepdim=True), min=1e-9)
-            vert_colors = radiance_forward(
-                cfg.radiance, state.params["texture"], feat, -n,
-                n).cpu().numpy()
-    t0 = time.time()
-    mesh_post.save_mesh(
-        out_path, verts, faces, vert_colors=vert_colors,
-        front_mask=drawing_mask, front_color=front_color,
-        back_color=back_color, thinning=thinning,
-        thinning_type=thinning_type, smoothing=smoothing,
-        color_back_projection=color_back_projection, shearing=shearing,
-        ortho_scale=ortho_scale, export_uv=export_uv)
-    times["save"] = time.time() - t0
     LAST_STATS.clear()
-    LAST_STATS.update({"phase_ms": phase_ms, "export": times,
-                       "log": history, "train_s": train_time, "data_s": t_data,
-                       "ckpt_s": t_ckpt, "steps": cfg.max_steps - start_step})
-    phases = ", ".join(f"{k} levels {ms:.2f} ms/step"
-                       for k, ms in phase_ms.items())
-    parts = "  ".join(f"{k} {v:.2f}s" for k, v in times.items()
-                      if isinstance(v, float))
-    print(f"[recon {uid}] trained {cfg.max_steps} steps in {train_time:.1f}s "
-          f"→ {out_path}\n"
-          f"[recon {uid}] phases: data+hull {t_data:.1f}s  ckpt {t_ckpt:.1f}s"
-          f"  {times['chain']} export: {parts}  "
-          f"({phases or 'no training'})")
-    return out_path
+    LAST_STATS.update({"phase_ms": phase_ms, "log": history,
+                       "train_s": train_time, "data_s": t_data,
+                       "steps": cfg.max_steps - start_step, "world": world})
+    # the checkpoint, the export and the OBJ are rank 0's; the other ranks
+    # wait for its path
+
+    def save_and_export() -> str:
+        t0 = time.time()
+        if cfg.max_steps > start_step:
+            ckpt.save(os.path.join(ckpt_root, f"step_{cfg.max_steps}.pt"),
+                      {"params": _host_params(state.params)})
+        t_ckpt = time.time() - t0
+
+        verts, faces, times = stage2_export.export_mesh(
+            cfg, state.params, mc_resolution, cfg.max_steps, device,
+            front_mask=front_mask if front_cutting else None,
+            face_count=face_count)
+
+        front_color = read_image(paths.mv("color", "front"))[..., :3] \
+            if color_back_projection else None
+        back_color = read_image(paths.mv("color", "back"))[..., :3] \
+            if color_back_projection else None
+        drawing_mask = read_image(paths.mask)[..., 0] \
+            if os.path.exists(paths.mask) else None
+        name = export_name(cfg.max_steps, mc_resolution, face_count,
+                           front_cutting, True, thinning, smoothing,
+                           color_back_projection)
+        out_path = os.path.join(paths.mesh_dir, name + ".obj")
+
+        vert_colors = None
+        if not color_back_projection:
+            # albedo from the radiance field, band frozen at the final step
+            from drawingspinup_torch.models.fields import (
+                radiance_forward, sdf_with_grad,
+            )
+            from drawingspinup_torch.models.hashgrid import progressive_mask
+            with torch.no_grad():
+                mask = progressive_mask(cfg.sdf.grid, cfg.max_steps, device)
+                _, grad, feat = sdf_with_grad(
+                    cfg.sdf, state.params["geometry"],
+                    torch.as_tensor(verts, dtype=torch.float32,
+                                    device=device), 1e-3, mask)
+                n = grad / torch.clamp(torch.linalg.norm(
+                    grad, dim=-1, keepdim=True), min=1e-9)
+                vert_colors = radiance_forward(
+                    cfg.radiance, state.params["texture"], feat, -n,
+                    n).cpu().numpy()
+        t0 = time.time()
+        mesh_post.save_mesh(
+            out_path, verts, faces, vert_colors=vert_colors,
+            front_mask=drawing_mask, front_color=front_color,
+            back_color=back_color, thinning=thinning,
+            thinning_type=thinning_type, smoothing=smoothing,
+            color_back_projection=color_back_projection, shearing=shearing,
+            ortho_scale=ortho_scale, export_uv=export_uv)
+        times["save"] = time.time() - t0
+        LAST_STATS.update({"export": times, "ckpt_s": t_ckpt})
+        phases = ", ".join(f"{k} levels {ms:.2f} ms/step"
+                           for k, ms in phase_ms.items())
+        parts = "  ".join(f"{k} {v:.2f}s" for k, v in times.items()
+                          if isinstance(v, float))
+        print(f"[recon {uid}] trained {cfg.max_steps} steps in "
+              f"{train_time:.1f}s → {out_path}\n"
+              f"[recon {uid}] phases: data+hull {t_data:.1f}s  ckpt "
+              f"{t_ckpt:.1f}s  {times['chain']} export: {parts}  "
+              f"({phases or 'no training'})")
+        return out_path
+
+    return mesh.on_main(save_and_export)
 
 
 def nsr_config_from_yaml(cfg: Config) -> nsr.NSRConfig:

@@ -22,8 +22,9 @@ import yaml
 from drawingspinup_torch.core import device as device_setup
 from drawingspinup_torch.core.contract import UidPaths
 from drawingspinup_torch.core.io import write_image
+from drawingspinup_torch.parallel import mesh
 from drawingspinup_torch.pipelines import stage3_data
-from drawingspinup_torch.train import gan
+from drawingspinup_torch.train import gan, gan_parallel
 
 FINAL_STEP = 99999
 
@@ -192,7 +193,12 @@ def train_stage(root: str, uid: str, stage: int, use_mask: bool = True,
     checkpoint and an eval of ``eval_frame_limit`` frames per action every
     ``log_interval`` steps; then ``model_99999.pt`` and an eval of every
     frame of every action. The per-step losses go to
-    ``<log dir>/train_losses.json``."""
+    ``<log dir>/train_losses.json``.
+
+    In a process group of more than one rank the step is data-parallel
+    (``train/gan_parallel.py``, rank r's patches drawn from
+    ``mesh.rank_seed(seed + 1)``): rank 0 alone writes the checkpoints,
+    the evals and the loss log, and every rank returns once it has."""
     paths = UidPaths(root, uid)
     s = stage_settings(stage, use_mask, use_pos)
     cfg = cfg or make_config(stage, use_mask, use_pos)
@@ -208,7 +214,8 @@ def train_stage(root: str, uid: str, stage: int, use_mask: bool = True,
 
     log_dir = os.path.join(paths.mesh_dir,
                            log_name_for(stage, use_mask, use_pos))
-    os.makedirs(log_dir, exist_ok=True)
+    if mesh.is_main():
+        os.makedirs(log_dir, exist_ok=True)
     res_name = res_dir_name(stage, use_mask, use_pos)
     actions = sorted(d for d in os.listdir(render_root)
                      if os.path.isdir(os.path.join(render_root, d)))
@@ -217,7 +224,16 @@ def train_stage(root: str, uid: str, stage: int, use_mask: bool = True,
     total = cfg.epochs * max(data.n_valid // cfg.batch_size, 1)
     if max_batches is not None:
         total = min(total, max_batches)
-    generator = torch.Generator(device=dev).manual_seed(seed + 1)
+    # data parallel over the ranks of the process group, when it has more
+    # than one: each rank cuts its own share of the patch batch
+    world = mesh.world_size()
+    if world > 1:
+        step_fn = gan_parallel.production_train_step(cfg)
+        mesh.print_main(f"[stage{stage} {uid}] patch-dp over {world} ranks")
+    else:
+        step_fn = functools.partial(gan.train_step, cfg)
+    generator = torch.Generator(device=dev).manual_seed(
+        mesh.rank_seed(seed + 1))
     # losses stay on the device and are read at log_interval and at the end
     losses = torch.zeros((total, len(gan.LOSS_NAMES)), device=dev)
     evaluate = functools.partial(
@@ -226,9 +242,11 @@ def train_stage(root: str, uid: str, stage: int, use_mask: bool = True,
     t0 = time.time()
     t_eval = t_ckpt = 0.0
     for b in range(total):
-        logs = gan.train_step(cfg, state, data, generator)
+        logs = step_fn(state, data, generator)
         losses[b] = torch.stack([logs[k] for k in gan.LOSS_NAMES])
-        if (b + 1) % cfg.log_interval == 0:
+        # checkpoints, evals and the loss log are rank 0's; the other ranks
+        # go on to the next step's all-reduce and wait there
+        if (b + 1) % cfg.log_interval == 0 and mesh.is_main():
             d_loss, g_loss = losses[b, :2].tolist()   # syncs the host
             print(f"[stage{stage} {uid}] batch {b + 1}/{total} "
                   f"g={g_loss:.4f} d={d_loss:.4f}")
@@ -239,19 +257,24 @@ def train_stage(root: str, uid: str, stage: int, use_mask: bool = True,
             t_ckpt += te - tc
             t_eval += time.time() - te
     _sync(dev)
-    tc = time.time()
-    gan.save_checkpoint(log_dir, state.gen, FINAL_STEP)
-    te = time.time()
-    evaluate()
-    t_ckpt += te - tc
-    t_eval += time.time() - te
-    wall = time.time() - t0
-    steps_wall = wall - t_eval - t_ckpt
-    with open(os.path.join(log_dir, "train_losses.json"), "w") as f:
-        json.dump(dict(zip(gan.LOSS_NAMES, losses.T.tolist())), f)
-    print(f"[stage{stage} {uid}] {total} batches in {wall:.1f}s "
-          f"(steps {steps_wall:.1f}s = {1e3 * steps_wall / max(total, 1):.1f} "
-          f"ms/step, eval {t_eval:.1f}s, ckpt {t_ckpt:.1f}s)")
+
+    def finish() -> None:
+        nonlocal t_ckpt, t_eval
+        tc = time.time()
+        gan.save_checkpoint(log_dir, state.gen, FINAL_STEP)
+        te = time.time()
+        evaluate()
+        t_ckpt += te - tc
+        t_eval += time.time() - te
+        wall = time.time() - t0
+        steps_wall = wall - t_eval - t_ckpt
+        with open(os.path.join(log_dir, "train_losses.json"), "w") as f:
+            json.dump(dict(zip(gan.LOSS_NAMES, losses.T.tolist())), f)
+        print(f"[stage{stage} {uid}] {total} batches in {wall:.1f}s (steps "
+              f"{steps_wall:.1f}s = {1e3 * steps_wall / max(total, 1):.1f} "
+              f"ms/step, eval {t_eval:.1f}s, ckpt {t_ckpt:.1f}s)")
+
+    mesh.on_main(finish)
     return state
 
 

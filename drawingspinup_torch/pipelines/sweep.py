@@ -15,6 +15,7 @@ has no such worker, so a stage that fails is logged and not retried.
 """
 from __future__ import annotations
 
+import functools
 import os
 import time
 import traceback
@@ -23,9 +24,13 @@ from typing import Callable, Dict, List, Optional
 from drawingspinup_torch.core import weights_policy
 from drawingspinup_torch.core.contract import UidPaths, load_uid_list
 from drawingspinup_torch.core.metrics import MetricsLogger
+from drawingspinup_torch.parallel import mesh
 
 STAGES = ("stage1", "mv", "recon", "render", "train_style", "test_style",
           "gif")
+# the stages whose trainings run data-parallel over the ranks in latency
+# mode; stage 2a's batch split (JAX's ``_mv_batch_sharding``) is not ported
+DP_STAGES = ("recon", "train_style")
 
 
 def _final_checkpoint(log_dir: str) -> str:
@@ -88,47 +93,66 @@ def run_sweep(root: str, uid_json: str,
 
     ``stage_major`` runs every uid through a stage before the next stage
     (the reference's CLI order, and JAX's default); otherwise each uid runs
-    its whole chain before the next uid."""
+    its whole chain before the next uid.
+
+    In a process group of more than one rank (``--mode latency`` under
+    torchrun) every rank calls this alike: the ``DP_STAGES`` run on every
+    rank (their trainings are data-parallel), the other stages on rank 0
+    while the others wait. Rank 0 decides what is done and keeps the log;
+    a stage that failed on any rank fails the uid on every rank. A fault
+    that only one rank meets inside a data-parallel step leaves the others
+    in its all-reduce until the process group's timeout."""
     uids = load_uid_list(uid_json)[shard_index::num_shards]
-    logger = MetricsLogger(log_path or os.path.join(root, "sweep_log.jsonl"))
+    logger = MetricsLogger(log_path or os.path.join(
+        root, "sweep_log.jsonl")) if mesh.is_main() else None
     skip: Dict[str, str] = {}          # uid -> failed stage
     t_uid = {uid: 0.0 for uid in uids}
 
+    def log(**record) -> None:
+        if logger is not None:
+            logger.log(**record)
+
     def run_one(uid: str, stage: str, fn) -> None:
-        if resume and stage_done(UidPaths(root, uid), stage):
+        if resume and mesh.broadcast(stage_done(UidPaths(root, uid), stage)):
             return
         st = time.time()
+        error, trace = None, ""
         try:
-            fn(uid)
-            degraded = sorted({d["component"]
-                               for d in weights_policy.degradations()})
-            extra = {"degraded_weights": degraded} if degraded else {}
-            logger.log(uid=uid, stage=stage, seconds=time.time() - st,
-                       **extra)
-            t_uid[uid] += time.time() - st
+            if stage in DP_STAGES:
+                fn(uid)
+            else:
+                mesh.on_main(functools.partial(fn, uid))
         except Exception as e:
+            error, trace = e, traceback.format_exc()[-2000:]
+        if mesh.any_rank(error is not None):
             skip[uid] = stage
-            logger.log(uid=uid, stage="FAILED", error=str(e),
-                       traceback=traceback.format_exc()[-2000:])
-            print(f"[sweep] {uid} FAILED at {stage}: {e}")
+            msg = str(error) if error is not None else "failed on a rank"
+            log(uid=uid, stage="FAILED", error=msg, traceback=trace)
+            mesh.print_main(f"[sweep] {uid} FAILED at {stage}: {msg}")
+            return
+        degraded = sorted({d["component"]
+                           for d in weights_policy.degradations()})
+        extra = {"degraded_weights": degraded} if degraded else {}
+        log(uid=uid, stage=stage, seconds=time.time() - st, **extra)
+        t_uid[uid] += time.time() - st
 
     if stage_major:
         for stage, fn in stage_fns.items():
             for uid in uids:
                 if uid not in skip:
                     run_one(uid, stage, fn)
-            print(f"[sweep {shard_index}/{num_shards}] stage {stage} done "
-                  f"({len(skip)} failed)")
+            mesh.print_main(f"[sweep {shard_index}/{num_shards}] stage "
+                            f"{stage} done ({len(skip)} failed)")
     else:
         for i, uid in enumerate(uids):
             for stage, fn in stage_fns.items():
                 if uid in skip:
                     break
                 run_one(uid, stage, fn)
-            print(f"[sweep {shard_index}/{num_shards}] {i + 1}/{len(uids)} "
-                  f"done ({len(skip)} failed)")
+            mesh.print_main(f"[sweep {shard_index}/{num_shards}] "
+                            f"{i + 1}/{len(uids)} done ({len(skip)} failed)")
 
     ok = [u for u in uids if u not in skip]
     for uid in ok:
-        logger.log(uid=uid, stage="done", seconds=t_uid[uid])
+        log(uid=uid, stage="done", seconds=t_uid[uid])
     return {"ok": ok, "failed": [u for u in uids if u in skip]}

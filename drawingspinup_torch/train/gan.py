@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Dict, Optional, Tuple, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -158,10 +158,18 @@ def init_state(cfg: GANConfig, device: Union[str, torch.device],
 
 
 def train_step_on_batch(cfg: GANConfig, state: TrainState,
-                        batch: Dict[str, torch.Tensor]
+                        batch: Dict[str, torch.Tensor],
+                        reduce: Optional[Callable[[List[torch.Tensor]],
+                                                  None]] = None
                         ) -> Dict[str, torch.Tensor]:
     """One D update and one G update on a patch batch; returns the losses
-    as 0-d device tensors (reading them syncs the host)."""
+    as 0-d device tensors (reading them syncs the host).
+
+    reduce: averages tensors in place over data-parallel ranks
+    (``train/gan_parallel.py``), in ``gan_parallel.py``'s order: D's
+    gradients before D's update; then G's gradients, G's batch-norm
+    running statistics (its only buffers) and the losses before G's
+    update."""
     gen, disc, vgg = state.gen, state.disc, state.vgg
     gen.train()
     # one G forward: the D step reads it detached, the G loss through it
@@ -172,6 +180,8 @@ def train_step_on_batch(cfg: GANConfig, state: TrainState,
     tl = disc(batch["already"] * batch["already_mask"])
     d_loss = fl.square().mean() + (tl - 1.0).square().mean()
     d_loss.backward()
+    if reduce is not None:
+        reduce([p.grad for p in disc.parameters()])
     state.d_opt.step()
 
     # G loss against the updated D; D's parameters take no gradient here,
@@ -203,12 +213,16 @@ def train_step_on_batch(cfg: GANConfig, state: TrainState,
     for p in gen.parameters():
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    state.g_opt.step()
-    state.step += 1
-    return {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(),
+    logs = {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(),
             "image_loss": image_loss.detach(),
             "perception_loss": perception_loss.detach(),
             "adversarial_loss": adversarial_loss.detach()}
+    if reduce is not None:
+        reduce([p.grad for p in gen.parameters()] + list(gen.buffers())
+               + list(logs.values()))
+    state.g_opt.step()
+    state.step += 1
+    return logs
 
 
 def train_step(cfg: GANConfig, state: TrainState, data: KeyframeData,

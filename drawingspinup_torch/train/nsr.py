@@ -23,7 +23,9 @@ What differs from JAX, by design of the port:
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Tuple
+from typing import (
+    Any, Callable, Dict, Iterator, List, NamedTuple, Optional, Tuple,
+)
 
 import numpy as np
 import torch
@@ -448,10 +450,21 @@ def loss_and_grads(cfg: NSRConfig, state: TrainState,
 
 def train_step(cfg: NSRConfig, opt: NSROptimizer, state: TrainState,
                data: Dict[str, torch.Tensor], draws: Draws,
-               n_active: Optional[int] = None) -> Dict[str, torch.Tensor]:
+               n_active: Optional[int] = None,
+               reduce: Optional[Callable[[List[Optional[torch.Tensor]]],
+                                         None]] = None
+               ) -> Dict[str, torch.Tensor]:
     """One optimization step, in place on ``state``; returns the logs as
-    device tensors (read them only when logging: a read synchronises)."""
+    device tensors (read them only when logging: a read synchronises).
+
+    reduce: between the backward and the update, called once on the
+    leaves' gradients (None for locked levels) followed by the logs, to
+    average them in place over data-parallel ranks
+    (``train/nsr_parallel.py``)."""
     logs = loss_and_grads(cfg, state, data, draws, n_active)
+    if reduce is not None:
+        reduce([p.grad for _, p in named_leaves(state.params)]
+               + list(logs.values()))
     opt.step(state.params, state.opt_state)
     state.step += 1
     return logs

@@ -13,8 +13,9 @@ originals on the CPU.
     stage 1 and the others complete; a resumed run skips every stage of
     the finished uids; uid-major order as JAX's;
   * the CLI's flags: --mode and --pin-chip as JAX checks them,
-    CUDA_VISIBLE_DEVICES set by --pin-chip, --mode latency over two GPUs
-    raising.
+    CUDA_VISIBLE_DEVICES set by --pin-chip, --mode latency (the default
+    without --pin-chip) over two GPUs without torchrun raising with the
+    torchrun line.
 """
 
 import json
@@ -248,9 +249,13 @@ def test_cli_flags(tmp_path, monkeypatch):
     rec = _log(os.path.join(root, "sweep_log.jsonl"))
     assert [(r["uid"], r["stage"]) for r in rec] == [("u", "gif"),
                                                      ("u", "done")]
-    # latency over two visible GPUs is the multi-GPU item
+    # latency over two visible GPUs without torchrun names torchrun's line
     monkeypatch.setattr(device_setup, "setup",
                         lambda d: torch.device("cuda"))
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tcli.main(base[:4] + ["--mode", "latency"])
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    line = ("python -m torch.distributed.run --nproc-per-node 2 -m "
+            "drawingspinup_torch.cli.sweep --mode latency --root")
+    for extra in (["--mode", "latency"], []):
+        with pytest.raises(RuntimeError, match=line):
+            tcli.main(base[:4] + extra)

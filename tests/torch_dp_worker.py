@@ -1,0 +1,206 @@
+"""The ranks of ``tests/test_torch_parallel.py``: one spawned process a
+rank, importing torch, the port and ``chip_smoke.forbid_writes`` (no JAX,
+so that a rank starts in seconds), joined over gloo through a
+``FileStore`` in the test's directory, with one torch thread.
+
+``run(task, rank, world, tmp)`` waits for the task's inputs at
+``<tmp>/in_<task>.pt`` (the test starts the ranks first, so that they
+import torch while it computes JAX's side, and then writes them), runs
+``TASKS[kind]`` where ``kind`` is the task's name up to its first ``-``,
+and writes what the rank saw to ``<tmp>/out_<task>_<rank>.pt``.
+"""
+from __future__ import annotations
+
+import copy
+import functools
+import os
+import time
+from typing import Any, Dict
+
+import torch
+import torch.distributed as dist
+
+from chip_smoke import forbid_writes
+from drawingspinup_torch.parallel import mesh
+from drawingspinup_torch.pipelines import stage2_recon
+from drawingspinup_torch.pipelines import sweep as sweep_mod
+from drawingspinup_torch.train import gan, gan_parallel, nsr, nsr_parallel
+
+
+def _named(params) -> Dict[str, torch.Tensor]:
+    return {n: p.detach().clone() for n, p in nsr.named_leaves(params)}
+
+
+def _nsr_state(inputs: Dict[str, Any], params=None) -> nsr.TrainState:
+    return nsr.TrainState(
+        copy.deepcopy(inputs["params"] if params is None else params),
+        nsr.OptState(copy.deepcopy(inputs["mu"]),
+                     copy.deepcopy(inputs["nu"]), inputs["count"]),
+        inputs["step"])
+
+
+def nsr_task(inputs: Dict[str, Any], rank: int, world: int) -> Dict:
+    """One NSR dp step on this rank's draws; with ``ref_cfg``, also this
+    rank's gradients of the same draws under that config (f32 compute on
+    the tables as f32), averaged over the ranks."""
+    cfg = inputs["cfg"]
+    state = _nsr_state(inputs)
+    step = nsr_parallel.make_train_step_dp(cfg, nsr.make_optimizer(cfg),
+                                           world)
+    draws = inputs["draws"][rank]
+    assert draws.vi.shape[0] == step.rays_per_rank
+    logs = step(state, inputs["data"], draws, n_active=inputs["n_active"])
+    out = {"logs": {k: float(v) for k, v in logs.items()},
+           "grads": {n: None if p.grad is None else p.grad.clone()
+                     for n, p in nsr.named_leaves(state.params)},
+           "params": _named(state.params),
+           "mu": state.opt_state.mu, "nu": state.opt_state.nu,
+           "count": state.opt_state.count}
+    if inputs.get("ref_cfg") is not None:
+        ref = copy.deepcopy(inputs["params"])
+        ref["geometry"]["table"] = [
+            x.detach().float().requires_grad_(True)
+            for x in ref["geometry"]["table"]]
+        rs = _nsr_state(inputs, ref)
+        nsr.loss_and_grads(inputs["ref_cfg"], rs, inputs["data"], draws,
+                           n_active=inputs["n_active"])
+        mesh.all_mean_([p.grad for _, p in nsr.named_leaves(rs.params)])
+        out["ref_grads"] = {n: None if p.grad is None else p.grad.clone()
+                            for n, p in nsr.named_leaves(rs.params)}
+    return out
+
+
+def _gan_state(cfg: gan.GANConfig, dicts: Dict[str, Any]) -> gan.TrainState:
+    state = gan.init_state(cfg, "cpu")
+    for name in ("gen", "disc", "vgg"):
+        getattr(state, name).load_state_dict(dicts[name])
+    return state
+
+
+def _gan_out(state: gan.TrainState, logs) -> Dict:
+    return {"logs": {k: float(v) for k, v in logs.items()},
+            "gen": {k: v.clone() for k, v in state.gen.state_dict().items()},
+            "disc": {k: v.clone()
+                     for k, v in state.disc.state_dict().items()},
+            "exp_avg": {k: state.g_opt.state[p]["exp_avg"].clone()
+                        for k, p in state.gen.named_parameters()}}
+
+
+def gan_task(inputs: Dict[str, Any], rank: int, world: int) -> Dict:
+    """One stage-3 dp step on this rank's patch batch."""
+    cfg = inputs["cfg"]
+    state = _gan_state(cfg, inputs["state"])
+    step = gan_parallel.make_train_step_dp(cfg, world)
+    batch = inputs["batches"][rank]
+    assert batch["pre"].shape[0] == step.per_rank
+    return _gan_out(state, step.on_batch(state, batch))
+
+
+def world1_task(inputs: Dict[str, Any], rank: int, world: int) -> Dict:
+    """At world size 1: two plain steps and two dp steps of each training
+    from one state on the same draws → whether every parameter, moment,
+    buffer and log is bit-identical."""
+    same: Dict[str, bool] = {}
+    cfg = inputs["nsr_cfg"]
+    data = inputs["data"]
+    runs = []
+    for dp in (False, True):
+        state = _nsr_state(inputs)
+        opt = nsr.make_optimizer(cfg)
+        fn = nsr_parallel.make_train_step_dp(cfg, opt, world) if dp \
+            else functools.partial(nsr.train_step, cfg, opt)
+        logs = [fn(state, data, d, n_active=inputs["n_active"])
+                for d in inputs["draws"]]
+        runs.append((_named(state.params), state.opt_state, logs))
+    (p0, o0, l0), (p1, o1, l1) = runs
+    same["nsr_params"] = all(torch.equal(p0[n], p1[n]) for n in p0)
+    same["nsr_moments"] = all(torch.equal(o0.mu[n], o1.mu[n])
+                              and torch.equal(o0.nu[n], o1.nu[n])
+                              for n in o0.mu)
+    same["nsr_logs"] = all(torch.equal(a[k], b[k])
+                           for a, b in zip(l0, l1) for k in a)
+    gcfg = inputs["gan_cfg"]
+    runs = []
+    for dp in (False, True):
+        state = _gan_state(gcfg, inputs["gan_state"])
+        fn = gan_parallel.make_train_step_dp(gcfg, world).on_batch if dp \
+            else functools.partial(gan.train_step_on_batch, gcfg)
+        logs = [fn(state, b) for b in inputs["batches"]]
+        runs.append(_gan_out(state, logs[-1]))
+    a, b = runs
+    for part in ("gen", "disc", "exp_avg"):
+        same[f"gan_{part}"] = all(torch.equal(a[part][k], b[part][k])
+                                  for k in a[part])
+    same["gan_logs"] = a["logs"] == b["logs"]
+    return {"same": same}
+
+
+def sweep_task(inputs: Dict[str, Any], rank: int, world: int) -> Dict:
+    """``run_sweep`` of recon and train_style over the ranks through the
+    stage CLIs, then the same sweep resumed and the recon CLI resumed; on
+    ranks other than 0 every write under the root raises."""
+    from drawingspinup_torch.cli import recon as recon_cli
+    from drawingspinup_torch.cli import sweep as sweep_cli
+
+    root = inputs["root"]
+    attempts = forbid_writes(root) if rank else []
+    seen: Dict[str, Any] = {}
+
+    def spy(module, name: str, key: str, index: int):
+        fn = getattr(module, name)
+
+        @functools.wraps(fn)
+        def wrapped(*args, **kwargs):
+            seen[key] = args[index]
+            return fn(*args, **kwargs)
+        setattr(module, name, wrapped)
+
+    spy(nsr, "train_step", "nsr", 2)
+    spy(gan, "train_step_on_batch", "gan", 1)
+    fns = sweep_cli.stage_functions(
+        root, "cpu", recon_overrides=inputs["recon_overrides"],
+        train_args=inputs["train_args"], allow_degraded=True)
+    stages = {s: fns[s] for s in ("recon", "train_style")}
+    out: Dict[str, Any] = {"first": sweep_mod.run_sweep(
+        root, inputs["uids"], stages)}
+    out["recon_params"] = _named(seen["nsr"].params)
+    out["recon_stats"] = {k: stage2_recon.LAST_STATS[k]
+                          for k in ("steps", "world", "log")}
+    gstate = seen["gan"]
+    out["gan"] = {k: v.clone() for k, v in gstate.gen.state_dict().items()}
+    out["gan"].update({f"disc.{k}": v.clone()
+                       for k, v in gstate.disc.state_dict().items()})
+    out["resumed_sweep"] = sweep_mod.run_sweep(root, inputs["uids"], stages)
+    seen.clear()
+    recon_cli.main(["--uid", inputs["uid"], "--root", root, "--device",
+                    "cpu", *inputs["recon_overrides"]])
+    out["resumed_recon_steps"] = stage2_recon.LAST_STATS["steps"]
+    out["resumed_recon_trained"] = "nsr" in seen
+    out["attempts"] = attempts
+    return out
+
+
+TASKS = {"nsr": nsr_task, "gan": gan_task, "world1": world1_task,
+         "sweep": sweep_task}
+
+
+def run(task: str, rank: int, world: int, tmp: str,
+        wait_s: float = 240.0) -> None:
+    """Join the group, wait up to ``wait_s`` for the inputs (the test may
+    write them after starting the ranks), run the task, save its output."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    torch.set_num_threads(1)
+    mesh.init_dp("cpu", init_method=f"file://{tmp}/store_{task}")
+    try:
+        path = os.path.join(tmp, f"in_{task}.pt")
+        end = time.time() + wait_s
+        while not os.path.exists(path):
+            if time.time() > end:
+                raise TimeoutError(f"no inputs at {path}")
+            time.sleep(0.05)
+        inputs = torch.load(path, weights_only=False)
+        out = TASKS[task.split("-")[0]](inputs, rank, world)
+        torch.save(out, os.path.join(tmp, f"out_{task}_{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
