@@ -216,7 +216,36 @@ Phases:
      across the ranks, each rank's kernel launches as its steps predict
      (the kernels line's ``launches_dp_ranks``). ms a step at world size
      1 and with the two ranks sharing the card, which is not a scaling
-     figure. NCCL across more than one GPU is not run here.
+     figure. NCCL across more than one GPU is not run here. (d) Stage 2a's
+     batch split (mvdiffusion-joint-ortho-6views.yaml at full width,
+     seeded, phase 15's first drawing, 4 denoise steps): under an NCCL
+     group of one rank the denoise loop bit-identical to the plain path;
+     generate_uid in f32 on two gloo ranks sharing cuda:0 against one
+     rank on the same draws: the gathered latents bit-identical across the
+     ranks and within relative L2 1e-4 of the one-rank run, the PNGs more
+     than 1 apart on < 0.5 % of values, the masks equal, rank 1 writing
+     nothing; in bf16, ms a denoise step on one rank and on two, and the
+     K/V bytes each rank gathers a step, counted from the UNet's shapes
+     and from the gathers;
+ 21. the recon CLI's multi-uid tail: recon_uid over phase 17's two uids at
+     neus-ortho.yaml's widths (mc512, 50 000 faces, the second thinned,
+     200 steps), one turn in series and one with each export's host half
+     on a one-worker thread beside the next uid's training
+     (``drawingspinup_torch/bench/recon_tail.py``'s turn; that module
+     alone runs the alternating turns that compare the walls): wall
+     seconds, each tail's seconds and how much of the first one ran beside
+     the second uid's training, the OBJs byte-equal, the launches equal;
+     then the recon CLI on both uids (resumed from their checkpoints,
+     mc256) with the first uid's save_mesh raising: ``failed`` names it,
+     exit code 1, the second OBJ written;
+ 22. stage-3 ``compute_dtype="bfloat16"``: a stage-1 step at
+     config_stage1.yaml in bf16 against f32 (ms a step on the host clock,
+     device busy and launches a step), its loss falling over 20 steps;
+     the RIC forward and backward kernels against their twins on
+     bf16-rounded inputs at the training shapes (phases 3 and 6's
+     limits); a served 512² frame in bf16 against f32 (the share of u8
+     values more than 1 apart; the RGB within JAX's own bf16 bounds, max
+     0.15 and mean 0.03 of the tanh output; alpha equal).
 
 Kernel times (phases 3, 6, 9, 10) are medians of CUDA events around each
 call, the host's enqueueing included (``ms``, and every plain and library
@@ -306,6 +335,17 @@ DP_JOIN_S = 600         # a rank still running then fails the phase
 DP_UID = "dp0"          # (c): made from phase 17's first uid
 DP_SWEEP_STAGES = ("recon", "train_style")
 DP_NSR_LOSS_TOL = 1e-5  # an NSR step in bf16 against the same path
+DP_MV_STEPS = 4         # (d): denoise steps of the split run (the yaml: 75)
+DP_MV_TIMED = 3         # (d): bf16 denoise steps timed on one rank and two
+DP_MV_REL_L2 = 1e-4     # (d): split latents against one rank, f32
+DP_MV_U8_SHARE = 5e-3   # (d): PNG values more than 1 apart
+TAIL_STEPS = 200        # phase 21: recon steps a uid (the yaml: 3000)
+TAIL_FAIL_MC = 256      # phase 21: the forced failure's export grid
+BF16_STEPS = 20         # phase 22: bf16 steps whose loss must fall
+# phase 22: a served frame, bf16 vs f32, held to JAX's own bf16 bounds on
+# the generator's tanh output (tests/test_stage3.py: max 0.15, mean 0.03)
+# in u8 steps of 2/255
+BF16_U8_MAX, BF16_U8_MEAN = 0.15 * 127.5, 0.03 * 127.5
 UID = "smoke"
 F32_TOL = 1e-3          # phase 5: tanh outputs of 21 reordered-sum layers
 REL_TOL = 1e-4          # phase 3: f32 sums of up to 9·C products, reordered
@@ -3428,8 +3468,8 @@ def dp_rank(task: str, rank: int, world: int, root: str, tmp: str) -> None:
                                 init_method=f"file://{tmp}/store_{task}")
     try:
         with contextlib.redirect_stdout(sys.stderr):
-            out = {"steps": dp_rank_steps, "sweep": dp_rank_sweep}[task](
-                root, device, rank, world)
+            out = {"steps": dp_rank_steps, "sweep": dp_rank_sweep,
+                   "mv": dp_rank_mv}[task](root, device, rank, world)
         torch.save(out, os.path.join(tmp, f"out_{task}_{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -3684,26 +3724,462 @@ def phase_dp_sweep(root: str, device, tmp: str) -> dict:
             "wall": outs[0]["wall"]}
 
 
+def dp_mv_pipeline(device, dtype: str = "float32", steps: int = DP_MV_STEPS):
+    """Stage 2a at full width (the yaml's UNet, VAE and CLIP), weights
+    drawn from MV_SEED, ``steps`` denoise steps in ``dtype``. The joint
+    (cross-domain) attentions' output projections, zero at init, are drawn
+    too (kernel std 1/sqrt(fan-in), bias std 0.1, from MV_SEED + 1), so
+    the split's ``domains`` fold moves the latents, as a trained
+    checkpoint's would."""
+    import torch
+
+    from drawingspinup_torch.models.attention_mv import Attention
+    from drawingspinup_torch.pipelines import stage2_mv as mv
+
+    cfg = mv.MVPipelineConfig(num_inference_steps=steps,
+                              compute_dtype=dtype)
+    pipe = mv.MVPipeline.init_random(cfg, MV_SEED, device)
+    gen = torch.Generator(device=device).manual_seed(MV_SEED + 1)
+    joint = [m.to_out[0] for m in pipe.unet.modules()
+             if isinstance(m, Attention) and m.zero_out]
+    check(len(joint) > 0, "[20d] the UNet has no joint attention")
+    with torch.no_grad():
+        for lin in joint:
+            for p, std in ((lin.weight, lin.weight.shape[1] ** -0.5),
+                           (lin.bias, 0.1)):
+                p.copy_(std * torch.randn(p.shape, generator=gen,
+                                          device=device))
+    return pipe
+
+
+def mv_bf16_steps(pipe, root: str, device) -> dict:
+    """DP_MV_TIMED bf16 denoise steps of ``pipe``'s weights on phase 15's
+    first drawing, after one untimed pass: ms a step (host clock,
+    synchronised), the K/V bytes this rank gathered a step (counted at
+    ``RowSplit.gather_keys``) and the same counted from the transformer
+    blocks' shapes: per folding attention, the local rows' tokens × 2C
+    (K ⊕ V) in the compute dtype × (dp − 1). The latents' one gather after
+    the loop is not K/V and is not counted."""
+    import dataclasses
+
+    import torch
+
+    from drawingspinup_torch.core.contract import UidPaths
+    from drawingspinup_torch.models.attention_mv import (
+        RowSplit, TransformerMV2D,
+    )
+    from drawingspinup_torch.parallel import mesh
+    from drawingspinup_torch.pipelines import stage2_mv as mv
+
+    cfg = dataclasses.replace(pipe.cfg, compute_dtype="bfloat16",
+                              num_inference_steps=DP_MV_TIMED)
+    p16 = mv.MVPipeline(cfg, pipe.unet, pipe.vae, pipe.clip)
+    image, _ = mv.load_input(UidPaths(root, MV_UID), cfg.image_size, device)
+    embeds, cond = p16.encode_image(image)
+    dp = mesh.mv_split(12, mesh.world_size())
+    counted = {"gathered": 0, "shapes": 0}
+    gather = RowSplit.gather_keys
+
+    def counting(self, t, fold, num_views):
+        counted["gathered"] += t.numel() * t.element_size() * (dp - 1)
+        return gather(self, t, fold, num_views)
+
+    def shapes(module, args, _out):
+        n, c, h, w = args[0].shape
+        folds = sum((b.fold is not None) + b.cd_attention_mid
+                    + b.cd_attention_last for b in module.transformer_blocks)
+        counted["shapes"] += folds * n * h * w * 2 * c * 2 * (dp - 1)
+
+    p16.denoise(embeds, cond, generator=torch.Generator(
+        device=device).manual_seed(MV_SEED))
+    hooks = [m.register_forward_hook(shapes)
+             for m in p16.unet_in(torch.bfloat16).modules()
+             if isinstance(m, TransformerMV2D)]
+    RowSplit.gather_keys = counting
+    try:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        p16.denoise(embeds, cond, generator=torch.Generator(
+            device=device).manual_seed(MV_SEED))
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.time() - t0) / DP_MV_TIMED
+    finally:
+        RowSplit.gather_keys = gather
+        for h in hooks:
+            h.remove()
+    return {"ms": ms, "dp": dp,
+            "kv_bytes": counted["gathered"] / DP_MV_TIMED,
+            "kv_bytes_shapes": counted["shapes"] / DP_MV_TIMED}
+
+
+def dp_rank_mv(root: str, device, rank: int, world: int) -> dict:
+    """(d) on one rank: generate_uid in f32 with the batch split over the
+    ranks into ``<root>/mv_split`` (rank 0 writes; every write there
+    raises on rank 1), this rank's gathered latents, then the bf16 denoise
+    steps timed."""
+    from drawingspinup_torch.pipelines import stage2_mv as mv
+
+    split_root = os.path.join(root, "mv_split")
+    attempts = forbid_writes(split_root) if rank else []
+    pipe = dp_mv_pipeline(device)
+    seen = []
+    denoise = pipe.denoise
+
+    def recorded(*args, **kwargs):
+        seen.append(denoise(*args, **kwargs))
+        return seen[-1]
+
+    pipe.denoise = recorded
+    mv.generate_uid(split_root, MV_UID, pipe, seed=MV_SEED)
+    return {"latents": host_copy(seen[0]), "attempts": attempts,
+            "bf16": mv_bf16_steps(pipe, root, device)}
+
+
+def phase_dp_mv(root: str, device, tmp: str) -> dict:
+    """(d) stage 2a's batch split: an NCCL group of one rank against the
+    plain path, then two gloo ranks on the card against one rank (this
+    process) on the same draws."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from drawingspinup_torch.core.contract import VIEWS, UidPaths
+    from drawingspinup_torch.core.io import read_image_u8
+    from drawingspinup_torch.parallel import mesh
+    from drawingspinup_torch.pipelines import stage2_mv as mv
+
+    one_root = os.path.join(root, "mv_one")
+    split_root = os.path.join(root, "mv_split")
+    for r in (one_root, split_root):
+        shutil.copytree(UidPaths(root, MV_UID).char_dir,
+                        UidPaths(r, MV_UID).char_dir)
+    pipe = dp_mv_pipeline(device)
+    image, _ = mv.load_input(UidPaths(one_root, MV_UID), pipe.cfg.image_size,
+                             device)
+    embeds, cond = pipe.encode_image(image)
+
+    def latents():
+        return pipe.denoise(embeds, cond, generator=torch.Generator(
+            device=device).manual_seed(MV_SEED))
+
+    plain = latents()
+    rank, world, _ = mesh.init_dp(device, backend="nccl",
+                                  init_method=f"file://{tmp}/nccl_mv_store")
+    try:
+        grouped = latents()
+    finally:
+        dist.destroy_process_group()
+    check(world == 1 and torch.equal(plain, grouped),
+          f"[20d] the denoise loop in an NCCL group of {world} rank differs "
+          f"from the plain path")
+    seen = []
+    denoise = pipe.denoise
+
+    def recorded(*args, **kwargs):
+        seen.append(denoise(*args, **kwargs))
+        return seen[-1]
+
+    pipe.denoise = recorded
+    mv.generate_uid(one_root, MV_UID, pipe, seed=MV_SEED)
+    pipe.denoise = denoise
+    check(torch.equal(seen[0], plain),
+          "[20d] generate_uid's latents differ from the denoise loop's")
+    one_latents = host_copy(seen[0])
+    one16 = mv_bf16_steps(pipe, root, device)
+    del pipe, seen, plain, grouped
+    torch.cuda.empty_cache()
+
+    outs = spawn_ranks("mv", root, tmp)
+    check(torch.equal(outs[0]["latents"], outs[1]["latents"]),
+          "[20d] the ranks' gathered latents differ")
+    rel = rel_l2(outs[0]["latents"], one_latents)
+    check(rel <= DP_MV_REL_L2,
+          f"[20d] split latents against one rank: relative L2 {rel:.3e} > "
+          f"{DP_MV_REL_L2:g}")
+    check(outs[1]["attempts"] == [],
+          f"[20d] rank 1 wrote {outs[1]['attempts'][:4]}")
+    off, total, mask_px = 0, 0, 0
+    for kind in ("normal", "color", "mask"):
+        for v in VIEWS:
+            a = read_image_u8(UidPaths(split_root, MV_UID).mv(kind, v))
+            b = read_image_u8(UidPaths(one_root, MV_UID).mv(kind, v))
+            check(a.shape == b.shape == (MV_OUT, MV_OUT, a.shape[-1]),
+                  f"[20d] {kind}/{v}: shapes {a.shape}, {b.shape}")
+            d = np.abs(a.astype(np.int16) - b.astype(np.int16))
+            if kind == "mask":
+                mask_px += int((d > 0).sum())
+            else:
+                off += int((d > 1).sum())
+                total += d.size
+    check(off <= DP_MV_U8_SHARE * total and mask_px == 0,
+          f"[20d] PNGs: {off} of {total} values more than 1 apart (limit "
+          f"{DP_MV_U8_SHARE:.1%}), {mask_px} mask pixels differ")
+    two16 = [o["bf16"] for o in outs]
+    check(all(t["kv_bytes"] == t["kv_bytes_shapes"] > 0 for t in two16)
+          and one16["kv_bytes"] == 0,
+          f"[20d] K/V bytes gathered a step: counted at the gathers "
+          f"{[t['kv_bytes'] for t in two16]}, from the shapes "
+          f"{[t['kv_bytes_shapes'] for t in two16]}, one rank "
+          f"{one16['kv_bytes']}")
+    report(f"[20d] stage 2a split over {two16[0]['dp']} gloo ranks on one "
+           f"card (full width, seeded, the joint attentions' output "
+           f"projections drawn, {DP_MV_STEPS} f32 denoise steps, uid "
+           f"{MV_UID}): NCCL group of 1 rank bit-identical to the plain "
+           f"loop; the ranks' gathered latents bit-identical, relative L2 "
+           f"{rel:.3e} from one rank on the same draws (limit "
+           f"{DP_MV_REL_L2:g}); PNG values more than 1 apart {off} of "
+           f"{total} ({off / total:.4%}), mask pixels differing {mask_px}; "
+           f"rank 1 wrote nothing; bf16 ms a denoise step (host clock, "
+           f"{DP_MV_TIMED} steps): one rank {one16['ms']:.2f}, two ranks "
+           f"sharing the card {two16[0]['ms']:.2f} / {two16[1]['ms']:.2f} "
+           f"(gloo gathers through the host; not a scaling figure); K/V "
+           f"bytes each rank gathers a step (bf16, every folding attention): "
+           f"{two16[0]['kv_bytes']:.0f}, the same as counted from the "
+           f"transformer blocks' shapes")
+    return {"ms_one": one16["ms"], "ms_two": [t["ms"] for t in two16],
+            "kv_bytes": two16[0]["kv_bytes"], "rel_l2": rel,
+            "u8_off": off / total}
+
+
 def phase_dp(root: str, device) -> dict:
     """Phase 20: (a) NCCL at world size 1, (b) two gloo ranks on the card,
-    (c) the latency sweep's training stages over those two ranks."""
+    (c) the latency sweep's training stages over those two ranks, (d)
+    stage 2a's batch split."""
     tmp = os.path.join(root, "dp_ranks")
     os.makedirs(tmp)
     one = phase_dp_world1(root, device, tmp)
     two = phase_dp_two_ranks(root, device, tmp)
     sweep_run = phase_dp_sweep(root, device, tmp)
-    return {"world1": one, "two": two, "sweep": sweep_run}
+    mv_split = phase_dp_mv(root, device, tmp)
+    return {"world1": one, "two": two, "sweep": sweep_run, "mv": mv_split}
+
+
+def tail_root(root: str, name: str) -> str:
+    """A fresh data root holding phase 17's two uids' inputs (drawing and
+    views), without their meshes."""
+    from drawingspinup_torch.bench import recon_tail
+
+    return recon_tail.copy_inputs(root, os.path.join(root, name),
+                                  SWEEP_UIDS)
+
+
+def phase_recon_tail(root: str, device) -> dict:
+    """Phase 21: recon_uid over phase 17's two uids, one turn in series
+    and one with the export tails on a one-worker thread (the recon CLI's
+    multi-uid path; ``drawingspinup_torch/bench/recon_tail.py``'s turn),
+    then the CLI with one uid's tail failing. The walls are reported, not
+    judged: the bench runs the alternating turns that decide."""
+    import functools
+    import shutil
+
+    from drawingspinup_torch.bench import recon_tail
+    from drawingspinup_torch.cli import recon as recon_cli
+    from drawingspinup_torch.core.contract import UidPaths
+    from drawingspinup_torch.render import mesh_post
+
+    overrides = [o for o in RECON_OVERRIDES
+                 if not o.startswith("trainer.max_steps=")]
+    ycfg, cfg = recon_tail.recon_cfg(TAIL_STEPS, overrides)
+    runs = {}
+    for run in ("serial", "overlapped"):
+        zero_launches()
+        runs[run] = recon_tail.run_turn(
+            tail_root(root, f"tail_{run}"), SWEEP_UIDS, ycfg, cfg, device,
+            run == "overlapped", mc=RECON_MC, faces=RECON_FACES,
+            im_size=RECON_SIZE)
+        runs[run]["launches"] = launches_by_kernel()
+    ser, ovl = runs["serial"], runs["overlapped"]
+    check(ser["futures"] == 0 and ovl["futures"] == 2,
+          f"[21] futures: serial {ser['futures']}, overlapped "
+          f"{ovl['futures']}")
+    check(ovl["objs"] == ser["objs"],
+          "[21] the overlapped run's OBJs differ from the serial run's")
+    check(ovl["launches"] == ser["launches"],
+          f"[21] launches: serial {ser['launches']}, overlapped "
+          f"{ovl['launches']}")
+
+    # the CLI on both uids, resumed from the overlapped run's checkpoints,
+    # the first uid's save_mesh raising
+    froot = tail_root(root, "tail_failed")
+    for uid, path in zip(SWEEP_UIDS, ovl["paths"]):
+        shutil.copytree(os.path.join(os.path.dirname(path), "ckpt"),
+                        os.path.join(UidPaths(froot, uid).mesh_dir, "ckpt"))
+    lists = os.path.join(froot, "uids.json")
+    thin = os.path.join(froot, "thin.json")
+    with open(lists, "w") as f:
+        json.dump(list(SWEEP_UIDS), f)
+    with open(thin, "w") as f:
+        json.dump([SWEEP_UIDS[1]], f)
+    save = mesh_post.save_mesh
+
+    @functools.wraps(save)
+    def failing(path, *args, **kwargs):
+        if os.sep + SWEEP_UIDS[0] + os.sep in path:
+            raise OSError(f"forced failure writing {path}")
+        return save(path, *args, **kwargs)
+
+    out = io.StringIO()
+    mesh_post.save_mesh = failing
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = recon_cli.main(["--root", froot, "--device", str(device),
+                                 *overrides,
+                                 f"trainer.max_steps={TAIL_STEPS}",
+                                 "model.geometry.isosurface.resolution="
+                                 f"{TAIL_FAIL_MC}",
+                                 f"model.geometry.face_count={RECON_FACES}",
+                                 f"dataset.uid_list_file={lists}",
+                                 f"dataset.thinning_uid_list_file={thin}",
+                                 f"dataset.imSize=[{RECON_SIZE}, "
+                                 f"{RECON_SIZE}]"])
+    finally:
+        mesh_post.save_mesh = save
+    sys.stderr.write(out.getvalue())
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    written_ok = len(line["written"]) == 1 and os.path.exists(
+        line["written"][0]) and line["written"][0].startswith(
+        UidPaths(froot, SWEEP_UIDS[1]).mesh_dir)
+    check(rc == 1 and line.get("failed") == [SWEEP_UIDS[0]] and written_ok,
+          f"[21] forced tail failure: exit {rc}, line {line}")
+
+    def each(key, pick=lambda v: v):
+        return " / ".join(f"{pick(runs[k][key]):.2f}" for k in runs)
+
+    report(f"[21] recon tail, two uids ({', '.join(SWEEP_UIDS)}; "
+           f"{TAIL_STEPS} steps, mc{RECON_MC}, {RECON_FACES} faces, the "
+           f"second thinned), serial / overlapped (one turn each, not a "
+           f"comparison: python -m drawingspinup_torch.bench.recon_tail "
+           f"runs alternating turns): wall s {each('wall')}; the first "
+           f"uid's tail s {each('tail_s', lambda v: v[0])}, of it beside "
+           f"the second uid's recon call {each('hidden_s')}; the second "
+           f"uid's ms a step {each('step_ms', lambda v: v[1])}; OBJs "
+           f"byte-equal; the same launches ({ovl['launches']}); the recon "
+           f"CLI with {SWEEP_UIDS[0]}'s save_mesh raising (mc{TAIL_FAIL_MC}, "
+           f"resumed): exit code 1, failed {line['failed']}, "
+           f"{SWEEP_UIDS[1]}'s OBJ written")
+    return {"runs": {k: {x: runs[k][x] for x in ("wall", "step_ms",
+                                                  "tail_s", "hidden_s")}
+                     for k in runs},
+            "launches": ovl["launches"]}
+
+
+def phase_stage3_bf16(root: str, device) -> dict:
+    """Phase 22: stage-3 compute_dtype bfloat16 against float32."""
+    import dataclasses
+
+    import torch
+
+    from drawingspinup_torch.core.contract import UidPaths
+    from drawingspinup_torch.kernels import ric_conv as rk
+    from drawingspinup_torch.models.ric_tables import ric_shifted_weights
+    from drawingspinup_torch.pipelines import stage3_data
+    from drawingspinup_torch.pipelines import stage3_translate as st
+    from drawingspinup_torch.train import gan
+
+    paths = UidPaths(root, TRAIN_UID)
+    data = keyframe(paths, 1, device)
+    steps = {}
+    for dt in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(stage_config(1), compute_dtype=dt)
+        state = gan.init_state(cfg, device, SEED)
+        g = torch.Generator(device=device).manual_seed(SEED)
+        zero_launches()
+        losses = [gan.train_step(cfg, state, data, g)["g_loss"]
+                  for _ in range(BF16_STEPS)]
+        torch.cuda.synchronize()
+        launches = launches_by_kernel()
+        losses = torch.stack(losses).tolist()
+        ms = host_ms(lambda: gan.train_step(cfg, state, data, g), 10)
+        busy, n = device_profile(lambda: gan.train_step(cfg, state, data, g),
+                                 3, os.path.join(root, f"bf16_prof_{dt}"))
+        steps[dt] = {"ms": ms, "busy": busy, "launches": n, "losses": losses,
+                     "kernels": launches}
+    b16 = steps["bfloat16"]
+    check(b16["kernels"]["ric_conv_fwd"] == FWD_PER_STEP * BF16_STEPS
+          and b16["kernels"]["ric_conv_bwd"] == BWD_PER_STEP * BF16_STEPS,
+          f"[22] bf16 steps' RIC launches {b16['kernels']}")
+    first, last = np.mean(b16["losses"][:3]), np.mean(b16["losses"][-3:])
+    check(all(math.isfinite(x) for x in b16["losses"]) and last < first,
+          f"[22] bf16 g_loss over {BF16_STEPS} steps: {b16['losses']}")
+
+    # the kernels on bf16-rounded inputs: the training path feeds them
+    # x.float() of a bf16 activation and a bf16 cotangent cast up
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for k, (hw, c, o, _, _) in enumerate(TRAIN_SHAPES):
+        g = torch.Generator(device=device).manual_seed(SEED + 300 + k)
+        x = torch.randn((BATCH, hw, hw, c), generator=g, device=device
+                        ).bfloat16().float()
+        wk = torch.randn((9, c, o), generator=g, device=device) \
+            / math.sqrt(9 * c)
+        cot = torch.randn((BATCH, hw, hw, o), generator=g, device=device
+                          ).bfloat16().float()
+        swf = torch.from_numpy(ric_shifted_weights(hw, hw).copy()).to(device)
+        need_dx = k > 0
+        pairs = [("fwd", rk.ric_conv_fwd(x, wk, swf),
+                  rk.ric_conv_reference(x, wk, swf), REL_TOL)]
+        got = rk.ric_conv_bwd(x, wk, swf, cot, need_dx)
+        want = rk.ric_conv_bwd_reference(x, wk, swf, cot, need_dx)
+        pairs += [("bwd", a, b, BWD_REL_TOL) for a, b in zip(got, want)
+                  if a is not None]
+        for name, a, b, tol in pairs:
+            err = (a - b).abs().max().item() / b.abs().max().item()
+            check(math.isfinite(err) and err <= tol,
+                  f"[22] RIC {name} on bf16-rounded inputs at (H,C,O)="
+                  f"{(hw, c, o)}: max err {err:.3e} of the twin's largest "
+                  f"> {tol:g}")
+            worst[name] = max(worst[name], err)
+
+    # a served 512² frame: the same weights in bf16 and in f32
+    x_u8 = stage3_data.load_full_frame_u8(
+        UidPaths(root, UID).action_dir(ACTIONS[0]), "0001.png", False)
+    m32 = seeded_generator(1, device, x_u8)
+    m16 = gan.build_generator(dataclasses.replace(
+        st.make_config(1), compute_dtype="bfloat16"), device)
+    m16.load_state_dict(m32.state_dict())
+    frames = [gan.generate_full_rgba(m, x_u8, True, True, False)
+              for m in (m32, m16)]
+    d = np.abs(frames[0].astype(np.int16) - frames[1].astype(np.int16))
+    share = float((d[..., :3] > 1).mean())
+    d_max, d_mean = int(d[..., :3].max()), float(d[..., :3].mean())
+    check(np.array_equal(frames[0][..., 3], frames[1][..., 3])
+          and d_max <= BF16_U8_MAX and d_mean <= BF16_U8_MEAN,
+          f"[22] served frame, bf16 vs f32: RGB max {d_max}, mean "
+          f"{d_mean:.3f} u8 (limits {BF16_U8_MAX:g}, {BF16_U8_MEAN:g}), "
+          f"alpha equal: "
+          f"{np.array_equal(frames[0][..., 3], frames[1][..., 3])}")
+    f32 = steps["float32"]
+    report(f"[22] stage 3 in bf16 (config_stage1.yaml, {BATCH} x 32^2 "
+           f"patches): ms a step (host clock, 10 steps) f32 {f32['ms']:.2f}"
+           f", bf16 {b16['ms']:.2f}; device busy a step f32 "
+           f"{f32['busy']:.2f} ms, bf16 {b16['busy']:.2f} ms; launches a "
+           f"step f32 {f32['launches']:.0f}, bf16 {b16['launches']:.0f}; "
+           f"RIC launches over {BF16_STEPS} bf16 steps "
+           f"{b16['kernels']['ric_conv_fwd']} / "
+           f"{b16['kernels']['ric_conv_bwd']}; bf16 g_loss {first:.4f} -> "
+           f"{last:.4f} (mean of the first and last 3 of {BF16_STEPS}); RIC "
+           f"kernels on bf16-rounded inputs at the {len(TRAIN_SHAPES)} "
+           f"training shapes: forward within {worst['fwd']:.2e}, backward "
+           f"{worst['bwd']:.2e} of the twins' largest value (limits "
+           f"{REL_TOL:g}, {BWD_REL_TOL:g}); a served {FRAME}^2 frame, bf16 "
+           f"vs f32: {share:.3%} of RGB values more than 1 apart, max "
+           f"{d_max}, mean {d_mean:.3f} u8 (JAX's bf16 bounds: "
+           f"{BF16_U8_MAX:g}, {BF16_U8_MEAN:g}), alpha equal")
+    return {"launches": b16["kernels"], "f32": f32, "bf16": b16,
+            "frame_share": share}
 
 
 def kernels_line(per_shape, serving_launches, train_shapes, fwd_launches,
                  bwd_launches, hg_uniform, hg_rays, gather, gather_main,
-                 pixel, recon_launches, sweep_launches, dp_launches
-                 ) -> dict:
+                 pixel, recon_launches, sweep_launches, dp_launches,
+                 bf16_launches, tail_launches) -> dict:
     """The ``kernels`` JSON object from the phases' results: per kernel its
     launches on the main paths (``launches``: the stage-3 training path for
     the RIC kernels, the recon CLI for the rest; ``launches_sweep``: phase
     17's sweep of two uids; ``launches_dp_ranks``: each rank's in phase
-    20's sweep over two ranks), error, times, bound and yardstick; the hash
+    20's sweep over two ranks; ``launches_bf16``: phase 22's bf16 stage-1
+    steps; ``launches_recon_tail``: phase 21's overlapped run of two uids),
+    error, times, bound and yardstick; the hash
     grid's at the production step on its own ray-ordered points, the
     uniform points' beside; the row gather, which the recon step no longer
     launches, inside the pixel-ray kernel's entry that took its place."""
@@ -3876,6 +4352,8 @@ def kernels_line(per_shape, serving_launches, train_shapes, fwd_launches,
     for k in line["kernels"]:
         k["launches_sweep"] = sweep_launches[k["name"]]
         k["launches_dp_ranks"] = [r[k["name"]] for r in dp_launches]
+        k["launches_bf16"] = bf16_launches[k["name"]]
+        k["launches_recon_tail"] = tail_launches[k["name"]]
     return line
 
 
@@ -3896,39 +4374,52 @@ def main() -> int:
 
     device = device_setup.setup("cuda")
     t_start = time.time()
-    phase_versions()
-    phase_build()
-    per_shape = phase_kernel_vs_plain(device)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
-        serving_launches = phase_main_path(root, device)
-        phase_whole_frame(root, device)
-        train_shapes = phase_bwd_vs_plain(device)
-        fwd_launches, bwd_launches = phase_training(root, device)
-        phase_step_vs_plain(root, device)
-        hg_uniform = phase_hashgrid_vs_plain(device, uniform_points(device),
-                                             "uniform")
-        gather, gather_main = phase_row_gather(device)
-        pixel = phase_pixel_rays(device)
-        recon_launches = phase_recon(root, device)
-        hg_rays = phase_hashgrid_vs_plain(device, step_points(root, device),
-                                          "ray-ordered")
-        phase_nsr_step_vs_plain(root, device)
-        phase_export_vs_plain(root, device)
-        phase_renders(root, device)
-        phase_stage1(root, device)
-        phase_mv(root, device)
-        phase_isnet(root, device)
-        sweep_run = phase_sweep(root, device)
-        phase_lama_train(root, device)
-        phase_lama_regular(root, device)
-        dp_run = phase_dp(root, device)
+    seconds = {}
 
+    def timed(name: str, fn, *args):
+        t0 = time.time()
+        out = fn(*args)
+        seconds[name] = time.time() - t0
+        return out
+
+    timed("1", phase_versions)
+    timed("2", phase_build)
+    per_shape = timed("3", phase_kernel_vs_plain, device)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        serving_launches = timed("4", phase_main_path, root, device)
+        timed("5", phase_whole_frame, root, device)
+        train_shapes = timed("6", phase_bwd_vs_plain, device)
+        fwd_launches, bwd_launches = timed("7", phase_training, root, device)
+        timed("8", phase_step_vs_plain, root, device)
+        hg_uniform = timed("9u", phase_hashgrid_vs_plain, device,
+                           uniform_points(device), "uniform")
+        gather, gather_main = timed("10", phase_row_gather, device)
+        pixel = timed("10p", phase_pixel_rays, device)
+        recon_launches = timed("11", phase_recon, root, device)
+        hg_rays = timed("9r", phase_hashgrid_vs_plain, device,
+                        step_points(root, device), "ray-ordered")
+        timed("12", phase_nsr_step_vs_plain, root, device)
+        timed("13", phase_export_vs_plain, root, device)
+        timed("14", phase_renders, root, device)
+        timed("15", phase_stage1, root, device)
+        timed("16", phase_mv, root, device)
+        timed("16i", phase_isnet, root, device)
+        sweep_run = timed("17", phase_sweep, root, device)
+        timed("18", phase_lama_train, root, device)
+        timed("19", phase_lama_regular, root, device)
+        dp_run = timed("20", phase_dp, root, device)
+        tail_run = timed("21", phase_recon_tail, root, device)
+        bf16_run = timed("22", phase_stage3_bf16, root, device)
+
+    report("[t] seconds per phase (host clock): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items()))
     report(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} s "
            f"(the builds included)")
     print(json.dumps(kernels_line(
         per_shape, serving_launches, train_shapes, fwd_launches, bwd_launches,
         hg_uniform, hg_rays, gather, gather_main, pixel, recon_launches,
-        sweep_run["launches"], dp_run["sweep"]["launches"])))
+        sweep_run["launches"], dp_run["sweep"]["launches"],
+        bf16_run["launches"], tail_run["launches"])))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

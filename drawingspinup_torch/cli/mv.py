@@ -12,6 +12,11 @@ a local diffusers-layout Wonder3D directory (``unet/``, ``vae/``,
 ``image_encoder/``), loaded strictly. Without one the weights are drawn
 from ``--seed`` on the device, with a warning. ``--tiny`` runs a small
 UNet, VAE and CLIP for tests.
+
+Under ``python -m torch.distributed.run --nproc-per-node N`` the denoise
+loop's 12-image batch is split over the largest divisor of 12 that is at
+most N ranks, one rank a GPU (``pipelines/stage2_mv.py::batch_split``),
+and rank 0 decodes and writes.
 """
 from __future__ import annotations
 
@@ -27,9 +32,9 @@ DEFAULT_CFG = os.path.join(os.path.dirname(__file__), "..", "configs",
 
 
 def main(argv=None) -> int:
-    from drawingspinup_torch.core import device as device_setup
     from drawingspinup_torch.models.unet_mv2d import UNetMVConfig
     from drawingspinup_torch.models.vae import VAEConfig
+    from drawingspinup_torch.parallel import mesh
     from drawingspinup_torch.pipelines import stage2_mv as mv
 
     ap = argparse.ArgumentParser(description=__doc__)
@@ -49,7 +54,7 @@ def main(argv=None) -> int:
                     help="small UNet/VAE/CLIP for smoke tests")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    device = device_setup.setup(args.device)
+    device = mesh.entry_device(args.device)
 
     ycfg = load_config(args.config)
     pvk = ycfg.get("pipe_validation_kwargs", {})
@@ -79,11 +84,11 @@ def main(argv=None) -> int:
     if ckpt:
         pipe = mv.load_pretrained(cfg, ckpt, device)
     else:
-        print(f"WARNING: no --ckpt given — running with random weights "
-              f"drawn from seed {seed}", file=sys.stderr)
+        mesh.print_main(f"WARNING: no --ckpt given — running with random "
+                        f"weights drawn from seed {seed}", file=sys.stderr)
         pipe = mv.MVPipeline.init_random(cfg, seed, device)
     written = mv.generate_uid(root, args.uid, pipe, seed=seed)
-    print(json.dumps({"written": len(written)}))
+    mesh.print_main(json.dumps({"written": len(written)}))
     return 0
 
 

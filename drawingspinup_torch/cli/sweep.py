@@ -16,9 +16,9 @@ uid over all local GPUs, one process a GPU,
     python -m torch.distributed.run --nproc-per-node N \
         -m drawingspinup_torch.cli.sweep --mode latency --root ... --uids ...
 
-recon and train_style train data-parallel over the ranks, the other stages
-run on rank 0 while the others wait (stage 2a's batch split is not
-ported), and rank 0 keeps the log. JAX runs one SPMD process over its
+recon and train_style train data-parallel over the ranks, mv splits its
+denoise batch over them, the other stages run on rank 0 while the others
+wait, and rank 0 keeps the log. JAX runs one SPMD process over its
 chips; torch has no counterpart, so without torchrun and with more than
 one visible GPU latency mode raises and names that line; with one GPU it
 runs the single-GPU path. JAX's prewarm thread and its ``TPU_*`` variables

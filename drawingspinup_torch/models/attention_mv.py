@@ -19,14 +19,70 @@ attention core is ``F.scaled_dot_product_attention`` on f32 q/k/v, cast
 back to the compute dtype, as JAX's ``_attention`` upcasts. Parameter
 names are diffusers' (``to_q``, ``to_out.0``, ``ff.net.0.proj``, …), so a
 Wonder3D checkpoint loads strictly.
+
+Split batch (``RowSplit``, JAX's ``_mv_batch_sharding``): each rank of a
+group holds some rows of the global batch. The folds that mix rows gather
+the keys and values of every rank and keep their own queries; each query
+row then attends over the rows its fold names by their global index, as
+the one-rank path folds them. Everything else is per row.
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from drawingspinup_torch.parallel import mesh
+
+
+@dataclasses.dataclass
+class RowSplit:
+    """This rank's rows of a batch split over ``group``.
+
+    rows: the global indices of this rank's rows, in its local order;
+    gathered: the global indices of ``mesh.all_gather_rows``'s rows (every
+    rank's ``rows`` in rank order); batch: the global batch size."""
+    group: object
+    rows: Sequence[int]
+    gathered: Sequence[int]
+    batch: int
+    _index: Dict[Tuple[str, int, torch.device], torch.Tensor] = \
+        dataclasses.field(default_factory=dict)
+
+    def key_rows(self, fold: str, num_views: int,
+                 device: torch.device) -> torch.Tensor:
+        """(local rows, m) positions in the gathered rows of the key rows
+        each local query row attends over, in the one-rank fold's order:
+        'views' its group's ``num_views`` rows; 'views_sparse' its group's
+        front row, then its own; 'domains' row i and row i + batch/2."""
+        key = (fold, num_views, device)
+        if key not in self._index:
+            h2 = self.batch // 2
+            sets: List[List[int]] = []
+            for g in self.rows:
+                first = g - g % num_views
+                sets.append({
+                    "views": list(range(first, first + num_views)),
+                    "views_sparse": [first, g],
+                    "domains": [g % h2, g % h2 + h2]}[fold])
+            where = {g: i for i, g in enumerate(self.gathered)}
+            self._index[key] = torch.tensor(
+                [[where[g] for g in s] for s in sets], dtype=torch.long,
+                device=device)
+        return self._index[key]
+
+    def gather_keys(self, t: torch.Tensor, fold: str,
+                    num_views: int) -> torch.Tensor:
+        """(local rows, S, C) keys (or keys ⊕ values) → (local rows,
+        m·S, C): the rows each local query row attends over, gathered from
+        the group and stacked along the sequence."""
+        b, _, c = t.shape
+        every = mesh.all_gather_rows(t, self.group)
+        idx = self.key_rows(fold, num_views, t.device)
+        return every[idx.reshape(-1)].reshape(b, -1, c)
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -61,13 +117,20 @@ class Attention(nn.Module):
         self.to_out = nn.ModuleList([nn.Linear(dim, dim)])
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
-                kv_fold: Optional[str] = None, num_views: int = 1
-                ) -> torch.Tensor:
-        """kv_fold: None | 'views' | 'views_sparse' | 'domains'."""
+                kv_fold: Optional[str] = None, num_views: int = 1,
+                split: Optional[RowSplit] = None) -> torch.Tensor:
+        """kv_fold: None | 'views' | 'views_sparse' | 'domains'. split:
+        this rank's rows of a split batch; a fold then attends over the
+        keys and values its rows name, gathered from the group."""
         ctx = x if context is None else context
         q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
         bv, s, c = q.shape
-        if kv_fold == "views":
+        if kv_fold is not None and split is not None:
+            # one all-gather of K ⊕ V; the queries stay local
+            kv = split.gather_keys(torch.cat([k, v], dim=-1), kv_fold,
+                                   num_views)
+            out = attention_core(q, kv[..., :c], kv[..., c:], self.heads)
+        elif kv_fold == "views":
             # (B·V, S, C) → (B, V·S, C): every view of a group attends over
             # all its views' tokens
             b = bv // num_views
@@ -150,17 +213,18 @@ class BasicMVTransformerBlock(nn.Module):
             self.attn_joint_last = Attention(dim, heads, zero_out=True)
 
     def forward(self, x: torch.Tensor,
-                context: Optional[torch.Tensor] = None) -> torch.Tensor:
+                context: Optional[torch.Tensor] = None,
+                split: Optional[RowSplit] = None) -> torch.Tensor:
         x = x + self.attn1(self.norm1(x), kv_fold=self.fold,
-                           num_views=self.num_views)
+                           num_views=self.num_views, split=split)
         if self.cd_attention_mid:
             x = x + self.attn_joint_mid(self.norm_joint_mid(x),
-                                        kv_fold="domains")
+                                        kv_fold="domains", split=split)
         x = x + self.attn2(self.norm2(x), context=context)
         x = x + self.ff(self.norm3(x))
         if self.cd_attention_last:
             x = x + self.attn_joint_last(self.norm_joint_last(x),
-                                         kv_fold="domains")
+                                         kv_fold="domains", split=split)
         return x
 
 
@@ -199,11 +263,12 @@ class TransformerMV2D(nn.Module):
         self.proj_out = Conv1x1Tokens(dim, dim)
 
     def forward(self, x: torch.Tensor,
-                context: Optional[torch.Tensor] = None) -> torch.Tensor:
+                context: Optional[torch.Tensor] = None,
+                split: Optional[RowSplit] = None) -> torch.Tensor:
         n, c, h, w = x.shape
         y = self.norm(x).permute(0, 2, 3, 1).reshape(n, h * w, c)
         y = self.proj_in(y)
         for blk in self.transformer_blocks:
-            y = blk(y, context)
+            y = blk(y, context, split)
         y = self.proj_out(y).reshape(n, h, w, c).permute(0, 3, 1, 2)
         return y + x

@@ -13,6 +13,13 @@ Parameter names follow the flax module tree (``conv0.kernel``,
 ``vggconv2.bias`` ...), so ``utils/jax_params.py`` converts JAX variables
 by renaming leaves. Batch norm follows flax: batch statistics with the
 biased variance in training, running averages with momentum 0.9.
+
+Compute dtype (``dtype``, JAX's ConvBlock rule): the input is cast to it,
+the f32 params are cast at use, batch and instance norm run in f32 and are
+cast back, and each model's output is f32 at its boundary. The RIC conv
+meets bf16 as JAX's training path feeds its kernel: the kernels run in f32
+on the input cast up, and their output is rounded to the compute dtype,
+autograd carrying the casts.
 """
 from __future__ import annotations
 
@@ -86,12 +93,31 @@ class BatchNorm(nn.Module):
         return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
 
 
+def _in_f32(norm, y: torch.Tensor) -> torch.Tensor:
+    """``norm`` in f32 on ``y``, cast back to ``y``'s dtype (float64 stays
+    float64)."""
+    if y.dtype in (torch.float32, torch.float64):
+        return norm(y)
+    return norm(y.float()).to(y.dtype)
+
+
 def instance_norm(x: torch.Tensor) -> torch.Tensor:
     """Per-sample, per-channel normalisation over H and W of an NCHW tensor,
     biased variance, eps 1e-5, no affine (the JAX ConvBlock's)."""
     mean = x.mean(dim=(2, 3), keepdim=True)
     var = x.var(dim=(2, 3), keepdim=True, unbiased=False)
     return (x - mean) * torch.rsqrt(var + BN_EPS)
+
+
+def _f32(y: torch.Tensor) -> torch.Tensor:
+    """A model's output at its boundary: f32 (float64 stays float64)."""
+    return y if y.dtype == torch.float64 else y.float()
+
+
+def _compute(x: torch.Tensor, dtype: torch.dtype) -> torch.dtype:
+    """The compute dtype of a layer set to ``dtype`` on input ``x``: a
+    float64 input (the tests' reference runs) keeps float64."""
+    return torch.float64 if x.dtype == torch.float64 else dtype
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
@@ -116,8 +142,10 @@ class ConvBlock(nn.Module):
                  stride: int = 1, padding: int = 0, use_bias: bool = False,
                  norm: Optional[str] = "batch_norm",
                  act: Optional[str] = "leaky", device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         if norm not in ("batch_norm", "instance_norm", None) \
                 or act not in ("leaky", "relu", None):
             raise ValueError(f"unsupported norm {norm!r} / act {act!r}")
@@ -132,12 +160,14 @@ class ConvBlock(nn.Module):
             if norm == "batch_norm" else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv2d(x, self.weight, self.bias, stride=self.stride,
-                     padding=self.padding)
+        dt = _compute(x, self.dtype)
+        y = F.conv2d(x.to(dt), self.weight.to(dt),
+                     None if self.bias is None else self.bias.to(dt),
+                     stride=self.stride, padding=self.padding)
         if self.norm is not None:
-            y = self.norm(y)
+            y = _in_f32(self.norm, y)
         elif self.instance_norm:
-            y = instance_norm(y)
+            y = _in_f32(instance_norm, y)
         if self.act == "leaky":
             y = _leaky(y)
         elif self.act == "relu":
@@ -154,14 +184,16 @@ class GeneratorJ(nn.Module):
                  resnet_blocks: int = 7, tanh: bool = True,
                  append_smoothers: bool = True, input_channels: int = 6,
                  device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         f = tuple(filters)
         self.resnet_blocks = resnet_blocks
         self.tanh = tanh
         self.append_smoothers = append_smoothers
+        self.dtype = dtype
         blk = functools.partial(ConvBlock, device=device,
-                                generator=generator)
+                                generator=generator, dtype=dtype)
         self.conv0 = blk(input_channels, f[0], 7, padding=3)
         self.conv1 = blk(f[0], f[1], 3, stride=2, padding=1)
         self.conv2 = blk(f[1], f[2], 3, stride=2, padding=1)
@@ -182,10 +214,11 @@ class GeneratorJ(nn.Module):
             self.smooth1 = blk(f[5], f[5], 3, padding=1, norm=None,
                                act="relu")
         self.head = ConvBlock(f[5], 3, 1, use_bias=True, norm=None, act=None,
-                              device=device, generator=generator)
+                              device=device, generator=generator,
+                              dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.permute(0, 3, 1, 2)
+        x = x.permute(0, 3, 1, 2).to(_compute(x, self.dtype))
         out0 = self.conv0(x)
         out1 = self.conv1(out0)
         out2 = self.conv2(out1)
@@ -201,8 +234,9 @@ class GeneratorJ(nn.Module):
         h = self.upconv1(h)
         h = self.conv_11(torch.cat([h, out0, x], dim=1))
         if self.append_smoothers:
-            h = self.smooth1(self.smooth_bn(self.smooth0(h)))
-        y = self.head(h)
+            h = self.smooth1(_in_f32(self.smooth_bn, self.smooth0(h)))
+        # f32 at the model boundary (losses, output)
+        y = _f32(self.head(h))
         y = torch.tanh(y) if self.tanh else y
         return y.permute(0, 2, 3, 1).contiguous()
 
@@ -225,9 +259,14 @@ class RICConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # in x's dtype: a float64 model runs the plain twin in float64 (the
-        # kernels take float32 and refuse anything else)
-        swf = _swf(x.shape[1], x.shape[2], x.device, x.dtype)
-        return ric_kernels.ric_conv(x.contiguous(), self.kernel, swf)
+        # kernels take float32 and refuse anything else); a bf16 input is
+        # cast up for the kernels and their output rounded back, as JAX's
+        # training path feeds its kernel
+        wide = x.dtype if x.dtype == torch.float64 else torch.float32
+        swf = _swf(x.shape[1], x.shape[2], x.device, wide)
+        out = ric_kernels.ric_conv(x.to(wide).contiguous(),
+                                   self.kernel.to(wide), swf)
+        return out.to(x.dtype)
 
 
 class GeneratorJ_RIC(nn.Module):
@@ -245,12 +284,14 @@ class GeneratorJ_RIC(nn.Module):
     def __init__(self, filters: Sequence[int] = (32, 64, 128, 128, 128, 64),
                  resnet_blocks: int = 7, tanh: bool = True,
                  append_smoothers: bool = True, input_channels: int = 6,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 device=None, generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         f = tuple(filters)
         self.resnet_blocks = resnet_blocks
         self.tanh = tanh
         self.append_smoothers = append_smoothers
+        self.dtype = dtype
         conv = functools.partial(RICConv, device=device, generator=generator)
         bn = functools.partial(BatchNorm, device=device)
         self.conv0, self.bn0 = conv(input_channels, f[0]), bn(f[0])
@@ -271,25 +312,31 @@ class GeneratorJ_RIC(nn.Module):
                               device=device, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out0 = _leaky(self.bn0(self.conv0(x)))
-        out1 = _leaky(self.bn1(self.conv1(_maxpool2x(out0))))
-        out2 = _leaky(self.bn2(self.conv2(_maxpool2x(out1))))
+        def bn(name: str, t: torch.Tensor) -> torch.Tensor:
+            return _in_f32(getattr(self, name), t)
+
+        x = x.to(_compute(x, self.dtype))
+        out0 = _leaky(bn("bn0", self.conv0(x)))
+        out1 = _leaky(bn("bn1", self.conv1(_maxpool2x(out0))))
+        out2 = _leaky(bn("bn2", self.conv2(_maxpool2x(out1))))
         h = out2
         for i in range(self.resnet_blocks):
             t = getattr(self, f"res{i}_conv0")(F.relu(h))
-            t = F.relu(getattr(self, f"res{i}_bn")(t))
+            t = F.relu(bn(f"res{i}_bn", t))
             h = getattr(self, f"res{i}_conv1")(t) + h
         h = upsample2x(torch.cat([h, out2], dim=-1))
-        h = F.relu(self.up2_bn(self.upconv2(h)))
+        h = F.relu(bn("up2_bn", self.upconv2(h)))
         h = upsample2x(torch.cat([h, out1], dim=-1))
-        h = F.relu(self.up1_bn(self.upconv1(h)))
+        h = F.relu(bn("up1_bn", self.upconv1(h)))
         h = F.relu(self.conv_11(torch.cat([h, out0, x], dim=-1)))
         if self.append_smoothers:
             if self.training:
-                self.smooth_bn(F.relu(self.smooth0(h)))
+                bn("smooth_bn", F.relu(self.smooth0(h)))
             h = F.relu(self.smooth1(h))
-        # 1×1 head as a plain matmul over the channel dim
-        y = F.linear(h, self.head.weight.flatten(1), self.head.bias)
+        # 1×1 head as a plain matmul over the channel dim, f32 at the
+        # model boundary
+        y = _f32(F.linear(h, self.head.weight.flatten(1).to(h.dtype),
+                          self.head.bias.to(h.dtype)))
         return torch.tanh(y) if self.tanh else y
 
 
@@ -299,10 +346,12 @@ class DiscriminatorN_IN(nn.Module):
     them with a ``None`` beside)."""
 
     def __init__(self, num_filters: int = 12, n_layers: int = 2, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         blk = functools.partial(ConvBlock, kernel=4, padding=1, use_bias=True,
-                                device=device, generator=generator)
+                                device=device, generator=generator,
+                                dtype=dtype)
         self.n_layers = n_layers
         self.conv0 = blk(3, num_filters, stride=2, norm=None)
         ch = num_filters
@@ -320,7 +369,7 @@ class DiscriminatorN_IN(nn.Module):
         h = self.conv0(x.permute(0, 3, 1, 2))
         for l in range(1, self.n_layers + 1):
             h = getattr(self, f"conv_{l}")(h)
-        return self.conv_out(h).permute(0, 2, 3, 1)
+        return _f32(self.conv_out(h)).permute(0, 2, 3, 1)
 
 
 class PerceptualVGG19(nn.Module):
@@ -331,21 +380,23 @@ class PerceptualVGG19(nn.Module):
     users: it has no optimizer."""
 
     def __init__(self, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         blk = functools.partial(ConvBlock, kernel=3, padding=1, use_bias=True,
                                 norm=None, act=None, device=device,
-                                generator=generator)
+                                generator=generator, dtype=dtype)
         self.vggconv0 = blk(3, 64)       # features.0
         self.vggconv1 = blk(64, 64)      # features.2
         self.vggconv2 = blk(64, 128)     # features.5
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        """NHWC images → the three NHWC feature maps."""
+        """NHWC images → the three NHWC feature maps, f32 at the boundary
+        (the perceptual loss's squared sums)."""
         tap0 = self.vggconv0(x.permute(0, 3, 1, 2))
         tap3 = F.relu(self.vggconv1(F.relu(tap0)))
         tap5 = self.vggconv2(F.max_pool2d(tap3, 2, 2))
-        return [t.permute(0, 2, 3, 1) for t in (tap0, tap3, tap5)]
+        return [_f32(t).permute(0, 2, 3, 1) for t in (tap0, tap3, tap5)]
 
 
 def load_vgg_weights_npz(vgg: PerceptualVGG19, npz_path: str

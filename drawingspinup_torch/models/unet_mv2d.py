@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from drawingspinup_torch.models.attention_mv import TransformerMV2D
+from drawingspinup_torch.models.attention_mv import RowSplit, TransformerMV2D
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,10 +183,13 @@ class UNetMV2D(nn.Module):
 
     def forward(self, sample: torch.Tensor, timesteps,
                 encoder_hidden_states: torch.Tensor,
-                class_labels: Optional[torch.Tensor] = None) -> torch.Tensor:
+                class_labels: Optional[torch.Tensor] = None,
+                split: Optional[RowSplit] = None) -> torch.Tensor:
         """sample (B, 8, H, W); timesteps (B,), a scalar tensor or an int;
         encoder_hidden_states (B, S, cross_dim) CLIP tokens; class_labels
-        (B, proj_dim) camera ⊕ task sincos embeddings. All in one dtype."""
+        (B, proj_dim) camera ⊕ task sincos embeddings. All in one dtype.
+        split: this rank's rows of a batch split over ranks (the B rows
+        are its own); the transformer blocks' folds gather over it."""
         c = self.cfg
         min_hw = 1 << (len(c.block_out_channels) - 1)
         if sample.shape[2] < min_hw or sample.shape[3] < min_hw:
@@ -210,7 +213,7 @@ class UNetMV2D(nn.Module):
             for li, res in enumerate(blk.resnets):
                 h = res(h, temb)
                 if blk.attentions is not None:
-                    h = blk.attentions[li](h, encoder_hidden_states)
+                    h = blk.attentions[li](h, encoder_hidden_states, split)
                 skips.append(h)
             if hasattr(blk, "downsamplers"):
                 h = blk.downsamplers[0](h)
@@ -218,14 +221,14 @@ class UNetMV2D(nn.Module):
 
         mid = self.mid_block
         h = mid.resnets[0](h, temb)
-        h = mid.attentions[0](h, encoder_hidden_states)
+        h = mid.attentions[0](h, encoder_hidden_states, split)
         h = mid.resnets[1](h, temb)
 
         for blk in self.up_blocks:
             for li, res in enumerate(blk.resnets):
                 h = res(torch.cat([h, skips.pop()], dim=1), temb)
                 if blk.attentions is not None:
-                    h = blk.attentions[li](h, encoder_hidden_states)
+                    h = blk.attentions[li](h, encoder_hidden_states, split)
             if hasattr(blk, "upsamplers"):
                 h = blk.upsamplers[0](h)
         return self.conv_out(F.silu(self.conv_norm_out(h)))

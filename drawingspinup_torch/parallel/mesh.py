@@ -9,6 +9,11 @@ every rank applies the same update, so all ranks hold the same bits. With
 one rank (no process group) every entry point takes its plain path. The
 tensor-parallel axis (``shard_params_tp``) is not ported.
 
+Stage 2a splits its batch rows instead (JAX's ``_mv_batch_sharding``): the
+first ``mv_split`` ranks form a subgroup (``dp_group``), each holds the
+full weights and a slice of the rows, and ``all_gather_rows`` collects
+what the row folds need.
+
 NCCL reduces CUDA tensors and gloo CPU tensors, unless the caller names a
 backend; gloo also reduces CUDA tensors, through the host, which lets two
 ranks share one card.
@@ -102,6 +107,44 @@ def per_rank(total: int, world: int, tag: str, what: str) -> int:
         print(f"[{tag}] {what} {total} not divisible by dp={world}: using "
               f"{n}/device ({n * world} total)")
     return n
+
+
+def mv_split(batch: int, world: int) -> int:
+    """JAX's divisor rule: the largest divisor of ``batch`` that is at
+    most ``world`` (1: no split)."""
+    for cand in range(min(batch, world), 1, -1):
+        if batch % cand == 0:
+            return cand
+    return 1
+
+
+_GROUPS: Dict[Tuple[object, int], object] = {}
+
+
+def dp_group(dp: int):
+    """The subgroup of ranks ``0 .. dp-1`` of the default group → the
+    group on its members, None on the ranks past it. Every rank of the
+    default group must call this, in the same order (``dist.new_group``'s
+    rule); a group is made once per default group and ``dp``. Raises
+    without a process group of at least ``dp`` ranks."""
+    if world_size() < dp or not dist.is_initialized():
+        raise RuntimeError(f"a split over {dp} ranks needs a process group "
+                           f"of at least {dp} ranks (have {world_size()})")
+    key = (dist.group.WORLD, dp)
+    if key not in _GROUPS:
+        _GROUPS[key] = dist.new_group(ranks=list(range(dp)))
+    return _GROUPS[key] if rank() < dp else None
+
+
+def all_gather_rows(t: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' ``t`` of ``group``, concatenated along dim 0 in rank
+    order: the global row order when rank r holds the r-th block of rows.
+    Every rank's ``t`` has the same shape."""
+    t = t.contiguous()
+    parts = [torch.empty_like(t)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t, group=group)
+    return torch.cat(parts)
 
 
 @torch.no_grad()

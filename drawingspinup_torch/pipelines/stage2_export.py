@@ -386,6 +386,47 @@ def isosurface_from_level(level: np.ndarray, vmin: np.ndarray,
     return verts, faces
 
 
+def export_field(cfg, params, resolution: int, step: int, device,
+                 front_mask: Optional[np.ndarray] = None
+                 ) -> Dict[str, Any]:
+    """The export's device half, by the chain ``use_device_smooth`` picks:
+    the bbox and the smoothed u8 field (device-smooth chain) or the level
+    field (level chain), copied to the host → {"chain", "field", "vmin",
+    "vmax", "times"}; ``times`` holds each part's seconds and
+    ``field_evals``, the field evaluations it ran."""
+    times: Dict[str, Any] = {}
+    ev = FieldEvaluator(cfg, params, step, device)
+    if use_device_smooth(resolution):
+        times["chain"] = "device_smooth"
+        t0 = time.time()
+        vmin, vmax = bbox_pass(ev, resolution, cfg.radius)
+        times["bbox"] = time.time() - t0
+        field = smoothed_field(ev, vmin, vmax, resolution, front_mask,
+                               times).cpu().numpy()
+    else:
+        times["chain"] = "level"
+        field, vmin, vmax = isosurface_level(ev, resolution, cfg.radius,
+                                             times=times)
+    times["field_evals"] = ev.launches
+    return {"chain": times["chain"], "field": field, "vmin": vmin,
+            "vmax": vmax, "times": times}
+
+
+def export_host(out: Dict[str, Any], resolution: int,
+                front_mask: Optional[np.ndarray] = None,
+                face_count: int = 50000) -> Tuple[np.ndarray, np.ndarray]:
+    """The export's host half on ``export_field``'s output: march and
+    remesh → (verts, faces); adds its parts' seconds to ``out["times"]``.
+    Reads nothing on the device."""
+    if out["chain"] == "device_smooth":
+        return isosurface_from_smoothed(out["field"], out["vmin"],
+                                        out["vmax"], resolution, face_count,
+                                        times=out["times"])
+    return isosurface_from_level(out["field"], out["vmin"], out["vmax"],
+                                 resolution, front_mask, face_count,
+                                 times=out["times"])
+
+
 def export_mesh(cfg, params, resolution: int, step: int, device,
                 front_mask: Optional[np.ndarray] = None,
                 face_count: int = 50000
@@ -394,24 +435,6 @@ def export_mesh(cfg, params, resolution: int, step: int, device,
     (verts, faces, times), times holding each part's seconds, ``chain``
     ("device_smooth" or "level") and ``field_evals``, the field
     evaluations it ran."""
-    times: Dict[str, Any] = {}
-    ev = FieldEvaluator(cfg, params, step, device)
-    if use_device_smooth(resolution):
-        times["chain"] = "device_smooth"
-        t0 = time.time()
-        vmin, vmax = bbox_pass(ev, resolution, cfg.radius)
-        times["bbox"] = time.time() - t0
-        field = smoothed_field(ev, vmin, vmax, resolution, front_mask, times)
-        field = field.cpu().numpy()
-        verts, faces = isosurface_from_smoothed(field, vmin, vmax,
-                                                resolution, face_count,
-                                                times=times)
-    else:
-        times["chain"] = "level"
-        level, vmin, vmax = isosurface_level(ev, resolution, cfg.radius,
-                                             times=times)
-        verts, faces = isosurface_from_level(level, vmin, vmax, resolution,
-                                             front_mask, face_count,
-                                             times=times)
-    times["field_evals"] = ev.launches
-    return verts, faces, times
+    out = export_field(cfg, params, resolution, step, device, front_mask)
+    verts, faces = export_host(out, resolution, front_mask, face_count)
+    return verts, faces, out["times"]

@@ -18,6 +18,18 @@ f32, and the decode, upscale and u8 quantisation. On the host: the masks
 noise per step) come from an explicit ``torch.Generator`` or are handed in
 (``noises``), as the parity tests hand in JAX's.
 
+Under torchrun with W > 1 ranks the denoise loop splits its batch rows over
+the first ``dp`` ranks, ``dp`` the largest divisor of the 2·Nv images that
+is at most W (JAX's ``_mv_batch_sharding``; ``batch_split``): each holds the
+full weights and the rows of its slice of the latents, from the uncond and
+the cond halves alike under guidance, so the guidance combine stays local;
+the view and domain folds gather keys and values over the group
+(``models/attention_mv.py::RowSplit``). Every rank draws the full-batch
+noises from the one generator and keeps its rows, so a split run consumes
+the one-rank run's draws. CLIP and the VAE encode run on every rank of the
+split; rank 0 gathers the latents, decodes them and writes the PNGs; the
+ranks past ``dp`` wait.
+
 Weights: ``load_pretrained`` reads a local diffusers-layout Wonder3D
 directory (``utils/diffusers_port.py``); ``MVPipeline.init_random`` draws
 them from a seed on the device. The side views' masks come from ISNet DIS
@@ -44,7 +56,9 @@ from torch import nn
 from drawingspinup_torch.core import weights_policy
 from drawingspinup_torch.core.contract import VIEWS, UidPaths
 from drawingspinup_torch.core.io import read_image, write_image
-from drawingspinup_torch.models.attention_mv import Attention, Conv1x1Tokens
+from drawingspinup_torch.models.attention_mv import (
+    Attention, Conv1x1Tokens, RowSplit,
+)
 from drawingspinup_torch.models.clip_vision import (
     CLIPEmbeddings, CLIPVisionConfig, CLIPVisionModelWithProjection,
     preprocess as clip_preprocess,
@@ -53,6 +67,7 @@ from drawingspinup_torch.models.unet_mv2d import UNetMV2D, UNetMVConfig
 from drawingspinup_torch.models.vae import AutoencoderKL, VAEConfig
 from drawingspinup_torch.ops import diffusion as D
 from drawingspinup_torch.ops.image import resize
+from drawingspinup_torch.parallel import mesh
 
 # Wonder3D's training-camera positions (x, y, z) per view, from the
 # reference's fixed_poses (part of the model contract).
@@ -162,6 +177,32 @@ def seeded_init(module: nn.Module, generator: torch.Generator) -> None:
             m.to_out[0].bias.zero_()
 
 
+def batch_split(nv2: int, guidance: bool
+                ) -> Tuple[bool, Optional[RowSplit]]:
+    """(whether this rank denoises, its rows when the batch is split):
+    ``dp = mesh.mv_split(nv2, world)``; at dp 1 rank 0 runs the whole
+    batch. Otherwise rank r < dp holds the latent rows
+    ``[r·nv2/dp, (r+1)·nv2/dp)`` and, under guidance, the same rows of the
+    cond half (global rows + nv2) after them; ranks past dp wait. Every
+    rank of the process group calls this alike: the first call for a dp
+    makes its group."""
+    dp = mesh.mv_split(nv2, mesh.world_size())
+    group = mesh.dp_group(dp) if dp > 1 else None
+    if mesh.rank() >= dp:
+        return False, None
+    if group is None:
+        return True, None
+    n = nv2 // dp
+
+    def rows(r: int) -> List[int]:
+        lat = list(range(r * n, (r + 1) * n))
+        return lat + [nv2 + i for i in lat] if guidance else lat
+
+    return True, RowSplit(group, rows(mesh.rank()),
+                          [g for r in range(dp) for g in rows(r)],
+                          nv2 * (2 if guidance else 1))
+
+
 def build_modules(cfg: MVPipelineConfig, device
                   ) -> Tuple[UNetMV2D, AutoencoderKL,
                              CLIPVisionModelWithProjection]:
@@ -222,7 +263,7 @@ class MVPipeline:
                 views: Optional[List[str]] = None,
                 generator: Optional[torch.Generator] = None,
                 noises: Optional[Sequence[torch.Tensor]] = None
-                ) -> torch.Tensor:
+                ) -> Optional[torch.Tensor]:
         """The denoised latents (2·Nv, 4, h, w), f32, normals first, from
         ``encode_image``'s CLIP tokens and condition latents.
 
@@ -231,7 +272,11 @@ class MVPipeline:
         Classifier-free guidance (guidance ≠ 1) runs the UNet once a step on
         the doubled batch [uncond | cond] (a zero CLIP embedding and zero
         condition latents, the camera rows repeated), whose view and domain
-        folds pair its halves as the reference's (and JAX's) do."""
+        folds pair its halves as the reference's (and JAX's) do.
+
+        In a process group of more than one rank the rows are split
+        (``batch_split``): every rank of the split returns the gathered
+        latents, a rank past it returns None at once."""
         cfg = self.cfg
         views = list(views or VIEWS)
         nv2 = 2 * len(views)
@@ -243,20 +288,29 @@ class MVPipeline:
         if noises is not None and len(noises) != len(ts) + 1:
             raise ValueError(f"noises: {len(noises)} tensors for "
                              f"{len(ts)} steps; expected {len(ts) + 1}")
+        guidance = float(cfg.guidance_scale)
+        do_cfg = guidance != 1.0
+        active, split = batch_split(nv2, do_cfg)
+        if not active:
+            return None
+        # this rank's latent rows: all of them, or its slice of the split
+        n = nv2 if split is None else len(split.rows) // (1 + do_cfg)
+        lo = 0 if split is None else split.rows[0]
 
         def draw(i: int) -> torch.Tensor:
+            # the full batch's draw, then this rank's rows
             if noises is not None:
-                return torch.as_tensor(noises[i], device=dev).float()
-            return torch.randn(shape, generator=generator, device=dev)
+                full = torch.as_tensor(noises[i], device=dev).float()
+            else:
+                full = torch.randn(shape, generator=generator, device=dev)
+            return full[lo:lo + n]
 
         cdt = getattr(torch, cfg.compute_dtype)
         unet = self.unet_in(cdt)
-        embeds_c = embeds.expand(nv2, -1, -1).to(cdt)
-        cond_c = cond.expand(nv2, -1, -1, -1).to(cdt)
+        embeds_c = embeds.expand(n, -1, -1).to(cdt)
+        cond_c = cond.expand(n, -1, -1, -1).to(cdt)
         cam_c = torch.as_tensor(sincos(camera_task_embeddings(views)),
-                                device=dev).to(cdt)
-        guidance = float(cfg.guidance_scale)
-        do_cfg = guidance != 1.0
+                                device=dev)[lo:lo + n].to(cdt)
         if do_cfg:
             embeds_c = torch.cat([torch.zeros_like(embeds_c), embeds_c])
             cond_c = torch.cat([torch.zeros_like(cond_c), cond_c])
@@ -269,13 +323,15 @@ class MVPipeline:
             if do_cfg:
                 lat_in = torch.cat([lat_in, lat_in])
             eps = unet(torch.cat([lat_in, cond_c], dim=1), t_dev[i],
-                       embeds_c, cam_c).float()
+                       embeds_c, cam_c, split=split).float()
             if do_cfg:
                 uncond, cond_eps = eps.chunk(2)
                 eps = uncond + guidance * (cond_eps - uncond)
             latents = D.ddim_step(cfg.ddim, self.acp, eps, int(ts[i]),
                                   int(ts_prev[i]), latents, eta=cfg.eta,
                                   noise=draw(i + 1))
+        if split is not None:
+            latents = mesh.all_gather_rows(latents, split.group)
         return latents
 
     @torch.inference_mode()
@@ -298,13 +354,17 @@ class MVPipeline:
                  ) -> Tuple[np.ndarray, np.ndarray]:
         """(normals (Nv, H, W, 3), colours (Nv, H, W, 3)) in [0, 1] on the
         host. Without ``generator`` or ``noises`` the draws come from seed
-        0."""
+        0. In a process group the batch is split over the ranks; rank 0
+        decodes, and every rank returns its images."""
         nv = len(views or VIEWS)
-        if generator is None and noises is None:
-            generator = torch.Generator(device=self.device).manual_seed(0)
-        embeds, cond = self.encode_image(image)
-        latents = self.denoise(embeds, cond, views, generator, noises)
-        images = self.decode(latents).cpu().numpy()
+        latents = None
+        if batch_split(2 * nv, self.cfg.guidance_scale != 1.0)[0]:
+            if generator is None and noises is None:
+                generator = torch.Generator(device=self.device).manual_seed(
+                    0)
+            embeds, cond = self.encode_image(image)
+            latents = self.denoise(embeds, cond, views, generator, noises)
+        images = mesh.on_main(lambda: self.decode(latents).cpu().numpy())
         return images[:nv], images[nv:]
 
 
@@ -434,43 +494,56 @@ def generate_uid(root: str, uid: str, pipe: MVPipeline,
     """The mv.py flow for one uid: read stage 1's output, sample with the
     draws of ``seed`` (or ``noises``), write
     ``mv/{normal,color,mask}/<view>.png`` at ``out_size``; the parts'
-    seconds go to ``LAST_STATS``."""
+    seconds go to ``LAST_STATS`` (with ``dp``, the ranks of the split).
+
+    In a process group every rank calls this alike: the ranks of the split
+    read, encode and denoise their rows, rank 0 decodes and writes, the
+    other ranks wait and return its paths."""
     paths = UidPaths(root, uid)
     views = list(views or VIEWS)
-    dev = pipe.device
-    t0 = time.perf_counter()
-    image, drawing_mask = load_input(paths, pipe.cfg.image_size, dev,
-                                     save_name)
-    _sync(dev)
-    t1 = time.perf_counter()
-    embeds, cond = pipe.encode_image(image)
-    _sync(dev)
-    t_enc = time.perf_counter()
-    generator = torch.Generator(device=dev).manual_seed(int(seed))
-    latents = pipe.denoise(embeds, cond, views, generator, noises)
-    _sync(dev)
-    t2 = time.perf_counter()
-    u8 = pipe.decode_u8(latents).cpu().numpy()
     nv = len(views)
-    normals_u8, colors_u8 = u8[:nv], u8[nv:]
-    t3 = time.perf_counter()
-    masks = derive_masks(uid, colors_u8.astype(np.float32) / 255.0,
-                         normals_u8.astype(np.float32) / 255.0,
-                         drawing_mask, views, device=dev)
-    t4 = time.perf_counter()
-    written = []
-    for i, v in enumerate(views):
-        for kind, img in (("normal", normals_u8[i]), ("color", colors_u8[i]),
-                          ("mask", masks[i][..., None])):
-            p = paths.mv(kind, v)
-            write_image(p, img)
-            written.append(p)
-    t5 = time.perf_counter()
-    LAST_STATS.clear()
-    LAST_STATS.update({"read_s": t1 - t0, "encode_s": t_enc - t1,
-                       "denoise_s": t2 - t_enc, "decode_u8_s": t3 - t2,
-                       "masks_s": t4 - t3, "write_s": t5 - t4})
-    return written
+    dev = pipe.device
+    dp = mesh.mv_split(2 * nv, mesh.world_size())
+    t0 = t1 = t_enc = t2 = time.perf_counter()
+    latents = drawing_mask = None
+    if batch_split(2 * nv, pipe.cfg.guidance_scale != 1.0)[0]:
+        image, drawing_mask = load_input(paths, pipe.cfg.image_size, dev,
+                                         save_name)
+        _sync(dev)
+        t1 = time.perf_counter()
+        embeds, cond = pipe.encode_image(image)
+        _sync(dev)
+        t_enc = time.perf_counter()
+        generator = torch.Generator(device=dev).manual_seed(int(seed))
+        latents = pipe.denoise(embeds, cond, views, generator, noises)
+        _sync(dev)
+        t2 = time.perf_counter()
+
+    def decode_and_write() -> List[str]:
+        u8 = pipe.decode_u8(latents).cpu().numpy()
+        normals_u8, colors_u8 = u8[:nv], u8[nv:]
+        t3 = time.perf_counter()
+        masks = derive_masks(uid, colors_u8.astype(np.float32) / 255.0,
+                             normals_u8.astype(np.float32) / 255.0,
+                             drawing_mask, views, device=dev)
+        t4 = time.perf_counter()
+        written = []
+        for i, v in enumerate(views):
+            for kind, img in (("normal", normals_u8[i]),
+                              ("color", colors_u8[i]),
+                              ("mask", masks[i][..., None])):
+                p = paths.mv(kind, v)
+                write_image(p, img)
+                written.append(p)
+        t5 = time.perf_counter()
+        LAST_STATS.clear()
+        LAST_STATS.update({"read_s": t1 - t0, "encode_s": t_enc - t1,
+                           "denoise_s": t2 - t_enc, "decode_u8_s": t3 - t2,
+                           "masks_s": t4 - t3, "write_s": t5 - t4,
+                           "dp": dp})
+        return written
+
+    return mesh.on_main(decode_and_write)
 
 
 def load_pretrained(cfg: MVPipelineConfig, ckpt_dir: str,

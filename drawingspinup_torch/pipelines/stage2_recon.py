@@ -17,7 +17,8 @@ from __future__ import annotations
 import functools
 import os
 import time
-from typing import Any, Dict
+from concurrent.futures import Future
+from typing import Any, Callable, Dict, Union
 
 import numpy as np
 import torch
@@ -89,7 +90,8 @@ def recon_uid(root: str, uid: str, cfg: nsr.NSRConfig, *,
               shearing: bool = True, color_back_projection: bool = True,
               ortho_scale: float = 1.35, front_cutting: bool = True,
               seed: int = 123456, im_size: int = 1024, log_every: int = 100,
-              export_uv: bool = False, device="cuda") -> str:
+              export_uv: bool = False, device="cuda",
+              tail_executor=None) -> Union[str, Future]:
     """Train NeuS on one uid's mv/ set and export the post-processed mesh;
     returns the OBJ's path.
 
@@ -97,7 +99,15 @@ def recon_uid(root: str, uid: str, cfg: nsr.NSRConfig, *,
     (``train/nsr_parallel.py``, rank r's draws from
     ``mesh.rank_seed(seed + 1)``): the resume decision is rank 0's, rank 0
     alone writes the checkpoint and the OBJ, and every rank returns its
-    path."""
+    path.
+
+    tail_executor: a ``concurrent.futures.Executor``, as JAX's. With
+    ``color_back_projection`` the export's host half (march, remesh,
+    thinning, ``save_mesh``) reads nothing on the device, so it is
+    submitted there and a ``Future[str]`` is returned (rank 0's; the other
+    ranks return the path): a multi-uid caller overlaps it with the next
+    uid's training. The field and the masks it reads are on the host by
+    then."""
     device = torch.device(device)
     t_entry = time.time()
     paths = UidPaths(root, uid)
@@ -162,7 +172,10 @@ def recon_uid(root: str, uid: str, cfg: nsr.NSRConfig, *,
                        "train_s": train_time, "data_s": t_data,
                        "steps": cfg.max_steps - start_step, "world": world})
     # the checkpoint, the export and the OBJ are rank 0's; the other ranks
-    # wait for its path
+    # wait for its path (for the export's device half, when its host half
+    # is deferred to ``tail_executor``)
+    defer = tail_executor is not None and color_back_projection
+    deferred: Dict[str, Callable[[], str]] = {}
 
     def save_and_export() -> str:
         t0 = time.time()
@@ -171,11 +184,11 @@ def recon_uid(root: str, uid: str, cfg: nsr.NSRConfig, *,
                       {"params": _host_params(state.params)})
         t_ckpt = time.time() - t0
 
-        verts, faces, times = stage2_export.export_mesh(
-            cfg, state.params, mc_resolution, cfg.max_steps, device,
-            front_mask=front_mask if front_cutting else None,
-            face_count=face_count)
-
+        crop = front_mask if front_cutting else None
+        field = stage2_export.export_field(cfg, state.params, mc_resolution,
+                                           cfg.max_steps, device, crop)
+        times = field["times"]
+        LAST_STATS.update({"export": times, "ckpt_s": t_ckpt})
         front_color = read_image(paths.mv("color", "front"))[..., :3] \
             if color_back_projection else None
         back_color = read_image(paths.mv("color", "back"))[..., :3] \
@@ -187,46 +200,61 @@ def recon_uid(root: str, uid: str, cfg: nsr.NSRConfig, *,
                            color_back_projection)
         out_path = os.path.join(paths.mesh_dir, name + ".obj")
 
-        vert_colors = None
-        if not color_back_projection:
-            # albedo from the radiance field, band frozen at the final step
-            from drawingspinup_torch.models.fields import (
-                radiance_forward, sdf_with_grad,
-            )
-            from drawingspinup_torch.models.hashgrid import progressive_mask
-            with torch.no_grad():
-                mask = progressive_mask(cfg.sdf.grid, cfg.max_steps, device)
-                _, grad, feat = sdf_with_grad(
-                    cfg.sdf, state.params["geometry"],
-                    torch.as_tensor(verts, dtype=torch.float32,
-                                    device=device), 1e-3, mask)
-                n = grad / torch.clamp(torch.linalg.norm(
-                    grad, dim=-1, keepdim=True), min=1e-9)
-                vert_colors = radiance_forward(
-                    cfg.radiance, state.params["texture"], feat, -n,
-                    n).cpu().numpy()
-        t0 = time.time()
-        mesh_post.save_mesh(
-            out_path, verts, faces, vert_colors=vert_colors,
-            front_mask=drawing_mask, front_color=front_color,
-            back_color=back_color, thinning=thinning,
-            thinning_type=thinning_type, smoothing=smoothing,
-            color_back_projection=color_back_projection, shearing=shearing,
-            ortho_scale=ortho_scale, export_uv=export_uv)
-        times["save"] = time.time() - t0
-        LAST_STATS.update({"export": times, "ckpt_s": t_ckpt})
-        phases = ", ".join(f"{k} levels {ms:.2f} ms/step"
-                           for k, ms in phase_ms.items())
-        parts = "  ".join(f"{k} {v:.2f}s" for k, v in times.items()
-                          if isinstance(v, float))
-        print(f"[recon {uid}] trained {cfg.max_steps} steps in "
-              f"{train_time:.1f}s → {out_path}\n"
-              f"[recon {uid}] phases: data+hull {t_data:.1f}s  ckpt "
-              f"{t_ckpt:.1f}s  {times['chain']} export: {parts}  "
-              f"({phases or 'no training'})")
-        return out_path
+        def host_tail() -> str:
+            verts, faces = stage2_export.export_host(field, mc_resolution,
+                                                     crop, face_count)
+            vert_colors = None
+            if not color_back_projection:
+                # albedo from the radiance field, band frozen at the final
+                # step (on the device: this branch never runs deferred)
+                from drawingspinup_torch.models.fields import (
+                    radiance_forward, sdf_with_grad,
+                )
+                from drawingspinup_torch.models.hashgrid import (
+                    progressive_mask,
+                )
+                with torch.no_grad():
+                    mask = progressive_mask(cfg.sdf.grid, cfg.max_steps,
+                                            device)
+                    _, grad, feat = sdf_with_grad(
+                        cfg.sdf, state.params["geometry"],
+                        torch.as_tensor(verts, dtype=torch.float32,
+                                        device=device), 1e-3, mask)
+                    n = grad / torch.clamp(torch.linalg.norm(
+                        grad, dim=-1, keepdim=True), min=1e-9)
+                    vert_colors = radiance_forward(
+                        cfg.radiance, state.params["texture"], feat, -n,
+                        n).cpu().numpy()
+            t0 = time.time()
+            mesh_post.save_mesh(
+                out_path, verts, faces, vert_colors=vert_colors,
+                front_mask=drawing_mask, front_color=front_color,
+                back_color=back_color, thinning=thinning,
+                thinning_type=thinning_type, smoothing=smoothing,
+                color_back_projection=color_back_projection,
+                shearing=shearing, ortho_scale=ortho_scale,
+                export_uv=export_uv)
+            times["save"] = time.time() - t0
+            phases = ", ".join(f"{k} levels {ms:.2f} ms/step"
+                               for k, ms in phase_ms.items())
+            parts = "  ".join(f"{k} {v:.2f}s" for k, v in times.items()
+                              if isinstance(v, float))
+            print(f"[recon {uid}] trained {cfg.max_steps} steps in "
+                  f"{train_time:.1f}s → {out_path}\n"
+                  f"[recon {uid}] phases: data+hull {t_data:.1f}s  ckpt "
+                  f"{t_ckpt:.1f}s  {times['chain']} export: {parts}  "
+                  f"({phases or 'no training'})")
+            return out_path
 
-    return mesh.on_main(save_and_export)
+        if defer:
+            deferred["tail"] = host_tail
+            return out_path
+        return host_tail()
+
+    out_path = mesh.on_main(save_and_export)
+    if "tail" in deferred:                      # rank 0 only
+        return tail_executor.submit(deferred["tail"])
+    return out_path
 
 
 def nsr_config_from_yaml(cfg: Config) -> nsr.NSRConfig:

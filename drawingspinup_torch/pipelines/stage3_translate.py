@@ -10,6 +10,7 @@
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import os
@@ -66,11 +67,12 @@ DEFAULT_STAGE_CFGS = {
 
 
 def gan_config_from_yaml(path: str, use_mask: bool = True,
-                         use_pos: bool = True
+                         use_pos: bool = True, **overrides
                          ) -> Tuple[gan.GANConfig, Dict[str, Optional[str]]]:
     """A reference-format stage-3 yaml (generator / opt_generator /
     discriminator / perception_loss / trainer blocks under ``job``) →
-    (GANConfig, {pre_dir, post_name, root_dir}).
+    (GANConfig, {pre_dir, post_name, root_dir}); ``overrides`` replace
+    GANConfig fields (``compute_dtype=...``), as JAX's.
 
     The yaml's ``input_channels`` is the RGB count; the mask and pos
     channels come from the flags, as the reference train CLIs add them."""
@@ -106,7 +108,7 @@ def gan_config_from_yaml(path: str, use_mask: bool = True,
     )
     extras = {"pre_dir": tr.get("pre_dir"), "post_name": tr.get("post_name"),
               "root_dir": job.get("root_dir")}
-    return cfg, extras
+    return dataclasses.replace(cfg, **overrides), extras
 
 
 def make_config(stage: int, use_mask: bool = True, use_pos: bool = True,

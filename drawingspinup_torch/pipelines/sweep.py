@@ -28,9 +28,9 @@ from drawingspinup_torch.parallel import mesh
 
 STAGES = ("stage1", "mv", "recon", "render", "train_style", "test_style",
           "gif")
-# the stages whose trainings run data-parallel over the ranks in latency
-# mode; stage 2a's batch split (JAX's ``_mv_batch_sharding``) is not ported
-DP_STAGES = ("recon", "train_style")
+# the stages that run on every rank in latency mode: the data-parallel
+# trainings, and stage 2a's batch split (JAX's ``_mv_batch_sharding``)
+DP_STAGES = ("mv", "recon", "train_style")
 
 
 def _final_checkpoint(log_dir: str) -> str:

@@ -38,10 +38,11 @@ LOSS_NAMES = ("d_loss", "g_loss", "image_loss", "perception_loss",
 @dataclasses.dataclass(frozen=True)
 class GANConfig:
     """Same fields and defaults as the JAX ``GANConfig`` (a test pins
-    them), so configs move between the two packages. ``compute_dtype``
-    must be float32 (bf16 is not ported); ``ric_variant`` names a JAX
-    schedule and is not read here: RIC convs run the CUDA kernels on the
-    GPU."""
+    them), so configs move between the two packages. ``compute_dtype``:
+    the activations' dtype in G, D and the VGG taps ("float32" or
+    "bfloat16"; params, norm statistics, losses and the AdamW update stay
+    f32). ``ric_variant`` names a JAX schedule and is not read here: RIC
+    convs run the CUDA kernels on the GPU, in training and serving alike."""
     generator: str = "GeneratorJ_RIC"      # GeneratorJ | GeneratorJ_RIC
     filters: Tuple[int, ...] = (32, 64, 128, 128, 128, 64)
     resnet_blocks: int = 7
@@ -69,17 +70,22 @@ class GANConfig:
 Generator = Union[GeneratorJ, GeneratorJ_RIC]
 
 
+def compute_dtype(cfg: GANConfig) -> torch.dtype:
+    """``cfg.compute_dtype`` as a torch dtype: float32 or bfloat16."""
+    if cfg.compute_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: float32 or "
+                         f"bfloat16")
+    return getattr(torch, cfg.compute_dtype)
+
+
 def _generator(cfg: GANConfig, device: Union[str, torch.device],
                generator: Optional[torch.Generator]) -> Generator:
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype {cfg.compute_dtype!r}: only float32 is ported")
     cls = {"GeneratorJ": GeneratorJ, "GeneratorJ_RIC": GeneratorJ_RIC}[
         cfg.generator]
     return cls(filters=cfg.filters, resnet_blocks=cfg.resnet_blocks,
                tanh=cfg.tanh, append_smoothers=cfg.append_smoothers,
                input_channels=cfg.input_channels, device=device,
-               generator=generator)
+               generator=generator, dtype=compute_dtype(cfg))
 
 
 def build_generator(cfg: GANConfig, device: Union[str, torch.device],
@@ -94,13 +100,14 @@ def build_models(cfg: GANConfig, device: Union[str, torch.device],
                  generator: Optional[torch.Generator] = None
                  ) -> Tuple[Generator, DiscriminatorN_IN, PerceptualVGG19]:
     """G and D in training mode, initialised from ``generator``, and the
-    frozen VGG taps with fixed random features (seed ``VGG_SEED``)."""
+    frozen VGG taps with fixed random features (seed ``VGG_SEED``), all
+    three computing in ``cfg.compute_dtype``."""
     gen = _generator(cfg, device, generator).train()
     disc = DiscriminatorN_IN(num_filters=cfg.disc_filters,
                              n_layers=cfg.disc_layers, device=device,
-                             generator=generator)
+                             generator=generator, dtype=compute_dtype(cfg))
     vgg = PerceptualVGG19(device=device, generator=torch.Generator(
-        device=device).manual_seed(VGG_SEED))
+        device=device).manual_seed(VGG_SEED), dtype=compute_dtype(cfg))
     return gen, disc, vgg.eval().requires_grad_(False)
 
 

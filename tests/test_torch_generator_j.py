@@ -26,8 +26,12 @@ from drawingspinup_tpu.train import gan as jgan
 from drawingspinup_torch.models import generator_j as tgen
 from drawingspinup_torch.train import gan as tgan
 from drawingspinup_torch.utils import jax_params
+from mv_parity import rel_l2
 
 TOL = 1e-4
+# the bf16 tests' floor: a port that computed in f32 would sit ~1e-6 from
+# JAX's f32 output, far below this share of JAX's own bf16 distance
+BF16_FLOOR = 0.25
 SMALL = dict(filters=(8, 16, 16, 16, 16, 8), resnet_blocks=2)
 
 
@@ -146,3 +150,34 @@ def test_upsample_and_pool_match_jax():
     np.testing.assert_array_equal(
         tgen._maxpool2x(torch.from_numpy(x)).numpy(),
         np.asarray(nn.max_pool(jnp.asarray(x), (2, 2), strides=(2, 2))))
+
+
+# ------------------------------------------------------------------ bf16 --
+
+@pytest.mark.parametrize("generator", ["GeneratorJ_RIC", "GeneratorJ"])
+def test_bf16_eval_forward_no_farther_from_f32_than_jax(generator):
+    """``compute_dtype="bfloat16"`` on the same f32 params: the output is
+    f32 at the boundary, within JAX's own bounds of the f32 forward
+    (``tests/test_stage3.py``: max 0.15, mean 0.03), and no farther
+    (relative L2) from JAX's f32 forward than 1.25 × JAX's bf16 forward,
+    which serves with the ``pershift`` RIC schedule (its (N,H,W,9,O)
+    intermediate rounded to bf16; the port's kernels keep it f32), nor
+    nearer than ``BF16_FLOOR`` × it (the port does compute in bf16)."""
+    cfg = jgan.GANConfig(generator=generator, **SMALL)
+    c16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    params, stats = jax_variables(cfg, seed=7)
+    x = np.random.default_rng(11).uniform(
+        -1, 1, (2, 32, 32, cfg.input_channels)).astype(np.float32)
+    j32 = jax_forward(cfg, params, stats, x)
+    gen16, _, _ = jgan.build_models(c16, ric_variant="pershift")
+    j16 = np.asarray(gen16.apply({"params": params, "batch_stats": stats},
+                                 jnp.asarray(x), train=False))
+    with torch.no_grad():
+        t32 = port_generator(cfg, params, stats)(torch.from_numpy(x))
+        t16 = port_generator(c16, params, stats)(torch.from_numpy(x))
+    assert t16.dtype == torch.float32 and t16.shape == t32.shape
+    t16, t32 = t16.numpy(), t32.numpy()
+    assert np.abs(t16 - t32).max() < 0.15
+    assert np.abs(t16 - t32).mean() < 0.03
+    d_port, d_jax = rel_l2(t16, j32), rel_l2(j16, j32)
+    assert BF16_FLOOR * d_jax <= d_port <= 1.25 * d_jax, (d_port, d_jax)

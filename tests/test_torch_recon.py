@@ -365,3 +365,113 @@ def test_recon_cli_on_cpu(tmp_path, capsys):
     np.testing.assert_array_equal(f2, f)
     assert c2 is not None and 0 <= c2.min() and c2.max() <= 1
     assert not np.array_equal(c2, c)
+
+
+def _last_json(out: str) -> dict:
+    import json
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def _failing_save(module, monkeypatch, uid: str) -> None:
+    """``module.save_mesh`` raises for ``uid``'s OBJ."""
+    save = module.save_mesh
+
+    def save_mesh(path, *args, **kwargs):
+        if os.sep + uid + os.sep in path:
+            raise OSError(f"disk full writing {path}")
+        return save(path, *args, **kwargs)
+
+    monkeypatch.setattr(module, "save_mesh", save_mesh)
+
+
+def test_recon_cli_multi_uid_tail(tmp_path, capsys, monkeypatch):
+    """``cli/recon.py --device cpu`` over a list of two uids: the OBJs
+    byte-equal to each uid run alone; one uid's export tail made to raise
+    (``save_mesh`` patched for it) gives ``failed: [uid]``, exit 1 and the
+    other OBJ written (the port resuming from the first run's checkpoints,
+    so exporting only); JAX's CLI on the same list, with its ``save_mesh``
+    patched alike, gives the same ``written`` and ``failed`` lists."""
+    import shutil
+
+    from drawingspinup_tpu.cli import recon as jrecon
+
+    uids = ["s0", "s1"]
+
+    def tree(name: str) -> str:
+        root = str(tmp_path / name)
+        for i, uid in enumerate(uids):
+            write_sphere_mv(root, uid, radius=0.4 + 0.05 * i)
+        lst = os.path.join(root, "uids.json")
+        with open(lst, "w") as f:
+            f.write('["s0", "s1"]')
+        return root
+
+    def argv(root, *extra):
+        return ["--root", root, *TINY_OVERRIDES,
+                f"dataset.uid_list_file={root}/uids.json", *extra]
+
+    name = "it120-mc64-f3000_c_r_s_cbp.obj"
+    both = tree("both")
+    capsys.readouterr()
+    assert trecon.main(argv(both, "--device", "cpu")) == 0
+    assert _last_json(capsys.readouterr().out) == {"written": [
+        os.path.join(tcontract.UidPaths(both, u).mesh_dir, name)
+        for u in uids]}
+    alone = tree("alone")
+    for uid in uids:
+        assert trecon.main(["--uid", uid, *argv(alone, "--device",
+                                                "cpu")]) == 0
+        got = os.path.join(tcontract.UidPaths(both, uid).mesh_dir, name)
+        want = os.path.join(tcontract.UidPaths(alone, uid).mesh_dir, name)
+        with open(got, "rb") as a, open(want, "rb") as b:
+            assert a.read() == b.read(), uid
+
+    lists = {}
+    for pkg, module, main, extra in (
+            ("port", tpost, trecon.main, ["--device", "cpu"]),
+            ("jax", jpost, jrecon.main, [])):
+        root = tree(f"fail_{pkg}")
+        if pkg == "port":      # resume from the trained run: export only
+            for uid in uids:
+                shutil.copytree(os.path.join(tcontract.UidPaths(
+                    both, uid).mesh_dir, "ckpt"), os.path.join(
+                    tcontract.UidPaths(root, uid).mesh_dir, "ckpt"))
+        with monkeypatch.context() as mp:
+            _failing_save(module, mp, "s0")
+            capsys.readouterr()
+            assert main(argv(root, *extra)) == 1, pkg
+        line = _last_json(capsys.readouterr().out)
+        assert line["failed"] == ["s0"], (pkg, line)
+        assert [os.path.relpath(p, root) for p in line["written"]] == [
+            os.path.relpath(os.path.join(
+                tcontract.UidPaths(root, "s1").mesh_dir, name), root)], line
+        assert os.path.exists(line["written"][0])
+        assert not os.path.exists(os.path.join(
+            tcontract.UidPaths(root, "s0").mesh_dir, name))
+        lists[pkg] = {k: [os.path.relpath(p, root) if k == "written" else p
+                          for p in v] for k, v in line.items()}
+    assert lists["port"] == lists["jax"]
+
+
+def test_recon_tail_bench_turns_on_cpu(tmp_path):
+    """``bench/recon_tail.py``'s turn (phase 21 of the smoke runs it) on two
+    tiny uids: in series no future, overlapped two; the OBJs byte-equal;
+    each tail timed, and the first one inside the overlapped wall."""
+    from drawingspinup_torch.bench import recon_tail as rt
+
+    src = str(tmp_path / "in")
+    rt.write_inputs(src, size=64)
+    over = [o for o in TINY_OVERRIDES if not o.startswith("trainer.")]
+    ycfg, cfg = rt.recon_cfg(20, over)
+    turns = [rt.run_turn(rt.copy_inputs(src, str(tmp_path / mode), rt.UIDS),
+                         rt.UIDS, ycfg, cfg, "cpu", mode == "overlapped",
+                         mc=64, faces=3000, im_size=64)
+             for mode in ("serial", "overlapped")]
+    assert [t["futures"] for t in turns] == [0, 2]
+    assert turns[0]["objs"] == turns[1]["objs"]
+    assert [os.path.basename(p) for p in turns[1]["paths"]] == [
+        "it20-mc64-f3000_c_r_s_cbp.obj", "it20-mc64-f3000_c_r_t_s_cbp.obj"]
+    for t in turns:
+        assert len(t["tail_s"]) == 2 and min(t["tail_s"]) > 0
+        assert 0 <= t["hidden_s"] <= t["tail_s"][0] < t["wall"]
+        assert len(t["step_ms"]) == 2 and min(t["step_ms"]) > 0

@@ -37,11 +37,15 @@ from drawingspinup_torch.pipelines import stage3_data as tdata
 from drawingspinup_torch.pipelines import stage3_translate as tst
 from drawingspinup_torch.train import gan as tgan
 from drawingspinup_torch.utils import jax_params
+from mv_parity import rel_l2
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = dict(filters=(8, 16, 16, 16, 16, 8), resnet_blocks=2, batch_size=4,
              patch_size=16)
 HIGHEST = functools.partial(jax.default_matmul_precision, "highest")
+# the bf16 tests' floor: a port that computed in f32 would sit ~1e-6 from
+# JAX's f32 run, far below this share of JAX's own bf16 distance
+BF16_FLOOR = 0.25
 
 
 def _np_tree(tree):
@@ -148,6 +152,43 @@ def test_vgg_taps_match_jax():
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w),
                                    atol=1e-5 * float(np.abs(w).max()))
+
+
+@pytest.mark.parametrize("module", ["disc", "vgg"])
+def test_bf16_d_and_vgg_no_farther_from_f32_than_jax(module):
+    """D's logits and the VGG maps with ``dtype=bfloat16`` on the f32
+    params: f32 at the boundary, and no farther (relative L2) from JAX's
+    f32 output than 1.25 × JAX's bf16 output, nor nearer than
+    ``BF16_FLOOR`` × it."""
+    x = np.random.default_rng(5).uniform(-1, 1, (2, 32, 32, 3)).astype(
+        np.float32)
+    if module == "disc":
+        jmods = [jgen.DiscriminatorN_IN(dtype=dt)
+                 for dt in (jnp.float32, jnp.bfloat16)]
+        key, port_cls = jax.random.PRNGKey(2), tgen.DiscriminatorN_IN
+    else:
+        jmods = [jgen.PerceptualVGG19(dtype=dt)
+                 for dt in (jnp.float32, jnp.bfloat16)]
+        key, port_cls = jax.random.PRNGKey(12345), tgen.PerceptualVGG19
+    variables = jmods[0].init(key, jnp.zeros((1, 32, 32, 3)))
+    with HIGHEST():
+        outs = [m.apply(variables, jnp.asarray(x), **(
+            {"as_list": True} if module == "vgg" else {})) for m in jmods]
+    j32, j16 = ([np.asarray(o[0])] if module == "disc"
+                else [np.asarray(t) for t in o] for o in outs)
+    ports = []
+    for dt in (torch.float32, torch.bfloat16):
+        port = port_cls(dtype=dt)
+        port.load_state_dict(jax_params.to_state_dict(
+            _np_tree(variables["params"])))
+        with torch.no_grad():
+            got = port(torch.from_numpy(x))
+        ports.append([got] if module == "disc" else got)
+    for t32, t16, w32, w16 in zip(ports[0], ports[1], j32, j16):
+        assert t16.dtype == torch.float32
+        d_port, d_jax = rel_l2(t16.numpy(), w32), rel_l2(w16, w32)
+        assert BF16_FLOOR * d_jax <= d_port <= 1.25 * d_jax, (
+            module, d_port, d_jax)
 
 
 def test_vgg_npz_overlay_matches_jax(tmp_path):
@@ -286,6 +327,22 @@ def test_yaml_copies_and_configs_match_jax(stage):
             jst.DEFAULT_STAGE_CFGS[stage], use_mask, use_pos)
         assert dataclasses.asdict(got) == dataclasses.asdict(want)
         assert got_extras == want_extras
+
+
+@pytest.mark.parametrize("stage", [1, 2])
+def test_compute_dtype_override_matches_jax(stage):
+    """``compute_dtype`` as JAX's configs take it: an override of
+    ``gan_config_from_yaml`` and of ``make_config``."""
+    got, _ = tst.gan_config_from_yaml(tst.DEFAULT_STAGE_CFGS[stage],
+                                      compute_dtype="bfloat16")
+    want, _ = jst.gan_config_from_yaml(jst.DEFAULT_STAGE_CFGS[stage],
+                                       compute_dtype="bfloat16")
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.compute_dtype == "bfloat16"
+    assert dataclasses.asdict(tst.make_config(
+        stage, compute_dtype="bfloat16")) == dataclasses.asdict(
+        jst.make_config(stage, compute_dtype="bfloat16"))
+    assert tgan.compute_dtype(got) == torch.bfloat16
 
 
 def test_weights_policy_copy_and_post_paths(tmp_path):
@@ -436,6 +493,74 @@ def test_train_step_matches_jax(generator):
 
     _assert_step_update("G", state.gen, jnew.g_params, cfg.lr)
     _assert_step_update("D", state.disc, jnew.d_params, cfg.lr)
+
+
+BF16_STEP_SEEDS = (3, 7, 11)
+
+
+def test_bf16_train_step_no_farther_from_f32_than_jax():
+    """One ``train_step_on_batch`` with ``compute_dtype="bfloat16"`` from
+    JAX's init on JAX's batch, against JAX's f32 and bf16 steps (JAX's
+    training RIC schedule, the Pallas kernel in interpret mode: f32 inside,
+    as the port's kernels), from three inits and batches: the losses, and
+    the gradients of G and of D (read from Adam's first moment, 0.1 × the
+    gradient after one step), no farther from JAX's f32 step than 1.25 ×
+    JAX's bf16 step.
+
+    A deviation from one step held at 1.25 ×: the distances are pooled
+    over the three draws (the L2 norm of the per-draw relative L2
+    distances; for the losses, of their relative errors), because bf16
+    rounding is noise, and which package lands nearer differs from draw to
+    draw and loss to loss; on the first draw alone the port's G gradients
+    are 1.33 × JAX's distance. Measured on the CPU, port / JAX per draw: G
+    gradients 0.104 / 0.078, 0.041 / 0.043, 0.142 / 0.192; D 0.062 /
+    0.056, 0.017 / 0.018, 0.029 / 0.031; losses 2.9e-3 / 9.3e-3, 3.0e-3 /
+    3.4e-3, 8.5e-4 / 6.6e-4. The pooled distance must also be at least
+    ``BF16_FLOOR`` × JAX's, which a port computing in f32 fails."""
+    dist = {k: [[], []] for k in ("losses", "G", "D")}
+
+    def flat(tree):
+        return np.concatenate([v.numpy().ravel() for _, v in sorted(
+            jax_params.to_state_dict(_np_tree(tree)).items())])
+
+    for seed in BF16_STEP_SEEDS:
+        cfg = jgan.GANConfig(generator="GeneratorJ_RIC",
+                             ric_variant="pallas", **SMALL)
+        c16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+        jstate = jgan.init_state(cfg, jax.random.PRNGKey(seed))
+        state = _port_state(c16, jstate)
+        data, key = _keyframe(seed + 1), jax.random.PRNGKey(seed + 2)
+        with HIGHEST():
+            j32, l32 = jgan.train_step(cfg, jstate, data, key)
+            j16, l16 = jgan.train_step(c16, jstate, data, key)
+            k_patch, _ = jax.random.split(key)
+            batch = jdata.sample_patches(data, k_patch, cfg.batch_size,
+                                         cfg.patch_size)
+        logs = tgan.train_step_on_batch(
+            tgan.GANConfig(**dataclasses.asdict(c16)), state,
+            {k: torch.from_numpy(np.array(v)) for k, v in batch.items()})
+        want = np.array([float(l32[k]) for k in tgan.LOSS_NAMES])
+        for i, got in enumerate((
+                np.array([float(logs[k]) for k in tgan.LOSS_NAMES]),
+                np.array([float(l16[k]) for k in tgan.LOSS_NAMES]))):
+            dist["losses"][i].append(
+                np.linalg.norm((got - want) / np.abs(want)))
+        for name, opt, model, m32, m16 in (
+                ("G", state.g_opt, state.gen, j32.g_opt[0].mu,
+                 j16.g_opt[0].mu),
+                ("D", state.d_opt, state.disc, j32.d_opt[0].mu,
+                 j16.d_opt[0].mu)):
+            got = np.concatenate([
+                opt.state[p]["exp_avg"].numpy().ravel()
+                for _, p in sorted(model.named_parameters())])
+            dist[name][0].append(rel_l2(got, flat(m32)))
+            dist[name][1].append(rel_l2(flat(m16), flat(m32)))
+    for name, (port, jax_) in dist.items():
+        d_port, d_jax = np.linalg.norm(port), np.linalg.norm(jax_)
+        print(name, "per draw, port:", np.round(port, 5), "JAX:",
+              np.round(jax_, 5))
+        assert BF16_FLOOR * d_jax <= d_port <= 1.25 * d_jax, (
+            name, port, jax_)
 
 
 # ------------------------------------------------------------------- CLI --

@@ -180,8 +180,49 @@ def sweep_task(inputs: Dict[str, Any], rank: int, world: int) -> Dict:
     return out
 
 
+def mv_task(inputs: Dict[str, Any], rank: int, world: int) -> Dict:
+    """The stage-2a pipeline with the batch split over the ranks, on the
+    weights and draws of ``inputs``: every rank's gathered latents and the
+    images ``__call__`` returns (rank 0's, decoded). A config keyed
+    ``(weights, ...)`` loads the UNet tensors ``unet_over[weights]`` over
+    ``state``."""
+    from drawingspinup_torch.pipelines import stage2_mv
+
+    out: Dict[str, Any] = {}
+    for name, cfg in inputs["cfgs"].items():
+        mods = stage2_mv.build_modules(cfg, "cpu")
+        for mod, part in zip(mods, ("unet", "vae", "clip")):
+            sd = inputs["state"][part]
+            if part == "unet":
+                sd = {**sd, **inputs["unet_over"].get(name[0], {})}
+            mod.load_state_dict(sd, strict=True)
+        pipe = stage2_mv.MVPipeline(cfg, *mods)
+        seen = []
+        denoise = pipe.denoise
+
+        def recorded(*args, **kwargs):
+            seen.append(denoise(*args, **kwargs))
+            return seen[-1]
+
+        pipe.denoise = recorded
+        images = pipe(inputs["image"], noises=inputs["noises"])
+        out[name] = {"latents": seen[0], "images": images}
+    return out
+
+
+def mvcli_task(inputs: Dict[str, Any], rank: int, world: int) -> Dict:
+    """The mv CLI over the ranks; on ranks other than 0 every write under
+    the root raises."""
+    from drawingspinup_torch.cli import mv as mv_cli
+    from drawingspinup_torch.pipelines import stage2_mv
+
+    attempts = forbid_writes(inputs["root"]) if rank else []
+    assert mv_cli.main(inputs["argv"]) == 0
+    return {"attempts": attempts, "dp": stage2_mv.LAST_STATS.get("dp")}
+
+
 TASKS = {"nsr": nsr_task, "gan": gan_task, "world1": world1_task,
-         "sweep": sweep_task}
+         "sweep": sweep_task, "mv": mv_task, "mvcli": mvcli_task}
 
 
 def run(task: str, rank: int, world: int, tmp: str,
