@@ -23,7 +23,8 @@ stage 1's outputs, the batch sweep drawing → GIF over two uids,
 stage-1 training (train_lama on BiCar renders at full width) and stage 1
 with the lama-regular.yaml generator, and last the two per-character
 trainings and the latency sweep's training stages data-parallel over
-torch.distributed.
+torch.distributed, and the FFC generator's training step tensor-parallel
+(phase 23).
 Phases:
 
   1. versions, and the card's name and power limit (nvidia-smi);
@@ -245,7 +246,27 @@ Phases:
      bf16-rounded inputs at the training shapes (phases 3 and 6's
      limits); a served 512² frame in bf16 against f32 (the share of u8
      values more than 1 apart; the RGB within JAX's own bf16 bounds, max
-     0.15 and mean 0.03 of the tanh output; alpha equal).
+     0.15 and mean 0.03 of the tanh output; alpha equal);
+ 23. tensor parallelism (``parallel/tp.py``, JAX's ``shard_params_tp``):
+     the dry run's FFC training step at LaMa's full width (27 042 561
+     parameters), batch 2 of 256² crops: (a) in an NCCL group of one
+     rank, ``make_mesh(1, 1)``, two steps bit-identical to the plain step;
+     (b) dp 1 × tp 2 on two gloo ranks sharing cuda:0 in f32, three steps
+     (at this width the first Adam step overshoots, the plain step's loss
+     too rises at step 2): 13 522 849 parameters a rank, step 3's loss
+     below step 1's, each gathered gradient of step 1 no farther
+     (relative L2) from the plain float64 step's than max(1.25 × the plain
+     f32 step's distance, 1e-5), that distance the larger of the plain
+     step's over its two row orders and the 1.25 raised to the plain
+     step's own worst ratio between them where that is larger (its
+     rounding spread: up to 1.66× on some leaves; the transposed convs'
+     zero-gradient biases reported apart), the running statistics
+     within relative 1e-5, each rank's collectives as the shapes predict
+     (``parallel/dryrun.py::predicted_traffic``); ms a step at tp 1 and 2
+     (not a scaling figure: gloo goes through the host), launches and
+     busy a step per rank; (c) ``python -m
+     drawingspinup_torch.parallel.dryrun --ranks 2 --device cuda:0
+     --backend gloo``: the four parts of JAX's ``dryrun_multichip``.
 
 Kernel times (phases 3, 6, 9, 10) are medians of CUDA events around each
 call, the host's enqueueing included (``ms``, and every plain and library
@@ -346,6 +367,21 @@ BF16_STEPS = 20         # phase 22: bf16 steps whose loss must fall
 # the generator's tanh output (tests/test_stage3.py: max 0.15, mean 0.03)
 # in u8 steps of 2/255
 BF16_U8_MAX, BF16_U8_MEAN = 0.15 * 127.5, 0.03 * 127.5
+# phase 23: the tensor-parallel FFC step at LaMa's full width (cut: batch 2
+# of 256² crops against LaMa's 8 of 512², two steps; gloo moves every
+# gathered activation through the host)
+TP_SIZE = 256
+TP_BATCH = 2
+TP_PARAMS = 27_042_561          # the full-width generator
+TP_PER_RANK = 13_522_849        # its shards at tp 2 (JAX's rule)
+TP_STEPS = 3                    # (b): at full width the first Adam step
+# overshoots (the plain step's loss too rises at step 2) and step 3's loss
+# falls below step 1's
+TP_TIMED = 2                    # steps timed after the checked ones
+TP_GRAD_FLOOR = 1e-5            # (b): the floor of test_torch_lama.py's rule
+# (the plain f32 distance the larger of its two row orders, the factor
+# 1.25 or the plain step's own spread between them, if larger)
+TP_STAT_TOL = 1e-5              # (b): running statistics vs float64
 UID = "smoke"
 F32_TOL = 1e-3          # phase 5: tanh outputs of 21 reordered-sum layers
 REL_TOL = 1e-4          # phase 3: f32 sums of up to 9·C products, reordered
@@ -3469,7 +3505,8 @@ def dp_rank(task: str, rank: int, world: int, root: str, tmp: str) -> None:
     try:
         with contextlib.redirect_stdout(sys.stderr):
             out = {"steps": dp_rank_steps, "sweep": dp_rank_sweep,
-                   "mv": dp_rank_mv}[task](root, device, rank, world)
+                   "mv": dp_rank_mv, "tp": dp_rank_tp}[task](
+                       root, device, rank, world)
         torch.save(out, os.path.join(tmp, f"out_{task}_{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -4169,6 +4206,252 @@ def phase_stage3_bf16(root: str, device) -> dict:
             "frame_share": share}
 
 
+def tp_batch(device, dtype=None, rows=None):
+    """Phase 23's batch, drawn as the dry run draws its own (x uniform, y =
+    uniform > 0.5, seeds 0 and 1), NCHW, in ``dtype``; ``rows``: an order
+    of its rows."""
+    import torch
+
+    x = np.random.default_rng(0).random((TP_BATCH, 4, TP_SIZE, TP_SIZE))
+    y = np.random.default_rng(1).random((TP_BATCH, 1, TP_SIZE, TP_SIZE)) > .5
+    return (torch.from_numpy(a.astype(np.float32)[rows or slice(None)]).to(
+        device, dtype) for a in (x, y))
+
+
+def tp_plain(device, dtype, steps: int = TP_STEPS, rows=None) -> dict:
+    """The plain step (no mesh) at full width from the seeded weights:
+    ``steps`` losses, the gradients and running statistics after step 1,
+    the state and Adam moments after step 2 (host); ``rows`` reorders the
+    batch, which changes only the order of the step's sums."""
+    import torch
+
+    from drawingspinup_torch.parallel import dryrun
+    from drawingspinup_torch.train.lama import make_optimizer
+
+    model = dryrun.seeded_generator(SEED).to(device, dtype)
+    opt = make_optimizer(model, dryrun.LR)
+    x, y = tp_batch(device, dtype, rows)
+    out = {"losses": [float(dryrun.ffc_tp_train_step(model, opt, x, y))]}
+    out["grads"] = {n: host_copy(p.grad.double())
+                    for n, p in model.named_parameters()}
+    out["stats"] = {n: host_copy(b.double())
+                    for n, b in model.named_buffers()}
+    for i in range(1, steps):
+        out["losses"].append(float(dryrun.ffc_tp_train_step(model, opt, x,
+                                                            y)))
+        if i == 1:
+            out["state"] = {k: host_copy(v)
+                            for k, v in model.state_dict().items()}
+            out["moments"] = {n: [host_copy(opt.state[p][k])
+                                  for k in ("exp_avg", "exp_avg_sq")]
+                              for n, p in model.named_parameters()}
+    out["n_params"] = sum(p.numel() for p in model.parameters())
+    return out
+
+
+def phase_tp_world1(root: str, device, tmp: str) -> dict:
+    """(a) an NCCL group of one rank: the ``make_mesh(1, 1)`` step at full
+    width bit-identical to the plain step over two steps; ms a step and
+    launches a step."""
+    import torch
+    import torch.distributed as dist
+
+    from drawingspinup_torch.parallel import dryrun, mesh, tp
+    from drawingspinup_torch.train.lama import make_optimizer
+
+    plain = tp_plain(device, torch.float32)
+    check(plain["n_params"] == TP_PARAMS,
+          f"[23a] {plain['n_params']} parameters, not {TP_PARAMS}")
+    rank, world, _ = mesh.init_dp(device, backend="nccl",
+                                  init_method=f"file://{tmp}/nccl_tp_store")
+    try:
+        m = mesh.make_mesh(1, 1)
+        model = dryrun.seeded_generator(SEED).to(device)
+        tp.shard_params_tp(model, m)
+        opt = make_optimizer(model, dryrun.LR)
+        x, y = tp_batch(device)
+        losses = [float(dryrun.ffc_tp_train_step(model, opt, x, y, m))
+                  for _ in range(2)]
+        state = model.state_dict()
+        params = dict(model.named_parameters())
+        same = losses == plain["losses"][:2] and all(
+            torch.equal(state[k].cpu(), v) for k, v in plain["state"].items()
+        ) and all(torch.equal(opt.state[params[n]][k].cpu(), v)
+                  for n, vs in plain["moments"].items()
+                  for k, v in zip(("exp_avg", "exp_avg_sq"), vs))
+        ms = host_ms(lambda: dryrun.ffc_tp_train_step(model, opt, x, y, m),
+                     TP_TIMED)
+        busy, launches = device_profile(
+            lambda: dryrun.ffc_tp_train_step(model, opt, x, y, m), 1,
+            os.path.join(tmp, "tp1_trace"))
+    finally:
+        dist.destroy_process_group()
+    check((rank, world) == (0, 1) and same,
+          f"[23a] the mesh step in an NCCL group of {world} differs from the "
+          f"plain step")
+    return {"plain": plain, "ms": ms, "busy": busy, "launches": launches}
+
+
+def dp_rank_tp(root: str, device, rank: int, world: int) -> dict:
+    """(b) on one rank of a (1, world) mesh: TP_STEPS f32 steps at full
+    width on this rank's shards; the gathered gradients and statistics of
+    step 1,
+    step 1's collectives and the shapes' prediction, ms a step, launches
+    and device busy a step."""
+    import torch
+
+    from drawingspinup_torch.parallel import dryrun, mesh, tp
+    from drawingspinup_torch.train.lama import make_optimizer
+
+    m = mesh.make_mesh(1, world)
+    model = dryrun.seeded_generator(SEED).to(device)
+    axes = tp.shard_params_tp(model, m)
+    opt = make_optimizer(model, dryrun.LR)
+    x, y = tp_batch(device)
+    tp.reset_traffic()
+    losses = [float(dryrun.ffc_tp_train_step(model, opt, x, y, m))]
+    traffic = dict(tp.TRAFFIC)
+    params = dict(model.named_parameters())
+    grads = tp.gather_named({n: p.grad for n, p in params.items()}, axes, m)
+    stats = tp.gather_named(dict(model.named_buffers()), axes, m)
+    losses += [float(dryrun.ffc_tp_train_step(model, opt, x, y, m))
+               for _ in range(TP_STEPS - 1)]
+    ms = host_ms(lambda: dryrun.ffc_tp_train_step(model, opt, x, y, m),
+                 TP_TIMED)
+    busy, launches = device_profile(
+        lambda: dryrun.ffc_tp_train_step(model, opt, x, y, m), 1,
+        os.path.join(root, f"tp2_trace_{rank}"))
+    return {"losses": losses, "traffic": traffic,
+            "predicted": dryrun.predicted_traffic(model, TP_BATCH, TP_SIZE,
+                                                  world),
+            "n_params": sum(p.numel() for p in params.values()),
+            "grads": {n: host_copy(g.double()) for n, g in grads.items()},
+            "stats": {n: host_copy(b.double()) for n, b in stats.items()},
+            "ms": ms, "busy": busy, "launches": launches}
+
+
+def phase_tp(root: str, device) -> dict:
+    """Phase 23: the tensor-parallel FFC step (JAX's ``shard_params_tp``)
+    at LaMa's full width: (a) NCCL at world size 1, (b) dp 1 × tp 2 on two
+    gloo ranks sharing the card against the plain f32 and float64 steps,
+    (c) the dry-run entry on two gloo ranks on the card."""
+    import torch
+
+    from drawingspinup_torch.parallel import dryrun
+
+    tmp = os.path.join(root, "tp_ranks")
+    os.makedirs(tmp)
+    # (c) runs beside the untimed references, and ends before (a) and (b)
+    t0 = time.time()
+    dry = subprocess.Popen(
+        [sys.executable, "-m", "drawingspinup_torch.parallel.dryrun",
+         "--ranks", "2", "--device", "cuda:0", "--backend", "gloo"],
+        cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        f64 = tp_plain(device, torch.float64, steps=1)
+        # the plain f32 step's own rounding spread: the same step on its
+        # rows in the other order (the same math) lands up to 1.66x
+        # farther from float64 than in the drawn order on some leaves
+        swapped = tp_plain(device, torch.float32, steps=1,
+                           rows=list(range(TP_BATCH))[::-1])
+        stdout, stderr = dry.communicate(timeout=700)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+    dry_s = time.time() - t0
+    lines = [ln for ln in stdout.splitlines()
+             if ln.startswith("dryrun_multichip[") and ln.endswith(" ok")]
+    check(dry.returncode == 0 and len(lines) == 4,
+          f"[23c] the dry run: exit {dry.returncode}, {len(lines)} ok "
+          f"lines; {stdout[-1500:]} {stderr[-3000:]}")
+    one = phase_tp_world1(root, device, tmp)
+    with torch.device("meta"):
+        layers = dryrun.FFCResNetGenerator().model
+    zero_grad = [f"model.{i}.bias" for i, m in enumerate(layers)
+                 if isinstance(m, torch.nn.ConvTranspose2d)]
+    outs = spawn_ranks("tp", root, tmp)
+    for r, out in enumerate(outs):
+        check(out["n_params"] == TP_PER_RANK,
+              f"[23b] rank {r} holds {out['n_params']} parameters, not "
+              f"{TP_PER_RANK}")
+        check(out["traffic"] == out["predicted"],
+              f"[23b] rank {r}: collectives {out['traffic']} against the "
+              f"shapes' {out['predicted']}")
+    dist = {}      # leaf: tp's distance, the plain f32 step's in each order
+    for name, want in f64["grads"].items():
+        if name in zero_grad:
+            continue
+        norm = float(want.norm())
+        dist[name] = (max(float((o["grads"][name] - want).norm()) / norm
+                          for o in outs),
+                      *(float((p["grads"][name] - want).norm()) / norm
+                        for p in (one["plain"], swapped)))
+    spread = max(max(a, b) / max(min(a, b), TP_GRAD_FLOOR)
+                 for _, a, b in dist.values())
+    factor = max(1.25, spread)
+    ratios = sorted(((d / max(a, b, TP_GRAD_FLOOR), n, d, max(a, b))
+                     for n, (d, a, b) in dist.items()), reverse=True)
+    print(f"[23b] the plain f32 step's spread between its row orders "
+          f"{spread:.2f}; the leaves nearest the bound (ratio, leaf, tp, "
+          f"plain): " + "; ".join(f"{r:.2f} {n} {d:.3e} {p:.3e}"
+                                  for r, n, d, p in ratios[:8]))
+    for r, name, d_tp, d_plain in ratios:
+        check(d_tp <= max(factor * d_plain, TP_GRAD_FLOOR),
+              f"[23b] gradient {name}: relative L2 {d_tp:.3e} from float64 "
+              f"against {factor:.2f} × the plain f32 step's {d_plain:.3e} "
+              f"(the larger of its two row orders)")
+    worst = max(d for d, _, _ in dist.values())
+    ratio = ratios[0][0]
+    zero_max = max(float(o["grads"][n].abs().max()) for o in outs
+                   for n in zero_grad)
+    stat_worst = 0.0
+    for name, want in f64["stats"].items():
+        for o in outs:
+            d = float((o["stats"][name] - want).norm() / want.norm())
+            stat_worst = max(stat_worst, d)
+    check(stat_worst <= TP_STAT_TOL,
+          f"[23b] running statistics {stat_worst:.3e} from float64 (limit "
+          f"{TP_STAT_TOL:g})")
+    plain_losses = one["plain"]["losses"]
+    for r, out in enumerate(outs):
+        check(out["losses"][-1] < out["losses"][0],
+              f"[23b] rank {r}: the loss did not fall over {TP_STEPS} "
+              f"steps: {out['losses']} (the plain step's {plain_losses})")
+    tr, pred = outs[0]["traffic"], outs[0]["predicted"]
+    report(f"[23] tensor parallelism, the FFC generator at LaMa's full width "
+           f"({TP_PARAMS} parameters), batch {TP_BATCH} of {TP_SIZE}² "
+           f"(LaMa: 8 of 512²): (a) NCCL group of 1 rank, two steps "
+           f"bit-identical to the plain step, {one['ms']:.2f} ms a step "
+           f"(host clock, {TP_TIMED} steps), {one['launches']:.0f} launches "
+           f"and {one['busy']:.2f} ms busy a step; (b) dp 1 × tp 2 on two "
+           f"gloo ranks sharing the card: {TP_PER_RANK} parameters a rank, "
+           f"losses {', '.join(f'{v:.5f}' for v in outs[0]['losses'])} "
+           f"over {TP_STEPS} steps (the plain f32 step's "
+           f"{', '.join(f'{v:.5f}' for v in plain_losses)}); "
+           f"step-1 gradients at most {worst:.3e} relative L2 from float64 "
+           f"(at most {ratio:.2f}× max(the plain f32 step's distance, the "
+           f"larger of its two row orders, {TP_GRAD_FLOOR:g}); bound "
+           f"{factor:.2f}×: 1.25 or the plain step's own spread between its "
+           f"row orders, {spread:.2f}), the "
+           f"zero-gradient biases {zero_max:.2e}; "
+           f"running statistics {stat_worst:.3e}; ms a step "
+           f"{outs[0]['ms']:.2f} / {outs[1]['ms']:.2f}, launches "
+           f"{outs[0]['launches']:.0f} / {outs[1]['launches']:.0f} and busy "
+           f"{outs[0]['busy']:.2f} / {outs[1]['busy']:.2f} ms a step (rank "
+           f"0 / 1); a step per rank gathers {tr['gather_bytes']} bytes in "
+           f"{tr['gathers']} all-gathers and all-reduces "
+           f"{tr['all_reduce_bytes']} in {tr['all_reduces']} (the shapes "
+           f"predict {pred['gather_bytes']} / {pred['gathers']} and "
+           f"{pred['all_reduce_bytes']} / {pred['all_reduces']}); (c) the "
+           f"dry run's four parts on two gloo ranks on the card ok in "
+           f"{dry_s:.1f} s (beside the untimed float64 step): "
+           + "; ".join(ln.split(": ", 1)[1] for ln in lines))
+    return {"ms_tp1": one["ms"], "ms_tp2": [o["ms"] for o in outs],
+            "traffic": tr, "dry_s": dry_s}
+
+
 def kernels_line(per_shape, serving_launches, train_shapes, fwd_launches,
                  bwd_launches, hg_uniform, hg_rays, gather, gather_main,
                  pixel, recon_launches, sweep_launches, dp_launches,
@@ -4410,6 +4693,7 @@ def main() -> int:
         dp_run = timed("20", phase_dp, root, device)
         tail_run = timed("21", phase_recon_tail, root, device)
         bf16_run = timed("22", phase_stage3_bf16, root, device)
+        timed("23", phase_tp, root, device)
 
     report("[t] seconds per phase (host clock): " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items()))

@@ -18,8 +18,19 @@ channels. Batch norm is flax's ``BatchNorm(momentum=0.9, epsilon=1e-5)``:
 in eval mode the affine map of the running statistics, in train mode the
 batch's mean and biased variance, with the running statistics moved by
 that same biased variance. Convolutions reflect-pad where LaMa does
-(``reflect_pad2d``, whose backward repeats bit for bit on the card); the
-upsampling is ``ConvTranspose2d(k=3, s=2, p=1, output_padding=1)``.
+(``reflect_pad2d``, whose backward is ``F.pad``'s to the bit and repeats
+bit for bit on the card); the upsampling is ``ConvTranspose2d(k=3, s=2,
+p=1, output_padding=1)``.
+
+The generator also runs column-parallel over the ``tp`` axis of a
+``(dp, tp)`` mesh once ``parallel/tp.py::shard_params_tp`` has sliced its
+parameters and set each module's ``tp`` (the mesh's collectives; None
+otherwise, and then every module is the plain one): a sharded layer
+computes its slice of the output channels, an activation is gathered
+where the next operation needs every channel (a conv's input, the Fourier
+unit's spectrum and its (re, im) pairs, the split into streams, the
+concatenation), and the batch norms take their statistics over the
+global batch, summed over ``dp``.
 
 The squeeze-excitation layer keeps JAX's biases (flax ``Dense``), where
 upstream's ``Linear`` layers have none. A Fourier unit's ``fft_norm``
@@ -54,18 +65,54 @@ def _act(name: str) -> nn.Module:
             "leaky_relu_0.2": LeakyReLU, "identity": nn.Identity}[name]()
 
 
+def _pad_segments(n: int, p: int):
+    """The (padded slice, source slice, flipped) runs of one axis of a
+    reflect pad by ``p``, in the padded axis's order."""
+    runs = [(slice(p, p + n), slice(0, n), False)]
+    if p:
+        runs = [(slice(0, p), slice(1, p + 1), True), *runs,
+                (slice(p + n, n + 2 * p), slice(n - 1 - p, n - 1), True)]
+    return runs
+
+
+class _ReflectPad2d(torch.autograd.Function):
+    """The forward from slices, flips and concatenations; the backward adds
+    the at most nine runs of the padded gradient into a zero gradient, each
+    run with a slice add, in the padded tensor's row-major order: every
+    source pixel sums its terms in the order ``F.pad``'s CPU backward
+    loops over the padded pixels, so both give the same bits. No atomics:
+    the CUDA reflection pad's backward adds with them, this one repeats
+    bit for bit."""
+
+    @staticmethod
+    def forward(ctx, x, ph, pw):
+        ctx.pads, ctx.size = (ph, pw), x.shape[-2:]
+        if pw:
+            x = torch.cat([x[..., 1:pw + 1].flip(-1), x,
+                           x[..., -pw - 1:-1].flip(-1)], dim=-1)
+        if ph:
+            x = torch.cat([x[..., 1:ph + 1, :].flip(-2), x,
+                           x[..., -ph - 1:-1, :].flip(-2)], dim=-2)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        (ph, pw), (h, w) = ctx.pads, ctx.size
+        gx = g.new_zeros(*g.shape[:-2], h, w)
+        for rows, src_rows, flip_h in _pad_segments(h, ph):
+            for cols, src_cols, flip_w in _pad_segments(w, pw):
+                run = g[..., rows, cols]
+                dims = [d for d, f in ((-2, flip_h), (-1, flip_w)) if f]
+                gx[..., src_rows, src_cols] += run.flip(dims) if dims \
+                    else run
+        return gx, None, None
+
+
 def reflect_pad2d(x: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
-    """``F.pad(x, (pw, pw, ph, ph), mode="reflect")`` built from slices,
-    flips and concatenations: the same values, and a backward of plain
-    adds in a fixed order, so that a training step repeats bit for bit
-    (the CUDA reflection pad's backward adds with atomics)."""
-    if pw:
-        x = torch.cat([x[..., 1:pw + 1].flip(-1), x,
-                       x[..., -pw - 1:-1].flip(-1)], dim=-1)
-    if ph:
-        x = torch.cat([x[..., 1:ph + 1, :].flip(-2), x,
-                       x[..., -ph - 1:-1, :].flip(-2)], dim=-2)
-    return x
+    """``F.pad(x, (pw, pw, ph, ph), mode="reflect")``: the same values and,
+    on the CPU, the same gradient bits; a backward without atomics, so
+    that a training step repeats bit for bit on the card."""
+    return _ReflectPad2d.apply(x, ph, pw)
 
 
 class ReflectionPad2d(nn.Module):
@@ -101,7 +148,13 @@ class BatchNorm2d(nn.Module):
     mean and biased variance and moves the running statistics by that same
     variance, as flax does; ``F.batch_norm`` would move ``running_var`` by
     the unbiased one, so the update is written out. (flax computes the
-    variance as ``mean(x²) − mean(x)²``; the two agree to rounding.)"""
+    variance as ``mean(x²) − mean(x)²``; the two agree to rounding.)
+
+    On a mesh with more than one dp rank the statistics are flax's over
+    the global batch: the sums of x and x² over this rank's rows, summed
+    over ``dp``, then ``mean(x²) − mean(x)²`` clamped at 0."""
+
+    tp = None           # parallel/tp.py::TensorParallel under a mesh
 
     def __init__(self, features: int):
         super().__init__()
@@ -114,6 +167,8 @@ class BatchNorm2d(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, BN_EPS)
+        if self.tp is not None and self.tp.mesh.dp > 1:
+            return self._global_batch(x)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
             for stat, batch in ((self.running_mean, mean),
@@ -121,6 +176,20 @@ class BatchNorm2d(nn.Module):
                 stat.copy_(BN_MOMENTUM * stat + (1 - BN_MOMENTUM) * batch)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             BN_EPS)
+
+    def _global_batch(self, x: torch.Tensor) -> torch.Tensor:
+        sums = self.tp.dp_sum(torch.stack([x.sum(dim=(0, 2, 3)),
+                                           (x * x).sum(dim=(0, 2, 3))]))
+        count = x.shape[0] * x.shape[2] * x.shape[3] * self.tp.mesh.dp
+        mean, mean2 = sums[0] / count, sums[1] / count
+        var = (mean2 - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            for stat, batch in ((self.running_mean, mean),
+                                (self.running_var, var)):
+                stat.copy_(BN_MOMENTUM * stat + (1 - BN_MOMENTUM) * batch)
+        scale = self.weight * torch.rsqrt(var + BN_EPS)
+        return (x - mean[:, None, None]) * scale[:, None, None] \
+            + self.bias[:, None, None]
 
 
 class SELayer(nn.Module):
@@ -145,10 +214,13 @@ class FourierUnit(nn.Module):
     c1_re, …]`` (upstream's ``stack(…, -1)`` order) → irFFT2, the
     transforms in f32 at least."""
 
+    tp = None
+
     def __init__(self, in_channels: int, out_channels: int, groups: int = 1,
                  spectral_pos_encoding: bool = False, use_se: bool = False,
                  fft_norm: str = "ortho"):
         super().__init__()
+        self.in_channels = in_channels
         if fft_norm != "ortho":
             raise NotImplementedError(
                 f"FourierUnit: fft_norm {fft_norm!r}; the port, as JAX, "
@@ -166,6 +238,9 @@ class FourierUnit(nn.Module):
         re, im = rfft2_ortho(x)
         ff = torch.stack([re, im], dim=2).reshape(n, 2 * c, h, w // 2 + 1)
         ff = ff.to(x.dtype)
+        if self.tp is not None:
+            # a slice's spectrum is the spectrum's slice, pairs interleaved
+            ff = self.tp.full(ff, 2 * self.in_channels)
         if self.spectral_pos_encoding:
             hh, ww = ff.shape[2:]
             kw = dict(dtype=ff.dtype, device=ff.device)
@@ -175,7 +250,11 @@ class FourierUnit(nn.Module):
                             cols[None, :].expand(n, 1, hh, ww), ff], dim=1)
         if self.se is not None:
             ff = self.se(ff)
+        if self.tp is not None:
+            ff = self.tp.col(self.conv_layer, ff)
         ff = self.relu(self.bn(self.conv_layer(ff)))
+        if self.tp is not None and ff.shape[1] % 2:
+            ff = self.tp.full(ff, self.conv_layer.out_channels)   # a pair cut
         ff = ff.reshape(n, -1, 2, h, w // 2 + 1)
         return irfft2_ortho(ff[:, :, 0], ff[:, :, 1], (h, w)).to(x.dtype)
 
@@ -184,6 +263,8 @@ class SpectralTransform(nn.Module):
     """The global branch: [2× average pool] → 1×1 conv + BN + ReLU →
     FourierUnit (+ the local Fourier unit over a 2×2 split of the first
     quarter of the channels) → 1×1 conv of the sum."""
+
+    tp = None
 
     def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
                  groups: int = 1, enable_lfu: bool = True, **fu_kwargs):
@@ -203,13 +284,17 @@ class SpectralTransform(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv1(self.downsample(x))
         out = self.fu(x)
+        tp = self.tp
         if self.enable_lfu:
-            c, s = x.shape[1], x.shape[2] // 2
-            xs = x[:, : c // 4]
+            xs = x if tp is None else tp.full(x, self.conv2.in_channels)
+            c, s = xs.shape[1], xs.shape[2] // 2
+            xs = xs[:, : c // 4]
             xs = torch.cat([xs[:, :, :s], xs[:, :, s:2 * s]], dim=1)
             xs = torch.cat([xs[..., :s], xs[..., s:2 * s]], dim=1)
             out = out + self.lfu(xs).repeat(1, 1, 2, 2)
-        return self.conv2(x + out)
+        if tp is None:
+            return self.conv2(x + out)
+        return self.conv2(tp.col(self.conv2, tp.add(x, out)))
 
 
 class FFC(nn.Module):
@@ -217,6 +302,8 @@ class FFC(nn.Module):
     global ← l2g(local) · gate + SpectralTransform(global); with ``gated``
     (and both a global input and a local output) the two gates are the
     sigmoid of a 1×1 conv of both input streams, else 1."""
+
+    tp = None
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  ratio_gin: float, ratio_gout: float, stride: int = 1,
@@ -246,6 +333,7 @@ class FFC(nn.Module):
         self.gate = nn.Conv2d(in_channels, 2, 1) \
             if gated and in_cg and out_cl else None
         self.has_l, self.has_g = out_cl > 0, out_cg > 0
+        self.in_widths = (in_cl, in_cg)
 
     @staticmethod
     def _sum(terms) -> Optional[torch.Tensor]:
@@ -253,8 +341,37 @@ class FFC(nn.Module):
                  if m is not None]
         return sum(terms[1:], terms[0]) if terms else None
 
+    def _tp_inputs(self, x_l, x_g):
+        """Under ``tp``: each input stream with every channel (gathered
+        once), given to each consumer, and to the sharded ones through one
+        ``copy`` a stream (one all-reduce of its gradient)."""
+        tp = self.tp
+        x_l, x_g = (tp.full(t, w) for t, w in zip((x_l, x_g),
+                                                    self.in_widths))
+        g2g = self.convg2g and self.convg2g.conv1[0]
+        fed = {}
+        for t, layers in ((x_l, (self.convl2l, self.convl2g)),
+                          (x_g, (self.convg2l, g2g))):
+            sharded = [m for m in layers if m is not None and tp.sharded(m)]
+            t_col = tp.copy(t) if sharded and t is not None else t
+            for m in layers:
+                if m is not None:
+                    fed[m] = t_col if m in sharded else t
+        if g2g is not None:
+            fed[self.convg2g] = fed[g2g]
+        return fed
+
     def forward(self, x: Union[torch.Tensor, Stream]) -> Stream:
         x_l, x_g = _stream(x)
+        if self.tp is not None:     # the generator builds no gate
+            fed = self._tp_inputs(x_l, x_g)
+            out_l = self._sum(((self.convl2l, fed.get(self.convl2l), None),
+                               (self.convg2l, fed.get(self.convg2l), None))
+                              ) if self.has_l else None
+            out_g = self._sum(((self.convl2g, fed.get(self.convl2g), None),
+                               (self.convg2g, fed.get(self.convg2g), None))
+                              ) if self.has_g else None
+            return out_l, out_g
         g2l = l2g = None
         if self.gate is not None:
             gates = torch.sigmoid(self.gate(torch.cat(
@@ -282,6 +399,7 @@ class FFCBnAct(nn.Module):
                        ratio_gout, stride, padding, dilation, groups, bias,
                        enable_lfu, padding_type=padding_type, **kwargs)
         out_cg = int(out_channels * ratio_gout)
+        self.out_widths = (out_channels - out_cg, out_cg)
         self.bn_l = BatchNorm2d(out_channels - out_cg) \
             if out_channels > out_cg else None
         self.bn_g = BatchNorm2d(out_cg) if out_cg else None
@@ -308,6 +426,8 @@ class FFCResnetBlock(nn.Module):
     ``inline`` block takes and returns one tensor, its last
     ``int(dim · ratio_gin)`` channels the global stream."""
 
+    tp = None
+
     def __init__(self, dim: int, ratio_gin: float, ratio_gout: float,
                  dilation: int = 1, enable_lfu: bool = True,
                  padding_type: str = "reflect", inline: bool = False):
@@ -318,17 +438,30 @@ class FFCResnetBlock(nn.Module):
         self.conv1 = FFCBnAct(dim, dim, 3, **kw)
         self.conv2 = FFCBnAct(dim, dim, 3, **kw)
         self.inline = inline
+        self.dim = dim
         self.global_in = int(dim * ratio_gin)
+        self.out_widths = self.conv2.out_widths
 
     def forward(self, x: Union[torch.Tensor, Stream]
                 ) -> Union[torch.Tensor, Stream]:
+        tp = self.tp
         if self.inline:
+            if tp is not None:
+                x = tp.full(x, self.dim)
             cl = x.shape[1] - self.global_in
             x = (x[:, :cl], x[:, cl:] if self.global_in else None)
         id_l, id_g = _stream(x)
         x_l, x_g = self.conv2(self.conv1((id_l, id_g)))
-        out = _add(id_l, x_l), _add(id_g, x_g)
-        return ConcatTupleLayer()(out) if self.inline else out
+        if tp is None:
+            out = _add(id_l, x_l), _add(id_g, x_g)
+        else:
+            out = tuple(a if b is None else b if a is None else tp.add(a, b)
+                        for a, b in ((id_l, x_l), (id_g, x_g)))
+        if not self.inline:
+            return out
+        if tp is not None:
+            out = tuple(tp.full(t, w) for t, w in zip(out, self.out_widths))
+        return ConcatTupleLayer()(out)
 
 
 class ConcatTupleLayer(nn.Module):
@@ -347,6 +480,8 @@ class FFCResNetGenerator(nn.Module):
     ``out_ffc``] → reflect pad + 7×7 conv head → ``add_out_act``.
     ``model`` is upstream's ``nn.Sequential`` without the output
     activation, so ``logits`` is the head before it."""
+
+    tp = None
 
     def __init__(self, input_nc: int = 4, output_nc: int = 1, ngf: int = 64,
                  n_downsampling: int = 3, n_blocks: int = 9,
@@ -388,12 +523,28 @@ class FFCResNetGenerator(nn.Module):
         self.out_act = _act(add_out_act) \
             if add_out_act and add_out_act != "none" else nn.Identity()
 
+    tp_ready = True     # parallel/tp.py::shard_params_tp takes it
+
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         """(N, input_nc, H, W) → the head's output before the activation."""
-        return self.model(x)
+        tp = self.tp
+        if tp is None:
+            return self.model(x)
+        widths = None
+        head = self.model[-1]
+        for layer in self.model:
+            if isinstance(layer, ConcatTupleLayer):
+                x = tuple(tp.full(t, w) for t, w in zip(_stream(x), widths))
+            elif layer is self.model[-2]:       # gathered before its pad
+                x = tp.full(x, head.in_channels)
+            elif isinstance(layer, (nn.Conv2d, nn.ConvTranspose2d)):
+                x = tp.col(layer, x)
+            x = layer(x)
+            widths = getattr(layer, "out_widths", None)
+        return tp.full(x, head.out_channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.out_act(self.model(x))
+        return self.out_act(self.logits(x))
 
 
 class FFCNLayerDiscriminator(nn.Module):

@@ -6,8 +6,12 @@ hands each device its shard and ``lax.pmean`` averages over ``dp``. The
 port runs one process a GPU, as torchrun starts them: each rank samples and
 renders its own shard, ``all_mean_`` averages what JAX ``pmean``s, and
 every rank applies the same update, so all ranks hold the same bits. With
-one rank (no process group) every entry point takes its plain path. The
-tensor-parallel axis (``shard_params_tp``) is not ported.
+one rank (no process group) every entry point takes its plain path.
+
+The tensor-parallel axis: ``make_mesh(dp, tp)`` lays the ranks out as
+JAX's ``make_mesh`` lays out its devices, row-major over ``(dp, tp)``, and
+makes the groups of each axis; ``parallel/tp.py`` shards the FFC
+generator's output features over ``tp`` (JAX's ``shard_params_tp``).
 
 Stage 2a splits its batch rows instead (JAX's ``_mv_batch_sharding``): the
 first ``mv_split`` ranks form a subgroup (``dp_group``), each holds the
@@ -20,8 +24,11 @@ ranks share one card.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
-from typing import Callable, Dict, List, Optional, Sequence, Tuple, TypeVar
+from typing import (
+    Any, Callable, Dict, List, Optional, Sequence, Tuple, TypeVar,
+)
 
 import torch
 import torch.distributed as dist
@@ -118,7 +125,7 @@ def mv_split(batch: int, world: int) -> int:
     return 1
 
 
-_GROUPS: Dict[Tuple[object, int], object] = {}
+_GROUPS: Dict[Tuple[object, Any], Any] = {}
 
 
 def dp_group(dp: int):
@@ -136,6 +143,45 @@ def dp_group(dp: int):
     return _GROUPS[key] if rank() < dp else None
 
 
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """This rank's place on a ``(dp, tp)`` mesh: its index on each axis,
+    the group of its ``dp`` axis (the ranks of its tp index) and of its
+    ``tp`` axis (the ranks of its dp index); the groups are None at world
+    size 1."""
+    dp: int = 1
+    tp: int = 1
+    dp_index: int = 0
+    tp_index: int = 0
+    dp_group: Any = None
+    tp_group: Any = None
+
+
+def make_mesh(dp: int, tp: int = 1) -> Mesh:
+    """The mesh of JAX's ``make_mesh(dp · tp, tp=tp)``: rank r at dp index
+    r // tp and tp index r % tp. Every rank of the default group must call
+    this, in the same order (``dist.new_group``'s rule); the groups are made
+    once per default group and shape. Raises when the world size is not
+    ``dp · tp``."""
+    world = world_size()
+    if dp < 1 or tp < 1 or dp * tp != world:
+        raise ValueError(f"a ({dp}, {tp}) mesh needs {dp * tp} ranks; the "
+                         f"process group has {world}")
+    if world == 1:
+        return Mesh()
+    key = (dist.group.WORLD, (dp, tp))
+    if key not in _GROUPS:
+        tp_groups = [dist.new_group(ranks=[i * tp + j for j in range(tp)])
+                     for i in range(dp)]
+        dp_groups = [dist.new_group(ranks=[i * tp + j for i in range(dp)])
+                     for j in range(tp)]
+        _GROUPS[key] = (dp_groups, tp_groups)
+    dp_groups, tp_groups = _GROUPS[key]
+    r = rank()
+    return Mesh(dp, tp, r // tp, r % tp, dp_groups[r % tp],
+                tp_groups[r // tp])
+
+
 def all_gather_rows(t: torch.Tensor, group) -> torch.Tensor:
     """The ranks' ``t`` of ``group``, concatenated along dim 0 in rank
     order: the global row order when rank r holds the r-th block of rows.
@@ -148,25 +194,27 @@ def all_gather_rows(t: torch.Tensor, group) -> torch.Tensor:
 
 
 @torch.no_grad()
-def all_mean_(tensors: Sequence[Optional[torch.Tensor]]) -> None:
-    """Average ``tensors`` over the ranks in place, as ``lax.pmean``: the
-    tensors of one dtype flattened into one bucket, one
-    ``all_reduce(SUM)`` a bucket, divided by the world size in that dtype,
-    copied back. None entries (a locked hash level's gradient) are
-    skipped: every rank passes the same list, its Nones at the same
-    places. Without a process group there is nothing to average."""
+def all_mean_(tensors: Sequence[Optional[torch.Tensor]],
+              group=None) -> None:
+    """Average ``tensors`` over the ranks of ``group`` (default: all) in
+    place, as ``lax.pmean``: the tensors of one dtype flattened into one
+    bucket, one ``all_reduce(SUM)`` a bucket, divided by the group's size
+    in that dtype, copied back. None entries (a locked hash level's
+    gradient) are skipped: every rank passes the same list, its Nones at
+    the same places. Without a process group there is nothing to
+    average."""
     if not dist.is_initialized():
         return
-    world = world_size()
+    world = dist.get_world_size(group)
     buckets: Dict[torch.dtype, List[torch.Tensor]] = {}
     for t in tensors:
         if t is not None:
             buckets.setdefault(t.dtype, []).append(t)
-    for group in buckets.values():
-        flat = torch.cat([t.reshape(-1) for t in group])
-        dist.all_reduce(flat)
+    for bucket in buckets.values():
+        flat = torch.cat([t.reshape(-1) for t in bucket])
+        dist.all_reduce(flat, group=group)
         flat /= world
-        for t, part in zip(group, flat.split([t.numel() for t in group])):
+        for t, part in zip(bucket, flat.split([t.numel() for t in bucket])):
             t.copy_(part.view(t.shape))
 
 

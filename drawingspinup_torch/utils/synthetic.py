@@ -3,8 +3,9 @@
 pins its files to the original's), the two-bone rig and bar mesh of
 ``tests/test_fbx_render.py`` (``tests/test_torch_render.py`` pins the FBX
 bytes), the drawing of ``tests/test_stage1.py``
-(``tests/test_torch_stage1.py`` pins the PNG bytes), and coloured OBJs for
-the BiCar renderer of stage-1 training."""
+(``tests/test_torch_stage1.py`` pins the PNG bytes), coloured OBJs for
+the BiCar renderer of stage-1 training, and the in-memory sphere views of
+``scripts/bench_nsr.py::make_sphere_dataset`` (``sphere_dataset``)."""
 from __future__ import annotations
 
 import os
@@ -13,6 +14,52 @@ import numpy as np
 
 from drawingspinup_torch.core.contract import UidPaths
 from drawingspinup_torch.core.io import write_image, write_obj
+
+
+def sphere_dataset(n_views=6, size=1024, radius=0.5, hull=False,
+                   scene_radius=1.0, device="cpu"):
+    """An NSR training dict of an analytic sphere seen by the first
+    ``n_views`` ortho cameras (``scripts/bench_nsr.py``'s
+    ``make_sphere_dataset``): world normals, colours 0.5 + 0.5·n, masks,
+    unit view weights, c2w; the visual-hull ``t_range`` with ``hull``;
+    the packed ``pixels`` table of the NSR step."""
+    import torch
+
+    from drawingspinup_torch.core.contract import VIEWS
+    from drawingspinup_torch.render.cameras import (
+        ortho_ray_grid, rays_to_world, view_matrices,
+    )
+    from drawingspinup_torch.render.hull import hull_t_ranges
+    from drawingspinup_torch.train.nsr import pack_pixels
+
+    c2ws, _ = view_matrices(list(VIEWS[:n_views]))
+    origins, dirs = ortho_ray_grid(size, size)
+    images, normals, masks = [], [], []
+    for c2w in c2ws:
+        ro, rd = rays_to_world(origins.reshape(-1, 3), dirs.reshape(-1, 3),
+                               c2w)
+        b = np.sum(ro * rd, -1)
+        c = np.sum(ro * ro, -1) - radius ** 2
+        disc = b * b - c
+        hit = disc > 0
+        t = -b - np.sqrt(np.maximum(disc, 0))
+        n = (ro + t[:, None] * rd) / radius
+        col = np.clip(0.5 + 0.5 * n, 0, 1)
+        images.append(np.where(hit[:, None], col, 0.0).reshape(size, size, 3))
+        normals.append(np.where(hit[:, None], n, 0.0).reshape(size, size, 3))
+        masks.append(hit.reshape(size, size).astype(np.float32))
+
+    def dev(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    data = {"images": dev(np.stack(images)), "normals": dev(np.stack(normals)),
+            "masks": dev(np.stack(masks)),
+            "view_weights": dev(np.ones((n_views,))), "c2w": dev(c2ws)}
+    if hull:
+        data["t_range"] = hull_t_ranges(data["masks"], data["c2w"],
+                                        scene_radius)
+    data["pixels"] = pack_pixels(data)
+    return data
 
 
 def write_sphere_mv(root, uid, size=64, radius=0.45):

@@ -449,15 +449,27 @@ def test_train_mode_matches_jax(net):
             assert _stats_rel(tm, mut["batch_stats"]) <= TOL
 
 
+# seeds 0-19, and the draws on which the earlier pad's gradient (the
+# autograd of its flips and concatenations, a reordered sum) was more than
+# 1e-15 from F.pad's: 43 ... 290 at (3, 3), 263 and 267 at (1, 2)
+PAD_SEEDS = (*range(20), 43, 61, 117, 205, 215, 225, 290, 263, 267)
+
+
 @pytest.mark.parametrize("ph,pw", [(3, 3), (1, 2), (0, 1)])
 def test_reflect_pad_equals_torch(ph, pw):
-    """The pad built from flips equals ``F.pad(mode="reflect")``, values
-    and gradient, bit for bit."""
-    x = torch.randn(2, 3, 9, 11, dtype=torch.float64, requires_grad=True)
-    g = torch.randn(2, 3, 9 + 2 * ph, 11 + 2 * pw, dtype=torch.float64)
-    want = torch.nn.functional.pad(x, (pw, pw, ph, ph), mode="reflect")
-    (gw,) = torch.autograd.grad(want, x, g)
-    got = tffc.reflect_pad2d(x, ph, pw)
-    (gg,) = torch.autograd.grad(got, x, g)
-    assert torch.equal(got, want)
-    assert torch.allclose(gg, gw, rtol=0, atol=1e-15)
+    """The pad equals ``F.pad(mode="reflect")`` on the CPU, values and
+    gradient, bit for bit, on seeded draws in float64 and f32."""
+    for seed in PAD_SEEDS:
+        gen = torch.Generator().manual_seed(seed)
+        for dtype in (torch.float64, torch.float32):
+            x = torch.randn(2, 3, 9, 11, dtype=dtype, generator=gen,
+                            requires_grad=True)
+            g = torch.randn(2, 3, 9 + 2 * ph, 11 + 2 * pw, dtype=dtype,
+                            generator=gen)
+            want = torch.nn.functional.pad(x, (pw, pw, ph, ph),
+                                           mode="reflect")
+            (gw,) = torch.autograd.grad(want, x, g)
+            got = tffc.reflect_pad2d(x, ph, pw)
+            (gg,) = torch.autograd.grad(got, x, g)
+            assert torch.equal(got, want), (seed, dtype)
+            assert torch.equal(gg, gw), (seed, dtype)

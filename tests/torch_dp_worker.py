@@ -1,7 +1,9 @@
-"""The ranks of ``tests/test_torch_parallel.py``: one spawned process a
-rank, importing torch, the port and ``chip_smoke.forbid_writes`` (no JAX,
-so that a rank starts in seconds), joined over gloo through a
-``FileStore`` in the test's directory, with one torch thread.
+"""The ranks of ``tests/test_torch_parallel.py`` (and of
+``tests/test_torch_mv_split.py`` and ``tests/test_torch_tp.py``): one
+spawned process a rank, importing torch, the port and
+``chip_smoke.forbid_writes`` (no JAX, so that a rank starts in seconds),
+joined over gloo through a ``FileStore`` in the test's directory, with
+one torch thread.
 
 ``run(task, rank, world, tmp)`` waits for the task's inputs at
 ``<tmp>/in_<task>.pt`` (the test starts the ranks first, so that they
@@ -210,6 +212,59 @@ def mv_task(inputs: Dict[str, Any], rank: int, world: int) -> Dict:
     return out
 
 
+def tp_task(inputs: Dict[str, Any], rank: int, world: int) -> Dict:
+    """Two steps of ``parallel/dryrun.py::ffc_tp_train_step`` on the
+    ``(dp, tp)`` mesh of ``inputs`` for each case (generator kwargs, full
+    float64 state, the global batch): the losses, the gathered state and
+    Adam moments, the two zero-gradient biases after step 1, each conv's
+    output channels in the first forward, this rank's parameter count and
+    its replicated parameters, and step 1's collectives."""
+    from drawingspinup_torch.models.ffc import FFCResNetGenerator
+    from drawingspinup_torch.parallel import dryrun, tp
+    from drawingspinup_torch.train.lama import make_optimizer
+
+    m = mesh.make_mesh(inputs["dp"], inputs["tp"])
+    out = {}
+    for case in inputs["cases"]:
+        model = FFCResNetGenerator(**case["kw"]).double()
+        axes = tp.shard_params_tp(model, m)
+        tp.load_full(model, case["state"], axes, m)
+        opt = make_optimizer(model, dryrun.LR)
+        x, y = (dryrun.dp_rows(case[k], m) for k in ("x", "y"))
+        channels: Dict[str, int] = {}
+
+        def record(name):
+            def hook(mod, args, o):
+                channels.setdefault(name, o.shape[1])
+            return hook
+
+        hooks = [mod.register_forward_hook(record(name))
+                 for name, mod in model.named_modules()
+                 if isinstance(mod, (torch.nn.Conv2d,
+                                     torch.nn.ConvTranspose2d))]
+        tp.reset_traffic()
+        losses = [float(dryrun.ffc_tp_train_step(model, opt, x, y, m))]
+        traffic = dict(tp.TRAFFIC)
+        for h in hooks:
+            h.remove()
+        params = dict(model.named_parameters())
+        bias1 = tp.gather_named({k: params[k] for k in case["zero_grad"]},
+                                axes, m)
+        losses.append(float(dryrun.ffc_tp_train_step(model, opt, x, y, m)))
+        moments = {k: tp.gather_named(
+            {n: opt.state[p][k] for n, p in params.items()}, axes, m)
+            for k in ("exp_avg", "exp_avg_sq")}
+        out[case["name"]] = {
+            "losses": losses, "state": tp.gather_full(model, axes, m),
+            "mu": moments["exp_avg"], "nu": moments["exp_avg_sq"],
+            "bias1": bias1, "channels": channels, "traffic": traffic,
+            "n_params": sum(p.numel() for p in params.values()),
+            "replicated": {n: p.detach().clone() for n, p in params.items()
+                           if axes[n] is None},
+            "steps": [float(opt.state[p]["step"]) for p in params.values()]}
+    return out
+
+
 def mvcli_task(inputs: Dict[str, Any], rank: int, world: int) -> Dict:
     """The mv CLI over the ranks; on ranks other than 0 every write under
     the root raises."""
@@ -222,7 +277,8 @@ def mvcli_task(inputs: Dict[str, Any], rank: int, world: int) -> Dict:
 
 
 TASKS = {"nsr": nsr_task, "gan": gan_task, "world1": world1_task,
-         "sweep": sweep_task, "mv": mv_task, "mvcli": mvcli_task}
+         "sweep": sweep_task, "mv": mv_task, "mvcli": mvcli_task,
+         "tp": tp_task}
 
 
 def run(task: str, rank: int, world: int, tmp: str,
