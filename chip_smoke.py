@@ -23,8 +23,9 @@ stage 1's outputs, the batch sweep drawing → GIF over two uids,
 stage-1 training (train_lama on BiCar renders at full width) and stage 1
 with the lama-regular.yaml generator, and last the two per-character
 trainings and the latency sweep's training stages data-parallel over
-torch.distributed, and the FFC generator's training step tensor-parallel
-(phase 23).
+torch.distributed, the FFC generator's training step tensor-parallel
+(phase 23), and the toy golden flow on the card judged by the port's
+fidelity CLI against the same flow on the CPU (phase 24).
 Phases:
 
   1. versions, and the card's name and power limit (nvidia-smi);
@@ -142,7 +143,11 @@ Phases:
      seconds per drawing and the CLI's wall seconds per uid; the cost of
      the reflect pads' one path: ms per drawing at batch 8, device busy
      and launches per forward with models/ffc.py's reflect_pad2d and with
-     PyTorch's reflection pad in its place, in one call;
+     PyTorch's reflection pad in its place, in one call; then the CLI on
+     24 drawings at batch 8 in the overlapped order (batch k+1's forward
+     enqueued before batch k's Telea) and with --serial, twice each in
+     turns: the PNGs byte-equal, both walls, and the host seconds of
+     threshold + Telea + PNG write per drawing inside the CLI;
  16. stage 2a: the mv CLI at full width (UNet 320/640/1280/1280 with joint
      mid attention, SD VAE, CLIP ViT-L/14; 256² input, 12 images of 32²
      latents, 75 DDIM steps in bf16, eta 1, 1024² output), seeded weights,
@@ -266,7 +271,32 @@ Phases:
      (not a scaling figure: gloo goes through the host), launches and
      busy a step per rank; (c) ``python -m
      drawingspinup_torch.parallel.dryrun --ranks 2 --device cuda:0
-     --backend gloo``: the four parts of JAX's ``dryrun_multichip``.
+     --backend gloo``: the four parts of JAX's ``dryrun_multichip``;
+ 24. the toy golden flow (``utils/synthetic.py::run_toy_flow``: stage 1 at
+     a narrow width and 64², the sphere views, recon at the tiny budget,
+     the two-bone rig rendered, three style batches, the GIF) from the
+     port's seeded inits on the card and with --device cpu on the card's
+     host, every random draw of both made on the CPU (``cpu_draws``), the
+     card's tree judged against the CPU's by the port's
+     ``cli/fidelity.py`` at ``tests/test_goldens.py``'s cross-run bounds
+     (stage-3 images >= 20 dB PSNR, every other image >= 30 dB, mesh
+     chamfer <= 2.5e-2, mesh V/F within 10 %, GIF frame counts equal; the
+     stage-3 images against stage 3 rerun on the CPU on the card's renders,
+     since the toy recon turns the devices' last-bit differences into
+     meshes 1.0e-2 apart (chamfer; NVIDIA H100 80GB HBM3, 700.00 W), as
+     other draws do, whose renders part stage 3 beyond its bound; the
+     flows' own stage-3 PSNR is printed): the
+     CPU run takes the kernels' plain versions, so this holds the
+     hash-grid and pixel-ray kernels to them at artifact level (the toy
+     flow's style generator is GeneratorJ, as in the goldens, and
+     launches no RIC kernel); the card's tree against the committed
+     goldens (printed, not gated: they started from JAX's init); phase
+     17's first uid at production sizes judged against a byte copy of its
+     tree (every PSNR inf, every perceptual distance 0, each chamfer that
+     of the mesh against its own vertices: JAX's chamfer samples 20 000
+     vertices of each side in turn); the
+     seconds of each stage on each device and of each judge, and the
+     flow's launches (the kernels line's ``launches_golden``).
 
 Kernel times (phases 3, 6, 9, 10) are medians of CUDA events around each
 call, the host's enqueueing included (``ms``, and every plain and library
@@ -382,6 +412,16 @@ TP_GRAD_FLOOR = 1e-5            # (b): the floor of test_torch_lama.py's rule
 # (the plain f32 distance the larger of its two row orders, the factor
 # 1.25 or the plain step's own spread between them, if larger)
 TP_STAT_TOL = 1e-5              # (b): running statistics vs float64
+# phase 15: the overlapped order against --serial
+OVERLAP_DRAWINGS = 24
+OVERLAP_BATCH = 8
+# phase 24: the toy golden flow, judged at tests/test_goldens.py's bounds
+GOLDEN_UID = "toy_golden"
+GOLDENS_TREE = os.path.join(REPO, "tests", "data", "goldens", "preprocessed")
+GOLDEN_STAGE3_DB = 20.0
+GOLDEN_DB = 30.0
+GOLDEN_CHAMFER = 2.5e-2
+GOLDEN_COUNT_TOL = 0.10
 UID = "smoke"
 F32_TOL = 1e-3          # phase 5: tanh outputs of 21 reordered-sum layers
 REL_TOL = 1e-4          # phase 3: f32 sums of up to 9·C products, reordered
@@ -2465,6 +2505,71 @@ def phase_stage1(root: str, device) -> None:
            f"{telea_s:.3f} host s per drawing; CLI wall {cli_s:.2f} s per "
            f"uid (checkpoint load and first-call set-up included); CPU "
            f"float64 forward {t64:.1f} s")
+    phase_stage1_overlap(root, device, yaml, ckpt, ms8)
+
+
+def phase_stage1_overlap(root: str, device, yaml: str, ckpt: str,
+                         fwd_ms: float) -> None:
+    """Phase 15's second part: the predict CLI on OVERLAP_DRAWINGS drawings
+    at batch OVERLAP_BATCH in the overlapped order (the default) and with
+    --serial, in turns (overlap, serial, serial, overlap), each on its own
+    copy of the drawings: every PNG byte-equal across the four runs; the
+    walls of ``predict_uids`` and its host seconds of threshold + Telea +
+    PNG write per drawing. ``fwd_ms``: ms of the forward per drawing at
+    batch DRAWINGS (CUDA events)."""
+    from drawingspinup_torch.cli import predict
+    from drawingspinup_torch.core.contract import UidPaths
+    from drawingspinup_torch.pipelines import stage1
+
+    runs = {"overlap": [], "serial": []}
+    pngs = []
+    for turn, order in enumerate(("overlap", "serial", "serial", "overlap")):
+        sub = os.path.join(root, f"stage1_{order}_{turn}")
+        uids = write_drawings(sub, OVERLAP_DRAWINGS, DRAWING_SIZE,
+                              SEED + 410)
+        lst = os.path.join(sub, "uids.json")
+        with open(lst, "w") as f:
+            json.dump(uids, f)
+        with contextlib.redirect_stdout(sys.stderr):
+            rc = predict.main([yaml, f"pretrained.path={ckpt}",
+                               f"uid_json={lst}", "--root", sub,
+                               "--device", str(device), "--batch-size",
+                               str(OVERLAP_BATCH), "--size",
+                               str(DRAWING_SIZE)]
+                              + (["--serial"] if order == "serial" else []))
+        check(rc == 0, f"predict {order}: exit code {rc}")
+        check(stage1.LAST_STATS["drawings"] == OVERLAP_DRAWINGS,
+              f"predict {order}: {stage1.LAST_STATS}")
+        runs[order].append(dict(stage1.LAST_STATS))
+        blobs = []
+        for u in uids:
+            with open(UidPaths(sub, u).inpainted, "rb") as f:
+                blobs.append(f.read())
+        pngs.append(blobs)
+    differ = [i for i in range(OVERLAP_DRAWINGS)
+              if len({run[i] for run in pngs}) != 1]
+    check(not differ, f"stage 1 overlap: the PNGs of drawings {differ} "
+                      f"differ between the orders or the turns")
+    batches = -(-OVERLAP_DRAWINGS // OVERLAP_BATCH)
+    walls = {k: [r["wall_s"] for r in v] for k, v in runs.items()}
+    post = {k: [r["post_s"] / OVERLAP_DRAWINGS for r in v]
+            for k, v in runs.items()}
+    telea_batch = np.mean(post["serial"]) * OVERLAP_BATCH
+    fwd_batch = fwd_ms / 1e3 * OVERLAP_BATCH
+    predicted = min(telea_batch, fwd_batch) * (batches - 1)
+    saved = np.mean(walls["serial"]) - np.mean(walls["overlap"])
+    report(f"[15] stage 1 overlap: predict on {OVERLAP_DRAWINGS} drawings "
+           f"of {DRAWING_SIZE}^2 at batch {OVERLAP_BATCH} ({batches} "
+           f"batches), turns overlap, serial, serial, overlap: every PNG "
+           f"byte-equal across the four runs; predict_uids wall overlapped "
+           f"{', '.join(f'{w:.3f}' for w in walls['overlap'])} s, serial "
+           f"{', '.join(f'{w:.3f}' for w in walls['serial'])} s (saved "
+           f"{saved:.3f} s; predicted min(Telea a batch {telea_batch:.3f} "
+           f"s, forward a batch {fwd_batch:.3f} s) x {batches - 1} = "
+           f"{predicted:.3f} s); threshold + Telea + PNG write host s per "
+           f"drawing overlapped "
+           f"{', '.join(f'{t:.4f}' for t in post['overlap'])}, serial "
+           f"{', '.join(f'{t:.4f}' for t in post['serial'])}")
 
 
 def count_flops(model, *args) -> float:
@@ -2757,8 +2862,6 @@ def phase_sweep(root: str, device) -> dict:
     from drawingspinup_torch.core.contract import UidPaths
     from drawingspinup_torch.core.io import read_image, write_image
     from drawingspinup_torch.kernels import hashgrid as hk
-    from drawingspinup_torch.kernels import pixel_rays as pr
-    from drawingspinup_torch.kernels import ric_conv as rk
     from drawingspinup_torch.pipelines import stage2_recon
     from drawingspinup_torch.pipelines import sweep
     from drawingspinup_torch.utils.synthetic import make_rig_fbx, \
@@ -2805,10 +2908,7 @@ def phase_sweep(root: str, device) -> dict:
                                  resume=False, log_path=log)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {"ric_conv_fwd": rk.LAUNCHES, "ric_conv_bwd": rk.BWD_LAUNCHES,
-                "hashgrid_fwd": hk.FWD_LAUNCHES + hk.FWD_JAC_LAUNCHES,
-                "hashgrid_bwd": hk.BWD_LAUNCHES,
-                "pixel_rays": pr.LAUNCHES, "row_gather": hk.GATHER_LAUNCHES}
+    launches = launch_counts()
     with open(log) as f:
         records = [json.loads(line) for line in f]
     failed = [r for r in records if r["stage"] == "FAILED"]
@@ -4452,16 +4552,274 @@ def phase_tp(root: str, device) -> dict:
             "traffic": tr, "dry_s": dry_s}
 
 
+def launch_counts() -> dict:
+    """Each hand-written kernel's launches since ``zero_launches``, by the
+    kernels line's names."""
+    from drawingspinup_torch.kernels import hashgrid as hk
+    from drawingspinup_torch.kernels import pixel_rays as pr
+    from drawingspinup_torch.kernels import ric_conv as rk
+
+    return {"ric_conv_fwd": rk.LAUNCHES, "ric_conv_bwd": rk.BWD_LAUNCHES,
+            "hashgrid_fwd": hk.FWD_LAUNCHES + hk.FWD_JAC_LAUNCHES,
+            "hashgrid_bwd": hk.BWD_LAUNCHES,
+            "pixel_rays": pr.LAUNCHES, "row_gather": hk.GATHER_LAUNCHES}
+
+
+def judge_golden_bounds(report_: dict, what: str) -> None:
+    """tests/test_goldens.py's cross-run bounds on a fidelity report:
+    stage-3 images >= 20 dB, every other image >= 30 dB, every mesh's
+    chamfer <= 2.5e-2 and V/F within 10 %, the GIFs' frame counts equal."""
+    stages = [k for k in report_ if k.startswith(("stage1", "stage2a",
+                                                  "stage3"))]
+    check(any(k.startswith("stage3") for k in stages),
+          f"{what}: no stage-3 images in {sorted(report_)}")
+    for stage in stages:
+        r = report_[stage]
+        floor = GOLDEN_STAGE3_DB if stage.startswith("stage3") \
+            else GOLDEN_DB
+        check(r["n"] > 0 and r["aggregate"]["psnr"] >= floor,
+              f"{what}: {stage} {r['aggregate']} (n {r['n']}) below "
+              f"{floor} dB")
+    meshes = report_.get("stage2b_mesh", {}).get("files", {})
+    check(bool(meshes), f"{what}: no mesh compared")
+    for name, m in meshes.items():
+        check(not m.get("missing") and m["chamfer"] <= GOLDEN_CHAMFER,
+              f"{what}: mesh {name} {m}")
+        for k in ("n_verts", "n_faces"):
+            a, b = m[k]
+            check(abs(a - b) <= GOLDEN_COUNT_TOL * b,
+                  f"{what}: mesh {name} {k} {a} against {b}")
+    gifs = report_.get("gif", {}).get("files", {})
+    check(bool(gifs), f"{what}: no GIF compared")
+    for name, m in gifs.items():
+        check(not m.get("missing") and m["n_frames"][0] == m["n_frames"][1],
+              f"{what}: GIF {name} {m}")
+
+
+def golden_aggregates(report_: dict) -> str:
+    """A fidelity report's per-stage aggregates on one line."""
+    parts = []
+    for stage, r in report_.items():
+        if "aggregate" in r and r["aggregate"]:
+            a = r["aggregate"]
+            parts.append(f"{stage} psnr {a['psnr']:.2f} ssim "
+                         f"{a['ssim']:.4f} perceptual {a['perceptual']:.4g}")
+        elif stage == "stage2b_mesh":
+            parts += [f"{n} chamfer {m['chamfer']:.3e} V {m['n_verts']} "
+                      f"F {m['n_faces']}" for n, m in r["files"].items()]
+        elif stage == "gif":
+            parts += [f"{n} frames {m['n_frames']} psnr "
+                      f"{m['aggregate'].get('psnr', float('nan')):.2f}"
+                      for n, m in r["files"].items()]
+    return "; ".join(parts)
+
+
+@contextlib.contextmanager
+def cpu_draws():
+    """Every random draw of the toy flow's recon and style training made on
+    the CPU and moved to the device: the NSR and GAN inits
+    (``train/{nsr,gan}.py::init_state``), the NSR step's rays
+    (``nsr.make_draws``) and the style step's patches
+    (``gan.sample_patches``), each from a CPU generator of its own
+    generator's seed. On the card those generators draw other numbers;
+    with these, phase 24's card run and CPU run differ only by the
+    devices' arithmetic and the kernels against their plain versions."""
+    import torch
+    from torch.utils import _pytree
+
+    from drawingspinup_torch.pipelines import stage3_data
+    from drawingspinup_torch.train import gan, nsr
+
+    saved = (nsr.init_state, gan.init_state, nsr.make_draws,
+             gan.sample_patches)
+    shadows = {}
+
+    def on_cpu(generator):
+        # the device generator is kept, so that its id names it alone
+        return shadows.setdefault(id(generator), (generator, torch.Generator(
+        ).manual_seed(generator.initial_seed())))[1]
+
+    def nsr_state(cfg, seed, device="cpu"):
+        def moved(t):
+            # a copy to the device is no leaf; the optimizer needs leaves
+            return t.detach().to(device).requires_grad_(t.requires_grad) \
+                if isinstance(t, torch.Tensor) else t
+
+        params = _pytree.tree_map(moved, saved[0](cfg, seed, "cpu").params)
+        return nsr.TrainState(params, nsr.make_optimizer(cfg).init(params),
+                              0)
+
+    def gan_state(cfg, device, seed=0):
+        state, cpu = saved[1](cfg, device, seed), saved[1](cfg, "cpu", seed)
+        for mod, ref in ((state.gen, cpu.gen), (state.disc, cpu.disc),
+                         (state.vgg, cpu.vgg)):
+            mod.load_state_dict(ref.state_dict())
+        return state
+
+    def make_draws(cfg, n_views, h, w, generator, device):
+        draws = saved[2](cfg, n_views, h, w, on_cpu(generator), "cpu")
+        return nsr.Draws(*(t.to(device) for t in draws))
+
+    def sample_patches(data, generator, batch, size):
+        g = on_cpu(generator)
+        i1, i2 = (torch.randint(0, data.n_valid, (batch,), generator=g)
+                  for _ in range(2))
+        dev = data.valid_yx.device
+        return stage3_data.cut_patches(data, data.valid_yx[i1.to(dev)],
+                                       data.valid_yx[i2.to(dev)], size)
+
+    nsr.init_state, gan.init_state = nsr_state, gan_state
+    nsr.make_draws, gan.sample_patches = make_draws, sample_patches
+    try:
+        yield
+    finally:
+        (nsr.init_state, gan.init_state, nsr.make_draws,
+         gan.sample_patches) = saved
+
+
+def phase_golden(root: str, device) -> dict:
+    """The toy golden flow on the card and on the CPU, judged by the port's
+    fidelity CLI; the judge at production sizes on phase 17's first uid.
+    Returns the card flow's kernel launches."""
+    import shutil
+
+    import torch
+
+    from drawingspinup_torch.cli import fidelity
+    from drawingspinup_torch.core.contract import UidPaths
+    from drawingspinup_torch.core.io import read_obj
+    from drawingspinup_torch.pipelines import stage3_translate
+    from drawingspinup_torch.train import gan
+    from drawingspinup_torch.utils.quality import chamfer_distance
+    from drawingspinup_torch.utils.synthetic import (
+        TOY_GAN, TOY_STYLE_BATCHES, run_toy_flow,
+    )
+
+    card_root = os.path.join(root, "golden_card")
+    cpu_root = os.path.join(root, "golden_cpu")
+    with contextlib.redirect_stdout(sys.stderr):
+        zero_launches()
+        with cpu_draws():
+            _, card_s = run_toy_flow(card_root, GOLDEN_UID, device)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        with cpu_draws():
+            _, cpu_s = run_toy_flow(cpu_root, GOLDEN_UID, "cpu")
+    for k in ("hashgrid_fwd", "hashgrid_bwd", "pixel_rays"):
+        check(launches[k] > 0, f"golden flow: {k} never launched "
+                               f"({launches})")
+    check(launches["row_gather"] == 0,
+          f"golden flow: the row gather launched ({launches})")
+
+    # stage 3 once more on the CPU, on the card's renders: 120 recon steps
+    # turn the devices' last-bit differences into meshes as far apart as
+    # other draws do, and renders of two such meshes part stage 3 by more
+    # than its bound; on the same renders it holds the style training alone
+    st3_root = os.path.join(root, "golden_cpu_stage3")
+    shutil.copytree(card_root, st3_root, ignore=shutil.ignore_patterns(
+        "res_stage*", "logs_stage*", "gif"))
+    t0 = time.time()
+    with contextlib.redirect_stdout(sys.stderr), cpu_draws():
+        stage3_translate.train_stage(st3_root, GOLDEN_UID, 1,
+                                     cfg=gan.GANConfig(**TOY_GAN),
+                                     max_batches=TOY_STYLE_BATCHES,
+                                     device="cpu")
+    cpu_s["train_style_on_card_renders"] = time.time() - t0
+
+    t0 = time.time()
+    vs_cpu = fidelity.build_report(card_root, cpu_root, GOLDEN_UID, device)
+    torch.cuda.synchronize()
+    judge_s = time.time() - t0
+    same_renders = fidelity.build_report(card_root, st3_root, GOLDEN_UID,
+                                         device)
+    vs_goldens = fidelity.build_report(card_root, GOLDENS_TREE, GOLDEN_UID,
+                                       device)
+
+    def secs(d):
+        return ", ".join(f"{k} {v:.2f}" for k, v in d.items()) \
+            + f" (total {sum(d.values()):.2f})"
+
+    report(f"[24] toy golden flow (run_toy_flow, port's seeded inits): card "
+           f"vs CPU: " + golden_aggregates(vs_cpu)
+           + f"; seconds per stage on the card: {secs(card_s)}; on the CPU: "
+           f"{secs(cpu_s)}; fidelity (card vs CPU) {judge_s:.2f} s; kernel "
+           f"launches in the card's flow "
+           + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    report(f"[24] stage 3 on the card's renders, card vs CPU (the gated "
+           f"stage-3 images; the flows' own stage-3 images above are not "
+           f"gated): " + golden_aggregates(
+               {k: v for k, v in same_renders.items()
+                if k.startswith("stage3")}))
+    report(f"[24] toy golden flow, card vs the committed goldens (not "
+           f"gated: the goldens started from JAX's init, which this machine "
+           f"cannot draw): " + golden_aggregates(vs_goldens))
+    judge_golden_bounds(
+        {**{k: v for k, v in vs_cpu.items() if not k.startswith("stage3")},
+         **{k: v for k, v in same_renders.items() if k.startswith("stage3")}},
+        "golden flow, card vs CPU")
+
+    # the judge at production sizes: phase 17's first uid against a byte
+    # copy of its own tree
+    uid = SWEEP_UIDS[0]
+    copy_root = os.path.join(root, "judge_copy")
+    shutil.copytree(os.path.join(root, uid), os.path.join(copy_root, uid))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    same = fidelity.build_report(root, copy_root, uid, device)
+    torch.cuda.synchronize()
+    prod_s = time.time() - t0
+    n_images = 0
+    for stage, r in same.items():
+        if stage.startswith("stage") and "aggregate" in r:
+            n_images += r["n"]
+            for name, m in r["files"].items():
+                check(m.get("psnr") == float("inf")
+                      and m.get("perceptual") == 0.0,
+                      f"judge of a byte copy: {stage}/{name} {m}")
+    meshes = same.get("stage2b_mesh", {}).get("files", {})
+    gifs = same.get("gif", {}).get("files", {})
+    check(bool(meshes), f"judge of a byte copy: no mesh in {sorted(same)}")
+    for name, m in meshes.items():
+        # JAX's chamfer samples 20 000 vertices of each side from one
+        # generator in turn, so a larger mesh against itself reads the
+        # sampling's own distance, not 0: the same value as the mesh's
+        # chamfer against its own vertices
+        v, _, _ = read_obj(os.path.join(UidPaths(root, uid).mesh_dir, name))
+        check(m["chamfer"] == chamfer_distance(v, v)
+              and m.get("color_mse", 0.0) == 0.0
+              and m["n_verts"][0] == m["n_verts"][1]
+              and m["n_faces"][0] == m["n_faces"][1],
+              f"judge of a byte copy: mesh {name} {m}")
+    check(bool(gifs) and all(m["aggregate"].get("psnr") == float("inf")
+                             for m in gifs.values()),
+          f"judge of a byte copy: GIFs {gifs}")
+    check(any(k.startswith("stage2a") for k in same)
+          and any(k.startswith("stage3") for k in same),
+          f"judge of a byte copy: stages {sorted(same)}")
+
+    report(f"[24] fidelity at production sizes: {uid} against a byte copy "
+           f"of its tree, {n_images} images over "
+           f"{sum(1 for k in same if k.startswith('stage'))} stages, "
+           f"{len(meshes)} OBJ, {len(gifs)} GIFs: every PSNR inf, every "
+           f"perceptual distance and vertex-colour MSE 0, the chamfer the "
+           f"sampling's own ("
+           + ", ".join(f"{m['chamfer']:.3e} at {m['n_verts'][0]} vertices"
+                       for m in meshes.values())
+           + f"); {prod_s:.2f} s")
+    return launches
+
+
 def kernels_line(per_shape, serving_launches, train_shapes, fwd_launches,
                  bwd_launches, hg_uniform, hg_rays, gather, gather_main,
                  pixel, recon_launches, sweep_launches, dp_launches,
-                 bf16_launches, tail_launches) -> dict:
+                 bf16_launches, tail_launches, golden_launches) -> dict:
     """The ``kernels`` JSON object from the phases' results: per kernel its
     launches on the main paths (``launches``: the stage-3 training path for
     the RIC kernels, the recon CLI for the rest; ``launches_sweep``: phase
     17's sweep of two uids; ``launches_dp_ranks``: each rank's in phase
     20's sweep over two ranks; ``launches_bf16``: phase 22's bf16 stage-1
-    steps; ``launches_recon_tail``: phase 21's overlapped run of two uids),
+    steps; ``launches_recon_tail``: phase 21's overlapped run of two uids;
+    ``launches_golden``: phase 24's toy golden flow on the card),
     error, times, bound and yardstick; the hash
     grid's at the production step on its own ray-ordered points, the
     uniform points' beside; the row gather, which the recon step no longer
@@ -4637,6 +4995,7 @@ def kernels_line(per_shape, serving_launches, train_shapes, fwd_launches,
         k["launches_dp_ranks"] = [r[k["name"]] for r in dp_launches]
         k["launches_bf16"] = bf16_launches[k["name"]]
         k["launches_recon_tail"] = tail_launches[k["name"]]
+        k["launches_golden"] = golden_launches[k["name"]]
     return line
 
 
@@ -4694,6 +5053,7 @@ def main() -> int:
         tail_run = timed("21", phase_recon_tail, root, device)
         bf16_run = timed("22", phase_stage3_bf16, root, device)
         timed("23", phase_tp, root, device)
+        golden_launches = timed("24", phase_golden, root, device)
 
     report("[t] seconds per phase (host clock): " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items()))
@@ -4703,7 +5063,7 @@ def main() -> int:
         per_shape, serving_launches, train_shapes, fwd_launches, bwd_launches,
         hg_uniform, hg_rays, gather, gather_main, pixel, recon_launches,
         sweep_run["launches"], dp_run["sweep"]["launches"],
-        bf16_run["launches"], tail_run["launches"])))
+        bf16_run["launches"], tail_run["launches"], golden_launches)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

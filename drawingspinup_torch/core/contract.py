@@ -47,9 +47,13 @@ class UidPaths:
     def inpainted(self) -> str:
         return os.path.join(self.char_dir, "ffc_resnet_inpainted.png")
 
+    @property
+    def mv_dir(self) -> str:
+        return os.path.join(self.root, self.uid, "mv")
+
     def mv(self, kind: str, view: str) -> str:
         assert kind in ("color", "normal", "mask"), kind
-        return os.path.join(self.root, self.uid, "mv", kind, f"{view}.png")
+        return os.path.join(self.mv_dir, kind, f"{view}.png")
 
     @property
     def mesh_dir(self) -> str:

@@ -85,6 +85,28 @@ class RowSplit:
         return every[idx.reshape(-1)].reshape(b, -1, c)
 
 
+class GroupNorm(nn.GroupNorm):
+    """``nn.GroupNorm`` that normalises ``(x − mean) · rsqrt(var + eps)``.
+    Torch's kernel folds the mean into a bias, ``x · rstd − mean · rstd``,
+    which in f32 cancels where mean² ≫ variance, as at a 1×1 level where a
+    group holds two values (``tests/test_torch_stage2a_pipeline.py::
+    test_group_norm_centres_before_scaling`` measures both forms on the
+    CPU). Statistics in f32 for
+    16-bit inputs, in float64 for float64; the output in the input's
+    dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        wide = torch.float64 if x.dtype == torch.float64 else torch.float32
+        g = x.to(wide).reshape(x.shape[0], self.num_groups, -1)
+        centred = g - g.mean(-1, keepdim=True)
+        var = centred.square().mean(-1, keepdim=True)
+        y = (centred * torch.rsqrt(var + self.eps)).reshape(x.shape)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        y = y * self.weight.to(wide).reshape(shape) \
+            + self.bias.to(wide).reshape(shape)
+        return y.to(x.dtype)
+
+
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    heads: int) -> torch.Tensor:
     """(B, Sq, C) × (B, Sk, C) → (B, Sq, C) multi-head attention, scale
@@ -251,7 +273,7 @@ class TransformerMV2D(nn.Module):
                  cd_attention_mid: bool = False,
                  cd_attention_last: bool = False):
         super().__init__()
-        self.norm = nn.GroupNorm(32, dim, eps=1e-6)
+        self.norm = GroupNorm(32, dim, eps=1e-6)
         self.proj_in = Conv1x1Tokens(dim, dim)
         self.transformer_blocks = nn.ModuleList([
             BasicMVTransformerBlock(

@@ -37,8 +37,8 @@ def preprocess(images: torch.Tensor, size: int = 224) -> torch.Tensor:
     bicubic resize of ``ops/image.py`` (``jax.image.resize``'s), then the
     CLIP mean and std."""
     x = resize(images, (size, size))
-    mean = torch.tensor(IMAGE_MEAN, device=x.device)
-    std = torch.tensor(IMAGE_STD, device=x.device)
+    mean = torch.tensor(IMAGE_MEAN, dtype=x.dtype, device=x.device)
+    std = torch.tensor(IMAGE_STD, dtype=x.dtype, device=x.device)
     return ((x - mean) / std).permute(0, 3, 1, 2)
 
 

@@ -25,7 +25,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from drawingspinup_torch.models.attention_mv import RowSplit, TransformerMV2D
+from drawingspinup_torch.models.attention_mv import (
+    GroupNorm, RowSplit, TransformerMV2D,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,14 +48,15 @@ class UNetMVConfig:
 
 
 def timestep_embedding(t: torch.Tensor, dim: int,
-                       max_period: float = 10000.0) -> torch.Tensor:
+                       max_period: float = 10000.0,
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """diffusers Timesteps(flip_sin_to_cos=True, shift=0): [cos | sin], in
-    f32."""
+    f32 (``dtype`` float64 for a float64 model)."""
     half = dim // 2
     freqs = torch.exp(-math.log(max_period)
-                      * torch.arange(half, dtype=torch.float32,
+                      * torch.arange(half, dtype=dtype,
                                      device=t.device) / half)
-    ang = t.to(torch.float32)[:, None] * freqs[None]
+    ang = t.to(dtype)[:, None] * freqs[None]
     return torch.cat([torch.cos(ang), torch.sin(ang)], dim=-1)
 
 
@@ -70,10 +73,10 @@ class TimestepEmbedMLP(nn.Module):
 class ResnetBlock2D(nn.Module):
     def __init__(self, cin: int, cout: int, temb: int):
         super().__init__()
-        self.norm1 = nn.GroupNorm(32, cin, eps=1e-5)
+        self.norm1 = GroupNorm(32, cin, eps=1e-5)
         self.conv1 = nn.Conv2d(cin, cout, 3, padding=1)
         self.time_emb_proj = nn.Linear(temb, cout)
-        self.norm2 = nn.GroupNorm(32, cout, eps=1e-5)
+        self.norm2 = GroupNorm(32, cout, eps=1e-5)
         self.conv2 = nn.Conv2d(cout, cout, 3, padding=1)
         self.conv_shortcut = nn.Conv2d(cin, cout, 1) if cin != cout else None
 
@@ -178,7 +181,7 @@ class UNetMV2D(nn.Module):
             up.append(_Block(resnets, attns, "upsamplers",
                              Upsample(ch) if bi < n - 1 else None))
         self.up_blocks = nn.ModuleList(up)
-        self.conv_norm_out = nn.GroupNorm(32, bo[0], eps=1e-5)
+        self.conv_norm_out = GroupNorm(32, bo[0], eps=1e-5)
         self.conv_out = nn.Conv2d(bo[0], c.out_channels, 3, padding=1)
 
     def forward(self, sample: torch.Tensor, timesteps,
@@ -201,8 +204,10 @@ class UNetMV2D(nn.Module):
         if timesteps.dim() == 0:
             timesteps = timesteps.expand(sample.shape[0])
         # sincos in f32, then the compute dtype, as JAX's
-        temb = timestep_embedding(timesteps, c.block_out_channels[0]
-                                  ).to(sample.dtype)
+        wide = torch.float64 if sample.dtype == torch.float64 \
+            else torch.float32
+        temb = timestep_embedding(timesteps, c.block_out_channels[0],
+                                  dtype=wide).to(sample.dtype)
         temb = self.time_embedding(temb)
         if class_labels is not None:
             temb = temb + self.class_embedding(class_labels.to(sample.dtype))

@@ -30,8 +30,9 @@ def resize(img: torch.Tensor, shape: Tuple[int, int],
     shrinks (antialiasing). ``F.interpolate``'s antialiased bicubic path
     computes exactly that; its plain bicubic path (a = −0.75, clamped edge
     taps, no antialiasing) does not. ``nearest``: the source pixel whose
-    centre is nearest the target's, ``F.interpolate``'s ``nearest-exact``."""
-    x, lead = _nchw(img.float())
+    centre is nearest the target's, ``F.interpolate``'s ``nearest-exact``.
+    In f32; float64 stays float64."""
+    x, lead = _nchw(img if img.dtype == torch.float64 else img.float())
     if method == "bicubic":
         y = F.interpolate(x, size=tuple(shape), mode="bicubic",
                           align_corners=False, antialias=True)

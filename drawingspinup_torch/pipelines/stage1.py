@@ -8,14 +8,19 @@ mask = contour ∪ background → Telea inpainting, radius 3 →
 ``char/ffc_resnet_inpainted.png`` (RGB + the input's alpha).
 
 The forward runs batched on the model's device; thresholding and the
-Telea fill (``native/inpaint.cc``) run on the host. The JAX module's
+Telea fill (``native/inpaint.cc``) run on the host. As in JAX, the host
+work of one batch overlaps the next batch's forward: batch k's forward is
+enqueued with the copy of its probabilities into pinned host memory and an
+event behind it, then batch k+1's forward, and only then does the host
+wait on k's event and threshold, fill and write batch k. The JAX module's
 padding of the last batch to a fixed size serves its one compiled program
 and is not needed here.
 """
 from __future__ import annotations
 
 import os
-from typing import List, Optional, Sequence, Tuple, Union
+import time
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -30,6 +35,10 @@ from drawingspinup_torch.ops.inpaint import telea_inpaint
 
 CONTOUR_THRESHOLD = 0.2  # the reference's predict.py
 INPAINT_RADIUS = 3       # the reference's predict.py
+
+# the last predict_uids call: its wall and host post-processing seconds
+# (threshold, Telea, PNG write) and the number of drawings
+LAST_STATS: Dict[str, float] = {}
 
 
 def build_generator(cfg: Optional[Config] = None
@@ -101,30 +110,75 @@ def postprocess_one(rgb: np.ndarray, alpha: np.ndarray,
 
 
 @torch.inference_mode()
-def contour_probs(model: torch.nn.Module, rgbs: np.ndarray,
-                  alphas: np.ndarray) -> np.ndarray:
-    """(B, H, W, 3) rgb and (B, H, W, 1) alpha → (B, H, W, 1) contour
-    probabilities, one forward on the model's device."""
+def dispatch_probs(model: torch.nn.Module, rgbs: np.ndarray,
+                   alphas: np.ndarray
+                   ) -> Tuple[torch.Tensor, Optional[torch.cuda.Event]]:
+    """Enqueue one forward of (B, H, W, 3) rgb and (B, H, W, 1) alpha on the
+    model's device and the copy of its (B, H, W, 1) contour probabilities
+    into pinned host memory; returns (the host tensor, the event recorded
+    after the copy). On the CPU the forward has run when this returns and
+    the event is None."""
     dev = next(model.parameters()).device
     x = torch.from_numpy(np.concatenate([rgbs, alphas], axis=-1))
     x = x.to(dev).permute(0, 3, 1, 2).contiguous()
-    return model(x).permute(0, 2, 3, 1).float().cpu().numpy()
+    probs = model(x).permute(0, 2, 3, 1).float()
+    if dev.type != "cuda":
+        return probs, None
+    host = torch.empty(probs.shape, dtype=probs.dtype, pin_memory=True)
+    host.copy_(probs, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
+def collect_probs(flight: Tuple[torch.Tensor, Optional[torch.cuda.Event]]
+                  ) -> np.ndarray:
+    """Wait for ``dispatch_probs``'s copy and return the probabilities."""
+    host, done = flight
+    if done is not None:
+        done.synchronize()
+    return host.numpy()
 
 
 def predict_uids(root: str, uids: Sequence[str], model: torch.nn.Module,
                  batch_size: int = 8, size: int = 512,
-                 save_name: str = "ffc_resnet") -> List[str]:
+                 save_name: str = "ffc_resnet",
+                 overlap: bool = True) -> List[str]:
     """Contour removal for a list of uids, ``batch_size`` drawings per
-    forward; returns the written paths."""
-    written = []
-    for i in range(0, len(uids), batch_size):
-        batch = [UidPaths(root, uid) for uid in uids[i:i + batch_size]]
-        items = [(paths, *load_input(paths, size)) for paths in batch]
-        probs = contour_probs(model, np.stack([it[1] for it in items]),
-                              np.stack([it[2] for it in items]))
+    forward; returns the written paths. With ``overlap`` batch k+1's
+    forward is enqueued before batch k is post-processed on the host;
+    without it each batch is post-processed before the next is read."""
+    written: List[str] = []
+    post_s = 0.0
+    t0 = time.perf_counter()
+
+    def drain(flight) -> None:
+        nonlocal post_s
+        items, pending = flight
+        probs = collect_probs(pending)
+        t = time.perf_counter()
         for (paths, rgb, alpha), prob in zip(items, probs):
             out_path = os.path.join(paths.char_dir,
                                     f"{save_name}_inpainted.png")
             write_image(out_path, postprocess_one(rgb, alpha, prob))
             written.append(out_path)
+        post_s += time.perf_counter() - t
+
+    in_flight = None
+    for i in range(0, len(uids), batch_size):
+        batch = [UidPaths(root, uid) for uid in uids[i:i + batch_size]]
+        items = [(paths, *load_input(paths, size)) for paths in batch]
+        nxt = (items, dispatch_probs(model, np.stack([it[1] for it in items]),
+                                     np.stack([it[2] for it in items])))
+        if in_flight is not None:
+            drain(in_flight)
+        in_flight = nxt
+        if not overlap:
+            drain(in_flight)
+            in_flight = None
+    if in_flight is not None:
+        drain(in_flight)
+    LAST_STATS.clear()
+    LAST_STATS.update(wall_s=time.perf_counter() - t0, post_s=post_s,
+                      drawings=len(written))
     return written

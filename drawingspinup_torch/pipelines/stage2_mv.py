@@ -222,6 +222,9 @@ class MVPipeline:
         self.cfg = cfg
         self.unet, self.vae, self.clip = unet, vae, clip
         self.device = next(unet.parameters()).device
+        # the latents, DDIM, CLIP and the VAE run in the VAE's dtype: f32,
+        # or float64 when the modules are cast (the float64 parity tests)
+        self.dtype = next(vae.parameters()).dtype
         self.acp = D.alphas_cumprod(cfg.ddim)
         self._cast: Dict[torch.dtype, UNetMV2D] = {}
 
@@ -251,7 +254,7 @@ class MVPipeline:
         condition latents (1, 4, H/8, W/8)), f32."""
         x = image if torch.is_tensor(image) else torch.from_numpy(
             np.asarray(image, np.float32))
-        x = x.to(self.device, torch.float32)[None]
+        x = x.to(self.device, self.dtype)[None]
         embeds = self.clip(clip_preprocess(x,
                                            self.cfg.clip_config().image_size))
         latents = self.vae.encode_mode((x * 2.0 - 1.0).permute(0, 3, 1, 2))
@@ -300,9 +303,10 @@ class MVPipeline:
         def draw(i: int) -> torch.Tensor:
             # the full batch's draw, then this rank's rows
             if noises is not None:
-                full = torch.as_tensor(noises[i], device=dev).float()
+                full = torch.as_tensor(noises[i], device=dev)
             else:
                 full = torch.randn(shape, generator=generator, device=dev)
+            full = full.to(self.dtype)
             return full[lo:lo + n]
 
         cdt = getattr(torch, cfg.compute_dtype)
@@ -323,7 +327,7 @@ class MVPipeline:
             if do_cfg:
                 lat_in = torch.cat([lat_in, lat_in])
             eps = unet(torch.cat([lat_in, cond_c], dim=1), t_dev[i],
-                       embeds_c, cam_c, split=split).float()
+                       embeds_c, cam_c, split=split).to(self.dtype)
             if do_cfg:
                 uncond, cond_eps = eps.chunk(2)
                 eps = uncond + guidance * (cond_eps - uncond)

@@ -4,11 +4,17 @@ pins its files to the original's), the two-bone rig and bar mesh of
 ``tests/test_fbx_render.py`` (``tests/test_torch_render.py`` pins the FBX
 bytes), the drawing of ``tests/test_stage1.py``
 (``tests/test_torch_stage1.py`` pins the PNG bytes), coloured OBJs for
-the BiCar renderer of stage-1 training, and the in-memory sphere views of
-``scripts/bench_nsr.py::make_sphere_dataset`` (``sphere_dataset``)."""
+the BiCar renderer of stage-1 training, the in-memory sphere views of
+``scripts/bench_nsr.py::make_sphere_dataset`` (``sphere_dataset``), and
+the toy golden flow of ``tests/golden_pipeline.py`` through the port's CLIs
+(``run_toy_flow``; ``tests/test_torch_goldens.py`` pins its drawing and
+budgets)."""
 from __future__ import annotations
 
+import json
 import os
+import time
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -299,3 +305,99 @@ def write_bicar_objs(root, n, seed=0):
         write_obj(os.path.join(root, uids[-1], "model.obj"), v, f,
                   vertex_colors=lo + t[:, None] * (hi - lo))
     return uids
+
+
+# ---------------------------------------------------------------------------
+# the toy golden flow: drawing → GIF at tiny budgets
+# ---------------------------------------------------------------------------
+
+# the recon budget of ``tests/test_stage2_pipeline.py::TINY_OVERRIDES``
+TINY_RECON_OVERRIDES = (
+    "trainer.max_steps=120",
+    "system.constant_steps=40",
+    "dataset.imSize=[64, 64]",
+    "model.train_num_rays_fixed=256",
+    "model.geometry.isosurface.resolution=64",
+    "model.geometry.face_count=3000",
+    "model.geometry.xyz_encoding_config.n_levels=4",
+    "model.geometry.xyz_encoding_config.log2_hashmap_size=13",
+    "model.geometry.xyz_encoding_config.base_resolution=8",
+    "model.geometry.xyz_encoding_config.start_level=4",
+    "model.geometry.mlp_network_config.n_neurons=32",
+    "model.texture.mlp_network_config.n_neurons=32",
+    "export.thinning=false",
+)
+# stage 1 at a narrow width, and the stage-3 GAN's toy budget
+TOY_LAMA_OVERRIDES = ("generator.ngf=8", "generator.n_downsampling=2",
+                      "generator.n_blocks=1")
+TOY_GAN = dict(generator="GeneratorJ", filters=(8, 16, 16, 16, 16, 8),
+               resnet_blocks=1, batch_size=4, patch_size=16,
+               input_channels=6, log_interval=10 ** 9)
+TOY_SIZE = 64
+TOY_STYLE_BATCHES = 3
+
+
+def write_toy_drawing(root, uid, size=TOY_SIZE):
+    """``tests/golden_pipeline.py``'s drawing: an orange disc in a dark
+    ring, its mask and its composite on white."""
+    paths = UidPaths(str(root), uid)
+    yy, xx = np.mgrid[0:size, 0:size]
+    r = np.hypot(yy - size / 2, xx - size / 2)
+    body = r < size * 0.38
+    ring = (r >= size * 0.34) & (r < size * 0.40)
+    rgba = np.zeros((size, size, 4), np.float32)
+    rgba[body] = [0.85, 0.55, 0.25, 1.0]
+    rgba[ring] = [0.05, 0.05, 0.05, 1.0]
+    write_image(paths.texture, rgba)
+    write_image(paths.mask, (body | ring).astype(np.float32))
+    write_image(paths.texture_with_bg,
+                rgba[..., :3] * rgba[..., 3:] + (1 - rgba[..., 3:]))
+    return paths
+
+
+def run_toy_flow(root, uid, device="cuda", lama_ckpt: Optional[str] = None
+                 ) -> Tuple[UidPaths, Dict[str, float]]:
+    """``tests/golden_pipeline.py::run_toy_pipeline`` through the port's
+    CLIs on ``device``: stage 1 at the narrow width and 64² (the generator
+    from ``lama_ckpt``, else drawn from the config's seed), the sphere views
+    in place of stage 2a, recon at ``TINY_RECON_OVERRIDES``, the two-bone
+    rig rendered, three stage-1 style batches, the GIF. Returns the uid's
+    paths and each stage's seconds."""
+    from drawingspinup_torch.cli import gif_writer, predict, recon, run_render
+    from drawingspinup_torch.pipelines import stage3_translate
+    from drawingspinup_torch.train import gan
+
+    root = str(root)
+    dev = ["--device", str(device)]
+    paths = write_toy_drawing(root, uid)
+    uid_file = os.path.join(root, f"{uid}_uids.json")
+    with open(uid_file, "w") as f:
+        json.dump([uid], f)
+    ckpt = [f"pretrained.path={lama_ckpt}"] if lama_ckpt else []
+    seconds: Dict[str, float] = {}
+    t0 = time.perf_counter()
+
+    def done(stage: str, rc: int = 0) -> None:
+        nonlocal t0
+        if rc != 0:
+            raise RuntimeError(f"toy flow: {stage} exited with {rc}")
+        seconds[stage] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    done("stage1", predict.main(
+        [predict.DEFAULT_CFG, *TOY_LAMA_OVERRIDES, *ckpt, "--uid", uid,
+         "--root", root, "--batch-size", "1", "--size", str(TOY_SIZE),
+         *dev]))
+    write_sphere_mv(root, uid, size=TOY_SIZE)
+    done("mv")
+    done("recon", recon.main(["--uid", uid, "--root", root,
+                              f"dataset.uid_list_file={uid_file}",
+                              *TINY_RECON_OVERRIDES, *dev]))
+    os.makedirs(paths.fbx_dir, exist_ok=True)
+    make_rig_fbx(os.path.join(paths.fbx_dir, "rest_pose.fbx"), animate=False)
+    done("render", run_render.main(["--uid", uid, "--data_dir", root, *dev]))
+    stage3_translate.train_stage(root, uid, 1, cfg=gan.GANConfig(**TOY_GAN),
+                                 max_batches=TOY_STYLE_BATCHES, device=device)
+    done("train_style")
+    done("gif", gif_writer.main(["--uid", uid, "--root", root]))
+    return paths, seconds

@@ -18,6 +18,13 @@ Bounds: ``test_single_device_pipeline_matches_dp8_goldens``'s
 (``tests/test_goldens.py``): stage-3 images ≥ 20 dB PSNR, every other
 image ≥ 30 dB, mesh chamfer ≤ 2.5e-2, mesh V/F within 10 % of the
 goldens' stats; and the GIF's frame counts equal.
+
+The flow is the port's ``utils/synthetic.py::run_toy_flow`` (its drawing
+and recon budget pinned here to the originals), run once for the module.
+The port's own judge, ``cli/fidelity.py``, on the same two trees gives
+JAX's report key for key (within ``test_torch_fidelity.py``'s
+tolerances), all but the perceptual distances: without a VGG npz each
+package draws its own random VGG.
 """
 
 import dataclasses
@@ -38,16 +45,14 @@ from drawingspinup_tpu.pipelines import stage2_recon as js2
 from drawingspinup_tpu.train import gan as jgan
 from drawingspinup_tpu.train import nsr as jnsr
 from drawingspinup_tpu.utils.torch_port import invert_to_torch_names
-from drawingspinup_torch.cli import gif_writer, predict, recon, run_render
-from drawingspinup_torch.core.contract import UidPaths
-from drawingspinup_torch.core.io import read_obj, write_image
-from drawingspinup_torch.pipelines import stage3_translate as tst
+from drawingspinup_torch.cli import fidelity as tfidelity
+from drawingspinup_torch.core import weights_policy as twp
+from drawingspinup_torch.core.io import read_image_u8, read_obj
 from drawingspinup_torch.train import gan as tgan
 from drawingspinup_torch.train import nsr as tnsr
-from drawingspinup_torch.utils import jax_params
-from drawingspinup_torch.utils.synthetic import write_sphere_mv
-from test_fbx_render import make_rig_fbx
+from drawingspinup_torch.utils import jax_params, synthetic
 from test_stage2_pipeline import TINY_OVERRIDES
+from test_torch_fidelity import assert_same_report
 from torch_native_guard import ensure_jax_native
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -55,11 +60,7 @@ STAGE3_FLOOR = 20.0
 PSNR_FLOOR = 30.0
 CHAMFER_MAX = 2.5e-2
 COUNT_TOL = 0.10
-LAMA_TINY = ["generator.ngf=8", "generator.n_downsampling=2",
-             "generator.n_blocks=1"]
-GAN_TINY = dict(generator="GeneratorJ", filters=(8, 16, 16, 16, 16, 8),
-                resnet_blocks=1, batch_size=4, patch_size=16,
-                input_channels=6, log_interval=10 ** 9)
+LAMA_TINY = list(synthetic.TOY_LAMA_OVERRIDES)
 
 pytestmark = pytest.mark.skipif(
     not os.path.isdir(os.path.join(gp.GOLDENS_ROOT, gp.GOLDEN_UID)),
@@ -124,57 +125,31 @@ def _jax_gan_init(monkeypatch) -> None:
     monkeypatch.setattr(tgan, "init_state", init_state)
 
 
-def _run_port_pipeline(root: str, uid: str, monkeypatch) -> UidPaths:
-    """``golden_pipeline.run_toy_pipeline`` through the port's CLIs."""
-    paths = UidPaths(root, uid)
-    size = 64
-    yy, xx = np.mgrid[0:size, 0:size]
-    r = np.hypot(yy - size / 2, xx - size / 2)
-    body = r < size * 0.38
-    ring = (r >= size * 0.34) & (r < size * 0.40)
-    rgba = np.zeros((size, size, 4), np.float32)
-    rgba[body] = [0.85, 0.55, 0.25, 1.0]
-    rgba[ring] = [0.05, 0.05, 0.05, 1.0]
-    write_image(paths.texture, rgba)
-    write_image(paths.mask, (body | ring).astype(np.float32))
-    write_image(paths.texture_with_bg,
-                rgba[..., :3] * rgba[..., 3:] + (1 - rgba[..., 3:]))
-    uid_file = os.path.join(root, f"{uid}_uids.json")
-    with open(uid_file, "w") as f:
-        json.dump([uid], f)
-    cpu = ["--device", "cpu"]
-
+@pytest.fixture(scope="module")
+def flow(tmp_path_factory):
+    """The port's toy flow from JAX's inits, and JAX's fidelity report of
+    its tree against the goldens."""
+    root = str(tmp_path_factory.mktemp("toy_flow"))
     ckpt = os.path.join(root, "lama_jax_init.pth")
     _lama_checkpoint(ckpt)
-    assert predict.main([predict.DEFAULT_CFG, *LAMA_TINY,
-                         f"pretrained.path={ckpt}", "--uid", uid, "--root",
-                         root, "--batch-size", "1", "--size", "64",
-                         *cpu]) == 0
-    write_sphere_mv(root, uid, size=64)
-    _jax_nsr_init(monkeypatch)
-    assert recon.main(["--uid", uid, "--root", root,
-                       f"dataset.uid_list_file={uid_file}",
-                       *TINY_OVERRIDES, *cpu]) == 0
-    os.makedirs(paths.fbx_dir, exist_ok=True)
-    make_rig_fbx(os.path.join(paths.fbx_dir, "rest_pose.fbx"), animate=False)
-    assert run_render.main(["--uid", uid, "--data_dir", root, *cpu]) == 0
-    _jax_gan_init(monkeypatch)
-    tst.train_stage(root, uid, 1, cfg=tgan.GANConfig(**GAN_TINY),
-                    max_batches=3, device="cpu")
-    assert gif_writer.main(["--uid", uid, "--root", root]) == 0
-    return paths
-
-
-def test_port_toy_pipeline_holds_the_cross_run_bounds(tmp_path, monkeypatch):
-    root = str(tmp_path)
-    paths = _run_port_pipeline(root, gp.GOLDEN_UID, monkeypatch)
-    goldens_root = os.path.dirname(os.path.join(gp.GOLDENS_ROOT,
-                                                gp.GOLDEN_UID))
+    with pytest.MonkeyPatch.context() as mp:
+        _jax_nsr_init(mp)
+        _jax_gan_init(mp)
+        paths, _ = synthetic.run_toy_flow(root, gp.GOLDEN_UID, "cpu",
+                                          lama_ckpt=ckpt)
     report_path = os.path.join(root, "fidelity.json")
-    assert fidelity.main(["--ours", root, "--theirs", goldens_root,
+    assert fidelity.main(["--ours", root, "--theirs", GOLDENS_TREE,
                           "--uid", gp.GOLDEN_UID, "--out", report_path]) == 0
     with open(report_path) as f:
         report = json.load(f)
+    return root, paths, report
+
+
+GOLDENS_TREE = os.path.dirname(os.path.join(gp.GOLDENS_ROOT, gp.GOLDEN_UID))
+
+
+def test_port_toy_pipeline_holds_the_cross_run_bounds(flow):
+    _, paths, report = flow
 
     stages = [k for k in report
               if k.startswith(("stage1", "stage2a", "stage3"))]
@@ -204,3 +179,39 @@ def test_port_toy_pipeline_holds_the_cross_run_bounds(tmp_path, monkeypatch):
         assert not m.get("missing"), name
         na, nb = m["n_frames"]
         assert na == nb, (name, m)
+
+
+def test_port_fidelity_gives_jaxs_report(flow, tmp_path):
+    """The port's judge on the same two trees: JAX's report key for key,
+    the same numbers (1e-6 relative) but the perceptual distances, which
+    come from another random VGG; the port's report marks its random VGG
+    as a degraded weight."""
+    root, _, want = flow
+    twp.reset_degradations()
+    out = str(tmp_path / "port.json")
+    assert tfidelity.main(["--ours", root, "--theirs", GOLDENS_TREE,
+                           "--uid", gp.GOLDEN_UID, "--device", "cpu",
+                           "--out", out]) == 0
+    with open(out) as f:
+        got = json.load(f)
+    assert [d["component"] for d in got.pop("degraded_weights")] == [
+        "fidelity-vgg19"]
+    want = {k: v for k, v in want.items() if k != "degraded_weights"}
+    assert_same_report(got, want, perceptual=None)
+
+
+def test_toy_flow_fixtures_are_the_originals(tmp_path):
+    """The port's toy drawing is the goldens' (the PNGs JAX's
+    ``golden_pipeline`` wrote; its mask, which the sphere views overwrite
+    in the goldens, is the drawing's alpha there), and its recon budget
+    ``test_stage2_pipeline.py``'s."""
+    assert list(synthetic.TINY_RECON_OVERRIDES) == TINY_OVERRIDES
+    paths = synthetic.write_toy_drawing(str(tmp_path), gp.GOLDEN_UID)
+    char = os.path.join(gp.GOLDENS_ROOT, gp.GOLDEN_UID, "char")
+    for got in (paths.texture, paths.texture_with_bg):
+        want = os.path.join(char, os.path.basename(got))
+        np.testing.assert_array_equal(read_image_u8(got),
+                                      read_image_u8(want))
+    np.testing.assert_array_equal(
+        read_image_u8(paths.mask)[..., 0],
+        read_image_u8(os.path.join(char, "texture.png"))[..., 3])

@@ -48,6 +48,7 @@ from drawingspinup_torch.utils.jax_params import ffc_params, lama_state
 from drawingspinup_torch.utils.synthetic import (bar_mesh, sphere_mesh,
                                                  write_bicar_objs,
                                                  write_drawing_uid)
+from mv_parity import F64
 from torch_native_guard import ensure_jax_native
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -151,26 +152,15 @@ def _batches(rendered, n):
     return [next(it) for _ in range(n)]
 
 
-class _F64:
-    """A module namespace whose ``float32`` is float64: JAX's FFC and DFT
-    modules read their dtypes through it at trace time."""
-
-    def __init__(self, mod, f64):
-        self._mod, self._f64 = mod, f64
-
-    def __getattr__(self, name):
-        return self._f64 if name == "float32" else getattr(self._mod, name)
-
-
 @pytest.fixture
 def jax_float64(monkeypatch):
     """JAX in float64 throughout: x64 on, and the FourierUnit's and the DFT
     matmuls' fixed f32 (casts, ``preferred_element_type``, the cached DFT
     matrices) read as float64. Nothing in the JAX package changes."""
     caches = (jfourier._dft_w, jfourier._dft_h, jfourier._idft_w)
-    monkeypatch.setattr(jffc, "jnp", _F64(jnp, jnp.float64))
-    monkeypatch.setattr(jfourier, "jnp", _F64(jnp, jnp.float64))
-    monkeypatch.setattr(jfourier, "np", _F64(np, np.float64))
+    monkeypatch.setattr(jffc, "jnp", F64(jnp, jnp.float64))
+    monkeypatch.setattr(jfourier, "jnp", F64(jnp, jnp.float64))
+    monkeypatch.setattr(jfourier, "np", F64(np, np.float64))
     for c in caches:
         c.cache_clear()
     with jax.enable_x64(True):

@@ -473,3 +473,94 @@ def test_reflect_pad_equals_torch(ph, pw):
             (gg,) = torch.autograd.grad(got, x, g)
             assert torch.equal(got, want), (seed, dtype)
             assert torch.equal(gg, gw), (seed, dtype)
+
+
+OVERLAP_SIZES = (40, 48, 56, 64, 72)    # five drawings, one a size
+
+
+def _lama_ckpt(tmp_path):
+    """JAX's tiny generator as a LaMa checkpoint; (cfg, variables, path)."""
+    cfg, v = _jax_tiny_variables()
+    sd = {k: torch.from_numpy(np.array(a))
+          for k, a in invert_to_torch_names(v, n_downsampling=2,
+                                            n_blocks=1).items()}
+    ckpt = str(tmp_path / "lama.pth")
+    torch.save({"state_dict": sd}, ckpt)
+    return cfg, v, ckpt
+
+
+def test_overlapped_predict_equals_serial_and_tracks_jax(tmp_path):
+    """Five drawings at batch 2 (the last batch partial): the overlapped
+    order (the default) writes the serial order's PNGs byte for byte, and
+    each is JAX's ``predict_uids`` output on the same drawings within ±1 on
+    < 1 % of the u8 values."""
+    cfg, v, ckpt = _lama_ckpt(tmp_path)
+    uids = [f"d{s}" for s in OVERLAP_SIZES]
+    roots = {k: str(tmp_path / k) for k in ("overlap", "serial", "jax")}
+    for root in roots.values():
+        for uid, s in zip(uids, OVERLAP_SIZES):
+            write_drawing_uid(root, uid, size=s)
+    lst = tmp_path / "uids.json"
+    lst.write_text(str(uids).replace("'", '"'))
+    for order in ("overlap", "serial"):
+        rc = predict.main([YAML, *TINY_OVERRIDES, f"pretrained.path={ckpt}",
+                           f"uid_json={lst}", "--root", roots[order],
+                           "--size", "64", "--batch-size", "2",
+                           "--device", "cpu"]
+                          + (["--serial"] if order == "serial" else []))
+        assert rc == 0
+        assert ts1.LAST_STATS["drawings"] == len(uids)
+    want = js1.predict_uids(roots["jax"], uids, v, cfg, batch_size=2,
+                            size=64)
+    for uid, ref in zip(uids, want):
+        paths = [os.path.join(roots[k], uid, "char",
+                              "ffc_resnet_inpainted.png")
+                 for k in ("overlap", "serial")]
+        with open(paths[0], "rb") as f, open(paths[1], "rb") as g:
+            assert f.read() == g.read(), uid
+        got = read_image_u8(paths[0]).astype(int)
+        ref = read_image_u8(ref).astype(int)
+        assert got.shape == ref.shape == (64, 64, 4)
+        diff = np.abs(got - ref)
+        assert diff.max() <= 1 and (diff > 0).mean() < 0.01, uid
+
+
+class _Recording(torch.nn.Module):
+    """A stand-in generator that logs each forward's batch size."""
+
+    def __init__(self, log):
+        super().__init__()
+        self.w = torch.nn.Parameter(torch.ones(()))
+        self.log = log
+
+    def forward(self, x):
+        self.log.append(("forward", x.shape[0]))
+        return torch.sigmoid(self.w * (x[:, :1] - 0.5))
+
+
+@pytest.mark.parametrize("overlap", [True, False])
+def test_next_batch_dispatched_before_post_processing(tmp_path, overlap,
+                                                      monkeypatch):
+    """Batch k+1's forward is enqueued before batch k is post-processed
+    (five drawings at batch 2); ``overlap=False`` keeps the serial order."""
+    root = str(tmp_path)
+    uids = [f"d{s}" for s in OVERLAP_SIZES]
+    for uid, s in zip(uids, OVERLAP_SIZES):
+        write_drawing_uid(root, uid, size=s)
+    log = []
+    post = ts1.postprocess_one
+
+    def recorded(rgb, alpha, prob):
+        log.append(("post", 1))
+        return post(rgb, alpha, prob)
+
+    monkeypatch.setattr(ts1, "postprocess_one", recorded)
+    written = ts1.predict_uids(root, uids, _Recording(log), batch_size=2,
+                               size=32, overlap=overlap)
+    assert len(written) == 5 and all(os.path.exists(p) for p in written)
+    f, p = ("forward", 2), ("post", 1)
+    if overlap:
+        want = [f, f, p, p, ("forward", 1), p, p, p]
+    else:
+        want = [f, p, p, f, p, p, ("forward", 1), p]
+    assert log == want

@@ -265,7 +265,8 @@ def test_port_imports_no_jax():
         "          'ops.inpaint', 'kernels.pixel_rays', 'cli.mv',\n"
         "          'pipelines.stage2_mv', 'models.unet_mv2d',\n"
         "          'models.attention_mv', 'models.vae', 'models.clip_vision',\n"
-        "          'ops.diffusion', 'utils.diffusers_port'):\n"
+        "          'ops.diffusion', 'utils.diffusers_port',\n"
+        "          'cli.fidelity', 'utils.quality'):\n"
         "    assert 'drawingspinup_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

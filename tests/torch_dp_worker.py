@@ -14,6 +14,7 @@ and writes what the rank saw to ``<tmp>/out_<task>_<rank>.pt``.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import functools
 import os
 import time
@@ -187,7 +188,8 @@ def mv_task(inputs: Dict[str, Any], rank: int, world: int) -> Dict:
     weights and draws of ``inputs``: every rank's gathered latents and the
     images ``__call__`` returns (rank 0's, decoded). A config keyed
     ``(weights, ...)`` loads the UNet tensors ``unet_over[weights]`` over
-    ``state``."""
+    ``state``; a config computing in float64 gets its modules in
+    float64."""
     from drawingspinup_torch.pipelines import stage2_mv
 
     out: Dict[str, Any] = {}
@@ -198,6 +200,8 @@ def mv_task(inputs: Dict[str, Any], rank: int, world: int) -> Dict:
             if part == "unet":
                 sd = {**sd, **inputs["unet_over"].get(name[0], {})}
             mod.load_state_dict(sd, strict=True)
+            if cfg.compute_dtype == "float64":
+                mod.double()
         pipe = stage2_mv.MVPipeline(cfg, *mods)
         seen = []
         denoise = pipe.denoise
@@ -265,15 +269,47 @@ def tp_task(inputs: Dict[str, Any], rank: int, world: int) -> Dict:
     return out
 
 
+def mv_float64(patch, decoded: list) -> None:
+    """Through ``patch`` (``setattr`` or a monkeypatch's): the mv CLI's
+    seeded pipeline computing in float64 (the same weights, cast), and its
+    ``decode_u8`` appending each float image, scaled to u8 steps before
+    the floor (``x·255 + 0.5``), to ``decoded``."""
+    from drawingspinup_torch.ops.image import resize
+    from drawingspinup_torch.pipelines import stage2_mv
+
+    init_random = stage2_mv.MVPipeline.init_random
+    decode_u8 = stage2_mv.MVPipeline.decode_u8
+
+    def init64(cfg, seed=0, device="cuda"):
+        pipe = init_random(cfg, seed, device)
+        return stage2_mv.MVPipeline(
+            dataclasses.replace(cfg, compute_dtype="float64"),
+            *(m.double() for m in (pipe.unet, pipe.vae, pipe.clip)))
+
+    def recorded(self, latents):
+        out = self.cfg.out_size
+        img = torch.clamp(resize(self.decode(latents), (out, out)), 0.0, 1.0)
+        decoded.append((img * 255.0 + 0.5).cpu().numpy())
+        return decode_u8(self, latents)
+
+    patch(stage2_mv.MVPipeline, "init_random", staticmethod(init64))
+    patch(stage2_mv.MVPipeline, "decode_u8", recorded)
+
+
 def mvcli_task(inputs: Dict[str, Any], rank: int, world: int) -> Dict:
-    """The mv CLI over the ranks; on ranks other than 0 every write under
-    the root raises."""
+    """The mv CLI over the ranks (in float64 with ``inputs["float64"]``:
+    ``mv_float64``); on ranks other than 0 every write under the root
+    raises."""
     from drawingspinup_torch.cli import mv as mv_cli
     from drawingspinup_torch.pipelines import stage2_mv
 
+    decoded: list = []
+    if inputs.get("float64"):
+        mv_float64(setattr, decoded)
     attempts = forbid_writes(inputs["root"]) if rank else []
     assert mv_cli.main(inputs["argv"]) == 0
-    return {"attempts": attempts, "dp": stage2_mv.LAST_STATS.get("dp")}
+    return {"attempts": attempts, "dp": stage2_mv.LAST_STATS.get("dp"),
+            "decoded": decoded}
 
 
 TASKS = {"nsr": nsr_task, "gan": gan_task, "world1": world1_task,
