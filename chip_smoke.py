@@ -815,7 +815,6 @@ def phase_main_path(root: str, device) -> int:
 
     from drawingspinup_torch.cli import gif_writer
     from drawingspinup_torch.cli import test_stage1, test_stage2
-    from drawingspinup_torch.kernels import ric_conv as rk
     from drawingspinup_torch.pipelines import stage3_translate as st
     from drawingspinup_torch.train import gan
 
@@ -831,7 +830,7 @@ def phase_main_path(root: str, device) -> int:
                             st.FINAL_STEP)
     n = len(ACTIONS) * FRAMES_PER_ACTION
     args = ["--uid", uid, "--root", root, "--device", str(device)]
-    rk.LAUNCHES = 0
+    zero_launches()
     t0 = time.time()
     test_stage1.main(args)
     torch.cuda.synchronize()
@@ -841,7 +840,7 @@ def phase_main_path(root: str, device) -> int:
     t2 = time.time()
     gif_writer.main(args[:4])
     t3 = time.time()
-    launches = rk.LAUNCHES
+    launches = launch_counts()["ric_conv_fwd"]
     check(launches == RIC_PER_FRAME * n,
           f"{launches} RIC kernel launches, expected {RIC_PER_FRAME} x {n}")
     for stage in (1, 2):
@@ -1130,7 +1129,6 @@ def phase_training(root: str, device):
     from drawingspinup_torch.cli import gif_writer
     from drawingspinup_torch.cli import test_stage1, test_stage2
     from drawingspinup_torch.cli import train_stage1, train_stage2
-    from drawingspinup_torch.kernels import ric_conv as rk
     from drawingspinup_torch.pipelines import stage3_translate as st
 
     paths = render_uid(root, TRAIN_UID, device, training=True)
@@ -1145,13 +1143,14 @@ def phase_training(root: str, device):
              train_args + ["--max-batches", str(TRAIN_BATCHES[1])]),
             (test_stage2.main, args),
             (gif_writer.main, args[:4]))
-    rk.LAUNCHES = rk.BWD_LAUNCHES = 0
+    zero_launches()
     times = [time.time()]
     for main, argv in runs:
         main(argv)
         torch.cuda.synchronize()
         times.append(time.time())
-    fwd, bwd = rk.LAUNCHES, rk.BWD_LAUNCHES
+    launched = launch_counts()
+    fwd, bwd = launched["ric_conv_fwd"], launched["ric_conv_bwd"]
     want_fwd = FWD_PER_STEP * TRAIN_BATCHES[0] + RIC_PER_FRAME * 2 * n_frames
     want_bwd = BWD_PER_STEP * TRAIN_BATCHES[0]
     check(fwd == want_fwd and bwd == want_bwd,
@@ -1822,34 +1821,33 @@ def phase_recon(root: str, device):
     import torch
 
     from drawingspinup_torch.cli import recon
+    from drawingspinup_torch.core import profiling
     from drawingspinup_torch.core.io import read_obj
-    from drawingspinup_torch.kernels import hashgrid as hk
-    from drawingspinup_torch.kernels import pixel_rays as pr
     from drawingspinup_torch.pipelines import stage2_recon
     from drawingspinup_torch.utils.synthetic import write_sphere_mv
 
     paths = write_sphere_mv(root, RECON_UID, size=RECON_SIZE)
     cfg = recon_config()
     steps = cfg.max_steps
-    hk.FWD_LAUNCHES = hk.FWD_JAC_LAUNCHES = hk.BWD_LAUNCHES = 0
-    hk.GATHER_LAUNCHES = pr.LAUNCHES = 0
+    zero_launches()
     t0 = time.time()
     recon.main(["--uid", RECON_UID, "--root", root, "--device", str(device),
                 *RECON_OVERRIDES])
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {"hashgrid_fwd": hk.FWD_LAUNCHES + hk.FWD_JAC_LAUNCHES,
-                "hashgrid_bwd": hk.BWD_LAUNCHES,
-                "row_gather": hk.GATHER_LAUNCHES,
-                "pixel_rays": pr.LAUNCHES}
+    c = profiling.counters()
+    enc, enc_jac = c["hashgrid.fwd.launch"], c["hashgrid.fwd_jac.launch"]
+    grad, rays = c["hashgrid.bwd.launch"], c["pixel_rays.launch"]
+    gather = c["row_gather.launch"]
+    launches = {"hashgrid_fwd": enc + enc_jac, "hashgrid_bwd": grad,
+                "row_gather": gather, "pixel_rays": rays}
     stats = stage2_recon.LAST_STATS
     evals = stats["export"]["field_evals"]
-    check(hk.FWD_JAC_LAUNCHES == steps and hk.BWD_LAUNCHES == steps
-          and hk.FWD_LAUNCHES == steps + evals
-          and pr.LAUNCHES == steps and hk.GATHER_LAUNCHES == 0,
-          f"recon launches: encode {hk.FWD_LAUNCHES}, with jacobian "
-          f"{hk.FWD_JAC_LAUNCHES}, table gradient {hk.BWD_LAUNCHES}, pixel "
-          f"rays {pr.LAUNCHES}, row gather {hk.GATHER_LAUNCHES}; expected "
+    check(enc_jac == steps and grad == steps and enc == steps + evals
+          and rays == steps and gather == 0,
+          f"recon launches: encode {enc}, with jacobian {enc_jac}, table "
+          f"gradient {grad}, pixel rays {rays}, row gather {gather}; "
+          f"expected "
           f"{steps} + {evals} export evaluations, {steps}, {steps}, {steps}, "
           f"0")
     log = stats["log"]
@@ -2859,9 +2857,9 @@ def phase_sweep(root: str, device) -> dict:
     import torch
 
     from drawingspinup_torch.cli import sweep as sweep_cli
+    from drawingspinup_torch.core import profiling
     from drawingspinup_torch.core.contract import UidPaths
     from drawingspinup_torch.core.io import read_image, write_image
-    from drawingspinup_torch.kernels import hashgrid as hk
     from drawingspinup_torch.pipelines import stage2_recon
     from drawingspinup_torch.pipelines import sweep
     from drawingspinup_torch.utils.synthetic import make_rig_fbx, \
@@ -2909,6 +2907,8 @@ def phase_sweep(root: str, device) -> dict:
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = launch_counts()
+    enc = profiling.counters()["hashgrid.fwd.launch"]
+    enc_jac = profiling.counters()["hashgrid.fwd_jac.launch"]
     with open(log) as f:
         records = [json.loads(line) for line in f]
     failed = [r for r in records if r["stage"] == "FAILED"]
@@ -2930,11 +2930,11 @@ def phase_sweep(root: str, device) -> dict:
           and launches["ric_conv_bwd"] == n * BWD_PER_STEP * TRAIN_BATCHES[0]
           and launches["pixel_rays"] == n * steps
           and launches["hashgrid_bwd"] == n * steps
-          and hk.FWD_JAC_LAUNCHES == n * steps
-          and hk.FWD_LAUNCHES > n * steps
+          and enc_jac == n * steps
+          and enc > n * steps
           and launches["row_gather"] == 0,
           f"sweep launches {launches} (encode without the jacobian "
-          f"{hk.FWD_LAUNCHES}); expected RIC forward {want_fwd}, backward "
+          f"{enc}); expected RIC forward {want_fwd}, backward "
           f"{n * BWD_PER_STEP * TRAIN_BATCHES[0]}, per recon step one pixel "
           f"rays, one table gradient, one encode with and one without the "
           f"jacobian, plus the export's encodes, no row gather")
@@ -2980,24 +2980,15 @@ def phase_sweep(root: str, device) -> dict:
 
 
 def zero_launches() -> None:
-    """Every hand-written kernel's launch count set to 0."""
-    from drawingspinup_torch.kernels import hashgrid as hk
-    from drawingspinup_torch.kernels import pixel_rays as pr
-    from drawingspinup_torch.kernels import ric_conv as rk
+    """Every hand-written kernel's launch count set to 0: the counters (and
+    span aggregates) of core/profiling.py cleared."""
+    from drawingspinup_torch.core import profiling
 
-    rk.LAUNCHES = rk.BWD_LAUNCHES = 0
-    hk.FWD_LAUNCHES = hk.FWD_JAC_LAUNCHES = hk.BWD_LAUNCHES = 0
-    hk.GATHER_LAUNCHES = pr.LAUNCHES = 0
+    profiling.reset()
 
 
 def launches_total() -> int:
-    from drawingspinup_torch.kernels import hashgrid as hk
-    from drawingspinup_torch.kernels import pixel_rays as pr
-    from drawingspinup_torch.kernels import ric_conv as rk
-
-    return (rk.LAUNCHES + rk.BWD_LAUNCHES + hk.FWD_LAUNCHES
-            + hk.FWD_JAC_LAUNCHES + hk.BWD_LAUNCHES + hk.GATHER_LAUNCHES
-            + pr.LAUNCHES)
+    return sum(launch_counts().values())
 
 
 def check_drawings(root: str, uids, what: str) -> None:
@@ -3081,7 +3072,6 @@ def phase_lama_train(root: str, device) -> None:
         return state, step_logs
 
     lama.train_step = recorded
-    profiling.reset_timings()
     zero_launches()
     buf = io.StringIO()
     t0 = time.time()
@@ -3418,7 +3408,7 @@ def phase_dp_world1(root: str, device, tmp: str) -> dict:
             zero_launches()
             logs = [nsr_step() for _ in range(DP_STEPS)]
             torch.cuda.synchronize()
-            nsr_launches = launches_by_kernel()
+            nsr_launches = launch_counts()
             snap = nsr_snapshot(state)
             snap["logs"] = {f"{i}.{k}": host_copy(x)
                             for i, lg in enumerate(logs)
@@ -3432,7 +3422,7 @@ def phase_dp_world1(root: str, device, tmp: str) -> dict:
             zero_launches()
             glogs = [gfn(gstate, kf, gg) for _ in range(DP_STEPS)]
             torch.cuda.synchronize()
-            gan_launches = launches_by_kernel()
+            gan_launches = launch_counts()
             gsnap = gan_snapshot(gstate)
             gsnap["logs"] = {f"{i}.{k}": host_copy(x)
                              for i, lg in enumerate(glogs)
@@ -3473,17 +3463,6 @@ def host_ms(fn, steps: int) -> float:
         fn()
     torch.cuda.synchronize()
     return 1e3 * (time.time() - t0) / steps
-
-
-def launches_by_kernel() -> dict:
-    from drawingspinup_torch.kernels import hashgrid as hk
-    from drawingspinup_torch.kernels import pixel_rays as pr
-    from drawingspinup_torch.kernels import ric_conv as rk
-
-    return {"ric_conv_fwd": rk.LAUNCHES, "ric_conv_bwd": rk.BWD_LAUNCHES,
-            "hashgrid_fwd": hk.FWD_LAUNCHES + hk.FWD_JAC_LAUNCHES,
-            "hashgrid_bwd": hk.BWD_LAUNCHES, "pixel_rays": pr.LAUNCHES,
-            "row_gather": hk.GATHER_LAUNCHES}
 
 
 def forbid_writes(root: str) -> list:
@@ -3581,7 +3560,7 @@ def dp_rank_sweep(root: str, device, rank: int, world: int) -> dict:
     torch.cuda.synchronize()
     wall = time.time() - t0
     stats = stage2_recon.LAST_STATS
-    return {"result": result, "launches": launches_by_kernel(),
+    return {"result": result, "launches": launch_counts(),
             "field_evals": stats.get("export", {}).get("field_evals"),
             "recon_steps": stats["steps"], "wall": wall,
             "nsr": {n: host_copy(p)
@@ -4125,7 +4104,7 @@ def phase_recon_tail(root: str, device) -> dict:
             tail_root(root, f"tail_{run}"), SWEEP_UIDS, ycfg, cfg, device,
             run == "overlapped", mc=RECON_MC, faces=RECON_FACES,
             im_size=RECON_SIZE)
-        runs[run]["launches"] = launches_by_kernel()
+        runs[run]["launches"] = launch_counts()
     ser, ovl = runs["serial"], runs["overlapped"]
     check(ser["futures"] == 0 and ovl["futures"] == 2,
           f"[21] futures: serial {ser['futures']}, overlapped "
@@ -4225,7 +4204,7 @@ def phase_stage3_bf16(root: str, device) -> dict:
         losses = [gan.train_step(cfg, state, data, g)["g_loss"]
                   for _ in range(BF16_STEPS)]
         torch.cuda.synchronize()
-        launches = launches_by_kernel()
+        launches = launch_counts()
         losses = torch.stack(losses).tolist()
         ms = host_ms(lambda: gan.train_step(cfg, state, data, g), 10)
         busy, n = device_profile(lambda: gan.train_step(cfg, state, data, g),
@@ -4554,15 +4533,17 @@ def phase_tp(root: str, device) -> dict:
 
 def launch_counts() -> dict:
     """Each hand-written kernel's launches since ``zero_launches``, by the
-    kernels line's names."""
-    from drawingspinup_torch.kernels import hashgrid as hk
-    from drawingspinup_torch.kernels import pixel_rays as pr
-    from drawingspinup_torch.kernels import ric_conv as rk
+    kernels line's names, from core/profiling.py's counters."""
+    from drawingspinup_torch.core import profiling
 
-    return {"ric_conv_fwd": rk.LAUNCHES, "ric_conv_bwd": rk.BWD_LAUNCHES,
-            "hashgrid_fwd": hk.FWD_LAUNCHES + hk.FWD_JAC_LAUNCHES,
-            "hashgrid_bwd": hk.BWD_LAUNCHES,
-            "pixel_rays": pr.LAUNCHES, "row_gather": hk.GATHER_LAUNCHES}
+    c = profiling.counters()
+    return {"ric_conv_fwd": c["ric.fwd.launch"],
+            "ric_conv_bwd": c["ric.bwd.launch"],
+            "hashgrid_fwd": c["hashgrid.fwd.launch"]
+            + c["hashgrid.fwd_jac.launch"],
+            "hashgrid_bwd": c["hashgrid.bwd.launch"],
+            "pixel_rays": c["pixel_rays.launch"],
+            "row_gather": c["row_gather.launch"]}
 
 
 def judge_golden_bounds(report_: dict, what: str) -> None:

@@ -53,7 +53,7 @@ def main(argv=None) -> int:
 
     if args.render:
         from drawingspinup_torch.render.bicar import batch_render
-        with profiling.timer("train_lama/render"):
+        with profiling.span("train_lama/render"):
             done = batch_render(args.render, args.data_root, args.uid_json,
                                 limit=args.render_limit)
         print(f"rendered {len(done)} objects", file=sys.stderr)
@@ -67,9 +67,9 @@ def main(argv=None) -> int:
                             size=args.size, device=device)
     batches = ds.batches(cfg.batch_size)
     for step in range(cfg.steps):
-        with profiling.timer("train_lama/data"):
+        with profiling.span("train_lama/data"):
             batch = next(batches)
-        with profiling.timer("train_lama/step", sync=True):
+        with profiling.span("train_lama/step", sync=True):
             state, logs = lama.train_step(cfg, state, batch)
         if step % 100 == 0:
             print(f"step {step}: g={float(logs['g_loss']):.4f} "

@@ -1,17 +1,80 @@
-"""Timing and profiling for the port: scoped wall-clock timers with a
-report, and a ``torch.profiler`` trace scope (counterpart of
+"""The port's one tracing system: named spans, integer counters and a
+``torch.profiler`` trace scope (counterpart of
 ``drawingspinup_tpu/core/profiling.py``, whose trace is ``jax.profiler``'s).
+
+- ``span(name, sync=False)`` times a block. Every span adds its duration
+  to its name's aggregate: count, total, min, max, last and a ring of the
+  last ``RING`` durations (``timings``, ``samples``, ``report``, ``total``).
+- While a ``torch.profiler`` is recording (checked once per span), a span
+  also opens a ``record_function`` range of its name, so that it sits in
+  the Chrome trace beside the kernels it launched, and appends a
+  ``SpanRecord`` to an in-memory store (``spans``) with its start and end
+  on the trace's clock: ``time.time_ns()``, which the exported trace's
+  ``ts`` (µs) plus its ``baseTimeNanoseconds`` reads. A record's parent is
+  the span open on its thread; its unit is the frame or step open in the
+  process (``UNIT_SPANS``; the outermost such span opens it), so that the
+  spans the autograd engine opens on its own threads take the step that
+  called ``backward``. With no profiler recording, none of this is built.
+- ``count(name, n=1)``: integer counters, always on (``counters``).
+- ``reset()`` clears the aggregates, the counters and the store.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
+import threading
 import time
-from collections import defaultdict
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, NamedTuple, Optional
 
 import torch
 
-_TIMINGS: Dict[str, List[float]] = defaultdict(list)
+RING = 1024                 # durations kept per span name
+MAX_RECORDS = 1_000_000     # the store's cap; later records are counted
+DROPPED = "profiling.dropped_spans"
+UNIT_SPANS = frozenset({"serve.frame", "gan.step"})
+
+
+class SpanRecord(NamedTuple):
+    """One span recorded under a profiler: start and end in ns since the
+    epoch (the trace's clock), its id, the id of the span open on its
+    thread when it opened, and the id of the unit (the ``UNIT_SPANS`` span)
+    open in the process, None where there was none."""
+    name: str
+    start_ns: int
+    end_ns: int
+    id: int
+    parent: Optional[int]
+    unit: Optional[int]
+    thread: int
+
+
+class _Stat:
+    __slots__ = ("count", "total", "min", "max", "last", "ring")
+
+    def __init__(self) -> None:
+        self.count, self.total = 0, 0.0
+        self.min, self.max, self.last = float("inf"), 0.0, 0.0
+        self.ring: collections.deque = collections.deque(maxlen=RING)
+
+    def add(self, dt: float) -> None:
+        self.count += 1
+        self.total += dt
+        if dt < self.min:
+            self.min = dt
+        if dt > self.max:
+            self.max = dt
+        self.last = dt
+        self.ring.append(dt)
+
+
+_LOCK = threading.Lock()
+_STATS: Dict[str, _Stat] = {}
+_COUNTERS: Dict[str, int] = {}
+_RECORDS: List[SpanRecord] = []
+_IDS = itertools.count(1)
+_THREAD = threading.local()     # .stack: ids of the recorded spans open
+_UNIT: Optional[int] = None     # the unit open in the process
 
 
 def _sync() -> None:
@@ -19,51 +82,143 @@ def _sync() -> None:
         torch.cuda.synchronize()
 
 
-@contextlib.contextmanager
-def timer(name: str, sync: bool = False) -> Iterator[None]:
+class _Open:
+    """A recorded span while it is open: its range and its place."""
+    __slots__ = ("rf", "id", "parent", "unit", "opens_unit", "stack",
+                 "start_ns")
+
+    def __init__(self, name: str) -> None:
+        global _UNIT
+        # the range's own start is read early in its (first time slow)
+        # enter: the store's start is read just before it
+        self.start_ns = time.time_ns()
+        self.rf = torch.profiler.record_function(name)
+        self.rf.__enter__()
+        self.stack = getattr(_THREAD, "stack", None)
+        if self.stack is None:
+            self.stack = _THREAD.stack = []
+        self.id = next(_IDS)
+        self.parent = self.stack[-1] if self.stack else None
+        self.opens_unit = name in UNIT_SPANS and _UNIT is None
+        if self.opens_unit:
+            _UNIT = self.id
+        self.unit = _UNIT
+        self.stack.append(self.id)
+
+    def close(self, name: str) -> None:
+        global _UNIT
+        end_ns = time.time_ns()
+        self.stack.pop()
+        if self.opens_unit:
+            _UNIT = None
+        rec = SpanRecord(name, self.start_ns, end_ns, self.id, self.parent,
+                         self.unit, threading.get_ident())
+        if len(_RECORDS) < MAX_RECORDS:
+            _RECORDS.append(rec)
+        else:
+            count(DROPPED)
+        self.rf.__exit__(None, None, None)
+
+
+class _Span:
+    __slots__ = ("name", "sync", "t0", "open")
+
+    def __init__(self, name: str, sync: bool) -> None:
+        self.name, self.sync = name, sync
+
+    def __enter__(self) -> "_Span":
+        if self.sync:
+            _sync()
+        self.open = _Open(self.name) if torch.autograd._profiler_enabled() \
+            else None
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.sync:
+            _sync()
+        dt = time.perf_counter() - self.t0
+        if self.open is not None:
+            self.open.close(self.name)
+        with _LOCK:
+            st = _STATS.get(self.name)
+            if st is None:
+                st = _STATS[self.name] = _Stat()
+            st.add(dt)
+
+
+def span(name: str, sync: bool = False) -> _Span:
     """Time a block under ``name``; ``sync=True`` waits for the card's
     queued work before and after, so that the time covers the device's
-    execution of what the block enqueued."""
-    if sync:
-        _sync()
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        if sync:
-            _sync()
-        _TIMINGS[name].append(time.perf_counter() - t0)
+    execution of what the block enqueued. Under a recording profiler the
+    block is also a ``record_function`` range and a ``SpanRecord``."""
+    return _Span(name, sync)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name``."""
+    with _LOCK:
+        _COUNTERS[name] = _COUNTERS.get(name, 0) + n
+
+
+def counters() -> collections.Counter:
+    """Every counter so far (a copy; a name never counted reads 0)."""
+    with _LOCK:
+        return collections.Counter(_COUNTERS)
+
+
+def spans() -> List[SpanRecord]:
+    """The store's records, in the order the spans closed."""
+    return list(_RECORDS)
+
+
+def reset() -> None:
+    """Clear the aggregates, the counters and the store."""
+    with _LOCK:
+        _STATS.clear()
+        _COUNTERS.clear()
+        _RECORDS.clear()
 
 
 def timings() -> Dict[str, Dict[str, float]]:
-    """{name: count, total_s, mean_s, last_s} of every timer so far."""
-    return {k: {"count": len(v), "total_s": sum(v),
-                "mean_s": sum(v) / len(v), "last_s": v[-1]}
-            for k, v in _TIMINGS.items()}
+    """{name: count, total_s, mean_s, min_s, max_s, last_s} of every span
+    so far."""
+    with _LOCK:
+        return {k: {"count": st.count, "total_s": st.total,
+                    "mean_s": st.total / st.count, "min_s": st.min,
+                    "max_s": st.max, "last_s": st.last}
+                for k, st in _STATS.items()}
+
+
+def total(name: str) -> float:
+    """Seconds spent under ``name`` so far, 0 where it never ran."""
+    with _LOCK:
+        st = _STATS.get(name)
+        return st.total if st is not None else 0.0
 
 
 def samples(name: str) -> List[float]:
-    """Every time (s) recorded under ``name``, in order."""
-    return list(_TIMINGS.get(name, ()))
-
-
-def reset_timings() -> None:
-    _TIMINGS.clear()
+    """The last ``RING`` durations (s) under ``name``, in order."""
+    with _LOCK:
+        st = _STATS.get(name)
+        return list(st.ring) if st is not None else []
 
 
 def report(prefix: str = "") -> str:
-    """One line per timer whose name starts with ``prefix``."""
+    """One line per span whose name starts with ``prefix``."""
     return "\n".join(
         f"{k:40s} n={st['count']:5d} total={st['total_s']:9.3f}s "
-        f"mean={st['mean_s'] * 1e3:9.2f}ms"
+        f"mean={st['mean_s'] * 1e3:9.2f}ms min={st['min_s'] * 1e3:9.2f}ms "
+        f"max={st['max_s'] * 1e3:9.2f}ms"
         for k, st in sorted(timings().items()) if k.startswith(prefix))
 
 
 @contextlib.contextmanager
 def trace(logdir: Optional[str]) -> Iterator[Optional[torch.profiler.profile]]:
     """A ``torch.profiler`` scope over the CPU and, where there is one, the
-    card, written to ``logdir`` as a Chrome trace; yields the profiler (for
-    ``key_averages()``). A no-op yielding None when ``logdir`` is None."""
+    card, written to ``logdir`` as a Chrome trace with the spans opened
+    inside it; yields the profiler (for ``key_averages()``). A no-op
+    yielding None when ``logdir`` is None."""
     if logdir is None:
         yield None
         return

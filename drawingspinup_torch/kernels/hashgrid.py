@@ -41,15 +41,15 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from drawingspinup_torch.core import profiling
+
 PRIMES = (1, 2654435761, 805459861)
 MAX_LEVELS = 16
 
-# Launches of each kernel wrapper since the last reset; the smoke run resets
-# them to show that the main path went through the kernels.
-FWD_LAUNCHES = 0        # hashgrid_fwd without the jacobian
-FWD_JAC_LAUNCHES = 0    # hashgrid_fwd with the jacobian
-BWD_LAUNCHES = 0        # hashgrid_bwd (its three kernels)
-GATHER_LAUNCHES = 0     # row_gather
+# Each wrapper counts its launches in ``core/profiling.py``'s counters:
+# ``hashgrid.fwd.launch`` (the encode without the jacobian),
+# ``hashgrid.fwd_jac.launch`` (with it), ``hashgrid.bwd.launch`` (the table
+# gradient's three kernels) and ``row_gather.launch``.
 
 # float64 is for the twins alone (a reference in the tests); the kernels
 # take float32 and bfloat16
@@ -337,7 +337,6 @@ def hashgrid_fwd(x: torch.Tensor, tables: Sequence[torch.Tensor],
     """Launch the encode kernel on the current stream for the first
     ``n_active`` levels: (enc (P, L·F), denc (3, P, L·F) or None) in the
     compute dtype, zeros past ``n_active`` (written by the kernel)."""
-    global FWD_LAUNCHES, FWD_JAC_LAUNCHES
     _check_points("hashgrid_fwd", x)
     ptrs, res, dense, tdt = _level_args("hashgrid_fwd", x, tables, spec,
                                         n_active)
@@ -359,10 +358,8 @@ def hashgrid_fwd(x: torch.Tensor, tables: Sequence[torch.Tensor],
             int(spec.cdt == torch.bfloat16), lf, enc.data_ptr(),
             denc.data_ptr() if with_jac else 0, stream)
     _raise_on(ext, "hashgrid_fwd", err)
-    if with_jac:
-        FWD_JAC_LAUNCHES += 1
-    else:
-        FWD_LAUNCHES += 1
+    profiling.count("hashgrid.fwd_jac.launch" if with_jac
+                    else "hashgrid.fwd.launch")
     return enc, denc
 
 
@@ -377,7 +374,6 @@ def hashgrid_bwd(x: torch.Tensor, tables: Sequence[torch.Tensor],
     fixed point, the same bits from run to run and under any permutation of
     the points (``hashgrid_bwd_fixed_point`` is the same arithmetic in
     plain PyTorch); NaN where a non-finite term landed."""
-    global BWD_LAUNCHES
     _check_points("hashgrid_bwd", x)
     _, res, dense, _ = _level_args("hashgrid_bwd", x, tables, spec, n_active)
     p, nf = x.shape[0], spec.n_features
@@ -420,7 +416,7 @@ def hashgrid_bwd(x: torch.Tensor, tables: Sequence[torch.Tensor],
             g_denc.data_ptr() if g_denc is not None else 0,
             scratch.data_ptr(), out.data_ptr(), stream)
     _raise_on(ext, "hashgrid_bwd", err)
-    BWD_LAUNCHES += 1
+    profiling.count("hashgrid.bwd.launch")
     return list(torch.split(out, rows))
 
 
@@ -428,7 +424,6 @@ def row_gather(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Launch the row-gather kernel on the current stream: ``tab[idx]`` for
     a contiguous (T, C) table whose rows are 4, 8, 16, 32, 48 or 64 bytes
     and int32 indices in [0, T)."""
-    global GATHER_LAUNCHES
     if tab.device.type != "cuda" or idx.device != tab.device:
         raise ValueError(f"row_gather: tab and idx must be on one CUDA "
                          f"device, got {tab.device} / {idx.device}")
@@ -453,7 +448,7 @@ def row_gather(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                              idx.data_ptr(), idx.shape[0], out.data_ptr(),
                              stream)
     _raise_on(ext, "row_gather", err)
-    GATHER_LAUNCHES += 1
+    profiling.count("row_gather.launch")
     return out
 
 

@@ -19,11 +19,11 @@ from typing import Tuple
 
 import torch
 
+from drawingspinup_torch.core import profiling
 from drawingspinup_torch.kernels import hashgrid as hk
 
-# Launches of the kernel wrapper since the last reset; the smoke run resets
-# it to show that the recon path went through the kernel.
-LAUNCHES = 0
+# The wrapper counts its launches in ``core/profiling.py``'s counter
+# ``pixel_rays.launch``.
 
 Rays = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -86,7 +86,6 @@ def pixel_rays(c2w: torch.Tensor, view_weights: torch.Tensor,
     """Launch the fused kernel on the current stream (f32 tables, int64
     draws, one CUDA device). Out-of-range draws are clamped: the target
     row into [0, V·H·W), the view into [0, V)."""
-    global LAUNCHES
     dev = c2w.device
     tensors = (c2w, view_weights, pixels, vi, yi, xi)
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
@@ -131,7 +130,7 @@ def pixel_rays(c2w: torch.Tensor, view_weights: torch.Tensor,
                              rays_d.data_ptr(), px.data_ptr(), vw.data_ptr(),
                              stream)
     hk._raise_on(ext, "pixel_rays", err)
-    LAUNCHES += 1
+    profiling.count("pixel_rays.launch")
     return rays_o, rays_d, px, vw
 
 

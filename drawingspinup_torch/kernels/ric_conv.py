@@ -30,12 +30,8 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from drawingspinup_torch.core import profiling
 from drawingspinup_torch.models.ric_tables import SHIFTS
-
-# Launches of each kernel wrapper since the last reset; the smoke run resets
-# them to show that the main path went through the kernels.
-LAUNCHES = 0           # ric_conv_fwd
-BWD_LAUNCHES = 0       # ric_conv_bwd
 
 # The backward GEMM's tiles (csrc/ric_conv_bwd_gemm.cu, which refuses a
 # launch planned with others): a block computes a GEMM_BM × GEMM_BN tile of
@@ -276,8 +272,9 @@ def ric_conv_fwd(x: torch.Tensor, wk: torch.Tensor,
                  swf: torch.Tensor) -> torch.Tensor:
     """Launch the forward on the current stream, on ``fwd_plan``'s tiles
     and slices; raises on any input it does not take and on a failed
-    launch."""
-    global LAUNCHES
+    launch. The span ``ric.fwd.launch`` and the counter of that name cover
+    the extension's call; the rest of the call is checks, plan and
+    allocations."""
     _check("ric_conv_fwd", x, wk, swf)
     from drawingspinup_torch.kernels._build import extension
 
@@ -291,14 +288,14 @@ def ric_conv_fwd(x: torch.Tensor, wk: torch.Tensor,
                          dtype=torch.float32, device=x.device)
     part = out if plan.slices == 1 else torch.empty(
         (plan.slices, n, h, w, o), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
+    with profiling.span("ric.fwd.launch"), torch.cuda.device(x.device):
         err = ext.ric_conv_fwd(x.data_ptr(), wk.data_ptr(), swf.data_ptr(),
                                wsplit.data_ptr(), part.data_ptr(),
                                out.data_ptr(), n, h, w, c, o, plan.bn,
                                FWD_CK, plan.slice_stages, plan.slices,
                                _stream())
     _raise_on(ext, "ric_conv_fwd", err)
-    LAUNCHES += 1
+    profiling.count("ric.fwd.launch")
     return out
 
 
@@ -388,9 +385,10 @@ def ric_conv_bwd(x: torch.Tensor, wk: torch.Tensor, swf: torch.Tensor,
                  ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """Launch the backward on the current stream: the sampled cotangent
     (``bwd_dz``), dx unless ``need_dx`` is false (``bwd_dx``), then dwk
-    (``bwd_dwk``), on the plans of ``bwd_plan``. Returns (dx or None, dwk);
-    raises on any input it does not take and on a failed launch."""
-    global BWD_LAUNCHES
+    (``bwd_dwk``), on the plans of ``bwd_plan``, under the spans
+    ``ric.bwd.dz``, ``ric.bwd.dx`` and ``ric.bwd.dwk``; counts
+    ``ric.bwd.launch``. Returns (dx or None, dwk); raises on any input it
+    does not take and on a failed launch."""
     _check("ric_conv_bwd", x, wk, swf)
     n, h, w, c = x.shape
     o = wk.shape[2]
@@ -403,33 +401,41 @@ def ric_conv_bwd(x: torch.Tensor, wk: torch.Tensor, swf: torch.Tensor,
         raise ValueError("ric_conv_bwd: tensor too large for int indices")
     g = g.contiguous()
     dx_plan, dwk_plan = bwd_plan(n, h, w, c, o)
+    dx = None
     with torch.cuda.device(x.device):
-        dz = bwd_dz(g, swf)
-        dx = bwd_dx(dz, wk, dx_plan).view(n, h, w, c) if need_dx else None
-        dwk = bwd_dwk(x, dz, dwk_plan)
-    BWD_LAUNCHES += 1
+        with profiling.span("ric.bwd.dz"):
+            dz = bwd_dz(g, swf)
+        if need_dx:
+            with profiling.span("ric.bwd.dx"):
+                dx = bwd_dx(dz, wk, dx_plan).view(n, h, w, c)
+        with profiling.span("ric.bwd.dwk"):
+            dwk = bwd_dwk(x, dz, dwk_plan)
+    profiling.count("ric.bwd.launch")
     return dx, dwk
 
 
 class RICConvFunction(torch.autograd.Function):
     """RIC conv with its VJP: the plain twins on the CPU, the kernels on
-    CUDA. No gradient flows to ``swf`` (a constant table)."""
+    CUDA, under the spans ``ric.fwd`` and ``ric.bwd`` on either. No
+    gradient flows to ``swf`` (a constant table)."""
 
     @staticmethod
     def forward(ctx, x, wk, swf):
-        ctx.save_for_backward(x, wk, swf)
-        if x.device.type == "cpu":
-            return ric_conv_reference(x, wk, swf)
-        return ric_conv_fwd(x, wk, swf)
+        with profiling.span("ric.fwd"):
+            ctx.save_for_backward(x, wk, swf)
+            if x.device.type == "cpu":
+                return ric_conv_reference(x, wk, swf)
+            return ric_conv_fwd(x, wk, swf)
 
     @staticmethod
     def backward(ctx, g):
-        x, wk, swf = ctx.saved_tensors
-        need_dx = ctx.needs_input_grad[0]
-        if x.device.type == "cpu":
-            dx, dwk = ric_conv_bwd_reference(x, wk, swf, g, need_dx)
-        else:
-            dx, dwk = ric_conv_bwd(x, wk, swf, g, need_dx)
+        with profiling.span("ric.bwd"):
+            x, wk, swf = ctx.saved_tensors
+            need_dx = ctx.needs_input_grad[0]
+            if x.device.type == "cpu":
+                dx, dwk = ric_conv_bwd_reference(x, wk, swf, g, need_dx)
+            else:
+                dx, dwk = ric_conv_bwd(x, wk, swf, g, need_dx)
         return dx, dwk, None
 
 

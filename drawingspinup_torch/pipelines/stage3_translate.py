@@ -14,13 +14,13 @@ import dataclasses
 import functools
 import json
 import os
-import time
 from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 import yaml
 
 from drawingspinup_torch.core import device as device_setup
+from drawingspinup_torch.core import profiling
 from drawingspinup_torch.core.contract import UidPaths
 from drawingspinup_torch.core.io import write_image
 from drawingspinup_torch.parallel import mesh
@@ -241,42 +241,41 @@ def train_stage(root: str, uid: str, stage: int, use_mask: bool = True,
     evaluate = functools.partial(
         test_on_full_images, state.gen, render_root, actions, res_name,
         use_mask, use_pos, s["use_edge"], pre_dir, frame_cache={})
-    t0 = time.time()
-    t_eval = t_ckpt = 0.0
-    for b in range(total):
-        logs = step_fn(state, data, generator)
-        losses[b] = torch.stack([logs[k] for k in gan.LOSS_NAMES])
-        # checkpoints, evals and the loss log are rank 0's; the other ranks
-        # go on to the next step's all-reduce and wait there
-        if (b + 1) % cfg.log_interval == 0 and mesh.is_main():
-            d_loss, g_loss = losses[b, :2].tolist()   # syncs the host
-            print(f"[stage{stage} {uid}] batch {b + 1}/{total} "
-                  f"g={g_loss:.4f} d={d_loss:.4f}")
-            tc = time.time()
-            gan.save_checkpoint(log_dir, state.gen, b + 1)
-            te = time.time()
-            evaluate(max_frames_per_action=cfg.eval_frame_limit)
-            t_ckpt += te - tc
-            t_eval += time.time() - te
-    _sync(dev)
+    ckpt0, eval0 = profiling.total("stage3.ckpt"), profiling.total(
+        "stage3.eval")
+    with profiling.span("stage3.train"):
+        for b in range(total):
+            logs = step_fn(state, data, generator)
+            losses[b] = torch.stack([logs[k] for k in gan.LOSS_NAMES])
+            # checkpoints, evals and the loss log are rank 0's; the other
+            # ranks go on to the next step's all-reduce and wait there
+            if (b + 1) % cfg.log_interval == 0 and mesh.is_main():
+                d_loss, g_loss = losses[b, :2].tolist()   # syncs the host
+                print(f"[stage{stage} {uid}] batch {b + 1}/{total} "
+                      f"g={g_loss:.4f} d={d_loss:.4f}")
+                with profiling.span("stage3.ckpt"):
+                    gan.save_checkpoint(log_dir, state.gen, b + 1)
+                with profiling.span("stage3.eval"):
+                    evaluate(max_frames_per_action=cfg.eval_frame_limit)
+        _sync(dev)
 
-    def finish() -> None:
-        nonlocal t_ckpt, t_eval
-        tc = time.time()
-        gan.save_checkpoint(log_dir, state.gen, FINAL_STEP)
-        te = time.time()
-        evaluate()
-        t_ckpt += te - tc
-        t_eval += time.time() - te
-        wall = time.time() - t0
-        steps_wall = wall - t_eval - t_ckpt
-        with open(os.path.join(log_dir, "train_losses.json"), "w") as f:
-            json.dump(dict(zip(gan.LOSS_NAMES, losses.T.tolist())), f)
-        print(f"[stage{stage} {uid}] {total} batches in {wall:.1f}s (steps "
-              f"{steps_wall:.1f}s = {1e3 * steps_wall / max(total, 1):.1f} "
-              f"ms/step, eval {t_eval:.1f}s, ckpt {t_ckpt:.1f}s)")
+        def finish() -> None:
+            with profiling.span("stage3.ckpt"):
+                gan.save_checkpoint(log_dir, state.gen, FINAL_STEP)
+            with profiling.span("stage3.eval"):
+                evaluate()
+            with open(os.path.join(log_dir, "train_losses.json"), "w") as f:
+                json.dump(dict(zip(gan.LOSS_NAMES, losses.T.tolist())), f)
 
-    mesh.on_main(finish)
+        mesh.on_main(finish)
+    wall = profiling.timings()["stage3.train"]["last_s"]
+    t_ckpt = profiling.total("stage3.ckpt") - ckpt0
+    t_eval = profiling.total("stage3.eval") - eval0
+    steps_wall = wall - t_eval - t_ckpt
+    mesh.print_main(f"[stage{stage} {uid}] {total} batches in {wall:.1f}s "
+                    f"(steps {steps_wall:.1f}s = "
+                    f"{1e3 * steps_wall / max(total, 1):.1f} ms/step, eval "
+                    f"{t_eval:.1f}s, ckpt {t_ckpt:.1f}s)")
     return state
 
 

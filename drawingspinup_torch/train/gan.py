@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from drawingspinup_torch.core import checkpoint as ckpt
+from drawingspinup_torch.core import profiling
 from drawingspinup_torch.core import weights_policy
 from drawingspinup_torch.models.generator_j import (
     DiscriminatorN_IN, GeneratorJ, GeneratorJ_RIC, PerceptualVGG19,
@@ -176,58 +177,66 @@ def train_step_on_batch(cfg: GANConfig, state: TrainState,
     (``train/gan_parallel.py``), in ``gan_parallel.py``'s order: D's
     gradients before D's update; then G's gradients, G's batch-norm
     running statistics (its only buffers) and the losses before G's
-    update."""
+    update.
+
+    Spans (``core/profiling.py``): ``gan.d_update`` (G's one forward, which
+    the D step reads first, then D's forward, loss and backward),
+    ``gan.d_opt``, ``gan.g_update`` (VGG, D, loss and G's backward) and
+    ``gan.g_opt``, each with its share of ``reduce``."""
     gen, disc, vgg = state.gen, state.disc, state.vgg
     gen.train()
-    # one G forward: the D step reads it detached, the G loss through it
-    fake = gen(batch["pre"])
-
-    state.d_opt.zero_grad(set_to_none=True)
-    fl = disc(fake.detach() * batch["pre_mask"])
-    tl = disc(batch["already"] * batch["already_mask"])
-    d_loss = fl.square().mean() + (tl - 1.0).square().mean()
-    d_loss.backward()
-    if reduce is not None:
-        reduce([p.grad for p in disc.parameters()])
-    state.d_opt.step()
+    with profiling.span("gan.d_update"):
+        # one G forward: the D step reads it detached, the G loss through it
+        fake = gen(batch["pre"])
+        state.d_opt.zero_grad(set_to_none=True)
+        fl = disc(fake.detach() * batch["pre_mask"])
+        tl = disc(batch["already"] * batch["already_mask"])
+        d_loss = fl.square().mean() + (tl - 1.0).square().mean()
+        d_loss.backward()
+    with profiling.span("gan.d_opt"):
+        if reduce is not None:
+            reduce([p.grad for p in disc.parameters()])
+        state.d_opt.step()
 
     # G loss against the updated D; D's parameters take no gradient here,
     # so nothing of it reaches D's next update
-    state.g_opt.zero_grad(set_to_none=True)
-    post = batch["post"]
-    disc.requires_grad_(False)
-    try:
-        image_loss = (fake - post).abs().mean() if cfg.use_image_loss \
-            else fake.new_zeros(())
-        # per-map squared sums over the total feature count: the mean over
-        # the concatenated feature vector, without building it
-        f_fake = vgg(fake)
-        with torch.no_grad():
-            f_real = vgg(post)
-        sq = sum((a - b).square().sum() for a, b in zip(f_fake, f_real))
-        perception_loss = sq / sum(a.numel() for a in f_fake)
-        fl = disc(fake * batch["pre_mask"])
-        adversarial_loss = (fl - 1.0).square().mean()
-        g_loss = (cfg.reconstruction_weight * image_loss
-                  + cfg.perception_weight * perception_loss
-                  + cfg.adversarial_weight * adversarial_loss)
-        g_loss.backward()
-    finally:
-        disc.requires_grad_(True)
-    # optax updates every leaf: a leaf without a gradient (GeneratorJ_RIC's
-    # smooth0 / smooth_bn) still decays and its moments still move, while
-    # torch's AdamW would skip it
-    for p in gen.parameters():
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    logs = {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(),
-            "image_loss": image_loss.detach(),
-            "perception_loss": perception_loss.detach(),
-            "adversarial_loss": adversarial_loss.detach()}
-    if reduce is not None:
-        reduce([p.grad for p in gen.parameters()] + list(gen.buffers())
-               + list(logs.values()))
-    state.g_opt.step()
+    with profiling.span("gan.g_update"):
+        state.g_opt.zero_grad(set_to_none=True)
+        post = batch["post"]
+        disc.requires_grad_(False)
+        try:
+            image_loss = (fake - post).abs().mean() if cfg.use_image_loss \
+                else fake.new_zeros(())
+            # per-map squared sums over the total feature count: the mean
+            # over the concatenated feature vector, without building it
+            f_fake = vgg(fake)
+            with torch.no_grad():
+                f_real = vgg(post)
+            sq = sum((a - b).square().sum() for a, b in zip(f_fake, f_real))
+            perception_loss = sq / sum(a.numel() for a in f_fake)
+            fl = disc(fake * batch["pre_mask"])
+            adversarial_loss = (fl - 1.0).square().mean()
+            g_loss = (cfg.reconstruction_weight * image_loss
+                      + cfg.perception_weight * perception_loss
+                      + cfg.adversarial_weight * adversarial_loss)
+            g_loss.backward()
+        finally:
+            disc.requires_grad_(True)
+    with profiling.span("gan.g_opt"):
+        # optax updates every leaf: a leaf without a gradient
+        # (GeneratorJ_RIC's smooth0 / smooth_bn) still decays and its
+        # moments still move, while torch's AdamW would skip it
+        for p in gen.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        logs = {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(),
+                "image_loss": image_loss.detach(),
+                "perception_loss": perception_loss.detach(),
+                "adversarial_loss": adversarial_loss.detach()}
+        if reduce is not None:
+            reduce([p.grad for p in gen.parameters()] + list(gen.buffers())
+                   + list(logs.values()))
+        state.g_opt.step()
     state.step += 1
     return logs
 
@@ -235,9 +244,13 @@ def train_step_on_batch(cfg: GANConfig, state: TrainState,
 def train_step(cfg: GANConfig, state: TrainState, data: KeyframeData,
                generator: torch.Generator) -> Dict[str, torch.Tensor]:
     """Sample a patch batch with ``generator``, then one D and one G
-    update."""
-    batch = sample_patches(data, generator, cfg.batch_size, cfg.patch_size)
-    return train_step_on_batch(cfg, state, batch)
+    update: the span ``gan.step``, the step's unit, around ``gan.sample``
+    and ``train_step_on_batch``'s spans."""
+    with profiling.span("gan.step"):
+        with profiling.span("gan.sample"):
+            batch = sample_patches(data, generator, cfg.batch_size,
+                                   cfg.patch_size)
+        return train_step_on_batch(cfg, state, batch)
 
 
 def full_frame_features(x_u8: np.ndarray, use_mask: bool, use_pos: bool,
@@ -262,18 +275,30 @@ def full_frame_features(x_u8: np.ndarray, use_mask: bool, use_pos: bool,
     return torch.cat(feats, dim=-1)[None], alpha
 
 
-@torch.no_grad()
 def generate_full_rgba(model: Generator, x_u8: np.ndarray, use_mask: bool,
                        use_pos: bool, use_edge: bool) -> np.ndarray:
     """Stylize one full frame: the (H, W, 7) uint8 source stack →
-    (H, W, 4) uint8 RGBA, quantized as ``write_image`` quantizes."""
-    device = next(model.parameters()).device
-    x, alpha = full_frame_features(x_u8, use_mask, use_pos, use_edge, device)
-    out = model(x)[0]
-    rgb8 = (torch.clamp((out + 1.0) * 0.5, 0.0, 1.0) * 255.0 + 0.5).to(
-        torch.uint8)
-    a8 = (alpha * 255.0 + 0.5).to(torch.uint8)
-    return torch.cat([rgb8, a8[..., None]], dim=-1).cpu().numpy()
+    (H, W, 4) uint8 RGBA, quantized as ``write_image`` quantizes.
+
+    Spans: ``serve.frame`` (the frame's unit, the whole call) around
+    ``serve.upload`` (``full_frame_features``: the host-to-card copy and
+    the features), ``serve.forward`` (``model(x)``, the host's enqueueing
+    of it), ``serve.quantise`` and ``serve.readback`` (the host's wait for
+    the card, then the copy back)."""
+    with profiling.span("serve.frame"), torch.no_grad():
+        device = next(model.parameters()).device
+        with profiling.span("serve.upload"):
+            x, alpha = full_frame_features(x_u8, use_mask, use_pos,
+                                           use_edge, device)
+        with profiling.span("serve.forward"):
+            out = model(x)[0]
+        with profiling.span("serve.quantise"):
+            rgb8 = (torch.clamp((out + 1.0) * 0.5, 0.0, 1.0) * 255.0
+                    + 0.5).to(torch.uint8)
+            a8 = (alpha * 255.0 + 0.5).to(torch.uint8)
+            rgba = torch.cat([rgb8, a8[..., None]], dim=-1)
+        with profiling.span("serve.readback"):
+            return rgba.cpu().numpy()
 
 
 def checkpoint_path(log_dir: str, step: int) -> str:

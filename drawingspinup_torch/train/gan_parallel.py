@@ -16,6 +16,7 @@ from typing import Dict
 
 import torch
 
+from drawingspinup_torch.core import profiling
 from drawingspinup_torch.parallel import mesh
 from drawingspinup_torch.pipelines.stage3_data import (
     KeyframeData, sample_patches,
@@ -45,7 +46,11 @@ class TrainStepDP:
 
     def __call__(self, state: gan.TrainState, data: KeyframeData,
                  generator: torch.Generator) -> Dict[str, torch.Tensor]:
-        return self.on_batch(state, self.batch(data, generator))
+        """One step under the spans of ``gan.train_step``."""
+        with profiling.span("gan.step"):
+            with profiling.span("gan.sample"):
+                batch = self.batch(data, generator)
+            return self.on_batch(state, batch)
 
 
 def make_train_step_dp(cfg: gan.GANConfig, world: int) -> TrainStepDP:

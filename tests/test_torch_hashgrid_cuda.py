@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from drawingspinup_torch.core import profiling
 from drawingspinup_torch.kernels import hashgrid as hk
 from drawingspinup_torch.models import hashgrid as thg
 
@@ -254,13 +255,15 @@ def test_autograd_function_on_the_card(tdt, cdt, cuda_device):
     cfg, tables, x = _setup(tdt, cdt, 3000, 4, cuda_device)
     mask = (torch.arange(cfg.n_levels, device=cuda_device) < 5).float()
     leaves = [t.clone().requires_grad_(True) for t in tables]
-    hk.FWD_JAC_LAUNCHES = hk.BWD_LAUNCHES = 0
+    before = profiling.counters()
     enc, denc = thg.encode_with_spatial_grad(leaves, x, cfg, mask, 5)
     w1 = torch.randn(enc.shape, device=cuda_device).to(enc.dtype)
     w2 = torch.randn(denc.shape, device=cuda_device).to(denc.dtype)
     ((enc * w1).float().sum() + (denc * w2).float().sum()).backward()
     torch.cuda.synchronize()
-    assert hk.FWD_JAC_LAUNCHES == 1 and hk.BWD_LAUNCHES == 1
+    launched = profiling.counters() - before
+    assert launched["hashgrid.fwd_jac.launch"] == 1 \
+        and launched["hashgrid.bwd.launch"] == 1
     spec = cfg.spec()
     ref, dref = hk.hashgrid_fwd_reference(x, tables, spec, 5, True)
     m = mask.repeat_interleave(2).to(ref.dtype)
@@ -292,10 +295,10 @@ def test_row_gather_is_bit_equal(rows, dtype, cols, cuda_device):
     idx = torch.randint(0, rows, (262144,), generator=g, device=cuda_device,
                         dtype=torch.int32)
     idx[:2] = torch.tensor([0, rows - 1], device=cuda_device)
-    n0 = hk.GATHER_LAUNCHES
+    n0 = profiling.counters()["row_gather.launch"]
     out = hk.row_gather(tab, idx)
     torch.cuda.synchronize()
-    assert hk.GATHER_LAUNCHES == n0 + 1
+    assert profiling.counters()["row_gather.launch"] == n0 + 1
     assert torch.equal(out, tab[idx.long()])
 
 

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from drawingspinup_torch.core import profiling
 from drawingspinup_torch.kernels import pixel_rays as pr
 from drawingspinup_torch.train import nsr as tnsr
 
@@ -56,9 +57,9 @@ def test_sample_pixel_rays_is_the_twin(t_range, dtype):
     data["c2w"] = data["c2w"].to(dtype)
     v, h, w = data["masks"].shape
     assert draws.vi.shape == (tnsr.NSRConfig().train_num_rays,)
-    n0 = pr.LAUNCHES
+    n0 = profiling.counters()["pixel_rays.launch"]
     ro, rd, targets = tnsr.sample_pixel_rays(data, draws)
-    assert pr.LAUNCHES == n0
+    assert profiling.counters()["pixel_rays.launch"] == n0
     want = pr.pixel_rays_reference(data["c2w"], data["view_weights"],
                                    data["pixels"], h, w, draws.vi, draws.yi,
                                    draws.xi)

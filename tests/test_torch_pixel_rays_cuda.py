@@ -17,6 +17,7 @@ bit-identical; out-of-range draws clamped.
 import pytest
 import torch
 
+from drawingspinup_torch.core import profiling
 from drawingspinup_torch.kernels import pixel_rays as pr
 from drawingspinup_torch.train import nsr as tnsr
 
@@ -48,19 +49,19 @@ def seeded(device, v=6, h=1024, w=1024, r=2048, seed=0):
 def test_pixel_rays_matches_twin(shape, cuda_device):
     v, h, w, r = shape
     c2w, vw, pixels, h, w, vi, yi, xi = seeded(cuda_device, v, h, w, r)
-    n0 = pr.LAUNCHES
+    n0 = profiling.counters()["pixel_rays.launch"]
     got = pr.pixel_rays(c2w, vw, pixels, h, w, vi, yi, xi)
     again = pr.pixel_rays(c2w, vw, pixels, h, w, vi, yi, xi)
     want = pr.pixel_rays_reference(c2w, vw, pixels, h, w, vi, yi, xi)
     torch.cuda.synchronize()
-    assert pr.LAUNCHES == n0 + 2
+    assert profiling.counters()["pixel_rays.launch"] == n0 + 2
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
     d_o, d_d = pr.ray_ulps(got, want, c2w, h, w, vi, yi, xi)
     assert d_o <= 2 and d_d <= 2, (d_o, d_d)
     # the dispatch takes the kernel on CUDA tensors
     via = pr.sample(c2w, vw, pixels, h, w, vi, yi, xi)
-    assert pr.LAUNCHES == n0 + 3
+    assert profiling.counters()["pixel_rays.launch"] == n0 + 3
     assert all(torch.equal(a, b) for a, b in zip(got, via))
 
 
@@ -83,9 +84,9 @@ def test_nsr_sample_pixel_rays_launches_the_kernel(cuda_device):
     data = {"masks": torch.zeros((2, 8, 8), device=cuda_device),
             "c2w": c2w, "view_weights": vw, "pixels": pixels[:128]}
     draws = tnsr.Draws(vi, yi, xi, None, None, None, None)
-    n0 = pr.LAUNCHES
+    n0 = profiling.counters()["pixel_rays.launch"]
     ro, rd, targets = tnsr.sample_pixel_rays(data, draws)
-    assert pr.LAUNCHES == n0 + 1
+    assert profiling.counters()["pixel_rays.launch"] == n0 + 1
     assert torch.equal(targets["rgb"], pixels[:128][(vi * 8 + yi) * 8 + xi,
                                                      0:3])
     with pytest.raises(ValueError, match="f32"):

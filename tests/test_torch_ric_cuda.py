@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from drawingspinup_torch.core import profiling
 from drawingspinup_torch.kernels import ric_conv as ric_kernels
 from drawingspinup_torch.models import generator_j as tgen
 from drawingspinup_torch.models import ric_tables
@@ -40,6 +41,12 @@ def cuda_device():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
+
+
+def _launches():
+    """(forward, backward) RIC launches counted so far."""
+    c = profiling.counters()
+    return c["ric.fwd.launch"], c["ric.bwd.launch"]
 
 
 def _inputs(shape, seed, device):
@@ -70,10 +77,10 @@ def test_kernel_matches_twin(shape, cuda_device):
     shape and upconv1's 512² serving shape."""
     x, wk, swf = _inputs(shape, 11, cuda_device)
     want = ric_kernels.ric_conv_reference(x, wk, swf)
-    before = ric_kernels.LAUNCHES
+    before = profiling.counters()["ric.fwd.launch"]
     got = ric_kernels.ric_conv(x, wk, swf)
     torch.cuda.synchronize()
-    assert ric_kernels.LAUNCHES == before + 1
+    assert profiling.counters()["ric.fwd.launch"] == before + 1
     err = (got - want).abs().max().item()
     assert err <= REL_TOL * want.abs().max().item(), err
 
@@ -160,13 +167,13 @@ def test_cpu_tensor_runs_twin_and_builds_nothing(cuda_device, monkeypatch):
     monkeypatch.setattr(_build, "extension", refuse)
     x, wk, swf = _inputs((2, 12, 20, 5, 7), 4, torch.device("cpu"))
     wk.requires_grad_(True)
-    before = ric_kernels.LAUNCHES, ric_kernels.BWD_LAUNCHES
+    before = _launches()
     got = ric_kernels.ric_conv(x, wk, swf)
     assert torch.equal(got.detach(), ric_kernels.ric_conv_reference(x, wk,
                                                                     swf))
     got.sum().backward()
     assert wk.grad is not None
-    assert (ric_kernels.LAUNCHES, ric_kernels.BWD_LAUNCHES) == before
+    assert _launches() == before
 
 
 @pytest.mark.cuda
@@ -195,13 +202,13 @@ def test_generator_ric_kernel_path_matches_plain_path(cuda_device):
                                 torch.Generator(cuda_device).manual_seed(0))
     g = torch.Generator(cuda_device).manual_seed(1)
     x = torch.rand((1, 64, 64, 6), generator=g, device=cuda_device) * 2 - 1
-    before = ric_kernels.LAUNCHES
+    before = profiling.counters()["ric.fwd.launch"]
     with torch.no_grad():
         got = model(x)
         with _plain_ric_convs():
             want = model(x)
     torch.cuda.synchronize()
-    assert ric_kernels.LAUNCHES == before + 21
+    assert profiling.counters()["ric.fwd.launch"] == before + 21
     assert torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= 1e-3
 
@@ -231,10 +238,10 @@ def test_bwd_kernel_matches_twin(shape, cuda_device):
     x, wk, swf = _inputs(shape, 12, cuda_device)
     g = _cotangent(shape, 13, cuda_device)
     want_dx, want_dwk = ric_kernels.ric_conv_bwd_reference(x, wk, swf, g)
-    before = ric_kernels.BWD_LAUNCHES
+    before = profiling.counters()["ric.bwd.launch"]
     dx, dwk = ric_kernels.ric_conv_bwd(x, wk, swf, g)
     torch.cuda.synchronize()
-    assert ric_kernels.BWD_LAUNCHES == before + 1
+    assert profiling.counters()["ric.bwd.launch"] == before + 1
     _assert_close(dx, want_dx)
     _assert_close(dwk, want_dwk)
     dz = ric_kernels.bwd_dz(g, swf)
@@ -328,9 +335,9 @@ def test_autograd_skips_dx_when_input_needs_none(cuda_device):
     x, wk, swf = _inputs(shape, 5, cuda_device)
     g = _cotangent(shape, 6, cuda_device)
     wk.requires_grad_(True)
-    before = ric_kernels.BWD_LAUNCHES
+    before = profiling.counters()["ric.bwd.launch"]
     ric_kernels.ric_conv(x, wk, swf).backward(g)
-    assert ric_kernels.BWD_LAUNCHES == before + 1
+    assert profiling.counters()["ric.bwd.launch"] == before + 1
     assert x.grad is None
     _, want = ric_kernels.ric_conv_bwd_reference(x, wk.detach(), swf, g,
                                                  need_dx=False)
@@ -353,11 +360,11 @@ def test_generator_ric_train_backward_on_card(cuda_device):
     g = torch.Generator(cuda_device).manual_seed(1)
     x = torch.rand((4, 32, 32, 6), generator=g, device=cuda_device) * 2 - 1
     ref = copy.deepcopy(model).double()
-    fwd, bwd = ric_kernels.LAUNCHES, ric_kernels.BWD_LAUNCHES
+    fwd, bwd = _launches()
     model(x).square().mean().backward()
     torch.cuda.synchronize()
-    assert ric_kernels.LAUNCHES == fwd + 22
-    assert ric_kernels.BWD_LAUNCHES == bwd + 21
+    assert profiling.counters()["ric.fwd.launch"] == fwd + 22
+    assert profiling.counters()["ric.bwd.launch"] == bwd + 21
     got = {n: m.kernel.grad for n, m in model.named_modules()
            if isinstance(m, tgen.RICConv) and m.kernel.grad is not None}
     assert model.smooth0.kernel.grad is None and len(got) == 21
