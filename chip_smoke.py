@@ -919,6 +919,7 @@ def phase_whole_frame(root: str, device) -> None:
           f"u8 RGB: max diff {diff.max()}, {frac:.2%} of pixels differ")
     rgb = got[..., :3]
     saturated = float(((rgb == 0) | (rgb == 255)).mean())
+    graph_frames = phase_frame_graph(models[0], paths, x_u8, got, device)
     with torch.no_grad():
         ms_kernel = cuda_ms(lambda: models[0](x), reps=5)
         with plain_ric_convs():
@@ -928,7 +929,47 @@ def phase_whole_frame(root: str, device) -> None:
            f"(f32, after tanh), u8 RGB {frac:.3%} of values off by 1, alpha "
            f"exact, {saturated:.1%} of RGB values at 0 or 255; forward "
            f"GeneratorJ_RIC {ms_kernel:.2f} ms (kernel) vs {ms_plain:.2f} ms "
-           f"(plain), GeneratorJ {ms_stage2:.2f} ms")
+           f"(plain), GeneratorJ {ms_stage2:.2f} ms; {graph_frames} frames "
+           f"from the frame graph (one capture), each bit-equal to its "
+           f"eager frame")
+
+
+def phase_frame_graph(model, paths, x_u8, first, device) -> int:
+    """The main path's stage-1 generator after its key's two eager frames
+    (phase 5's kernel and plain frames): a captured, then replayed frame
+    of each of three stacks and of the first again, each bit-equal to the
+    eager frame of its stack (``gan.frame_rgba`` called directly; the
+    first also to phase 5's eager kernel frame ``first``), one capture, a
+    replay a frame and 21 RIC launches a replayed frame; returns the
+    frames served."""
+    import torch
+
+    from drawingspinup_torch.core import profiling
+    from drawingspinup_torch.pipelines import stage3_data
+    from drawingspinup_torch.train import gan
+
+    stacks = [x_u8] + [stage3_data.load_full_frame_u8(
+        paths.action_dir(ACTIONS[0]), f"{k:04d}.png", False) for k in (2, 3)]
+    stacks.append(x_u8)
+    with torch.no_grad():
+        eager = [gan.frame_rgba(model, torch.from_numpy(s).to(device), True,
+                                True, False).cpu().numpy() for s in stacks]
+    check(np.array_equal(eager[0], first),
+          "frame_rgba differs from the eager served frame")
+    before = profiling.counters()
+    for k, (s, want) in enumerate(zip(stacks, eager)):
+        got = gan.generate_full_rgba(model, s, True, True, False)
+        check(np.array_equal(got, want),
+              f"frame graph: frame {k} differs from its eager frame "
+              f"({int((got != want).sum())} values)")
+    c = profiling.counters() - before
+    n = len(stacks)
+    check(c["serve.graph.capture"] == 1 and c["serve.graph.replay"] == n
+          and c["serve.eager"] == 0
+          and c["ric.fwd.launch"] == RIC_PER_FRAME * n,
+          f"frame graph counters {dict(c)}: expected 1 capture, {n} "
+          f"replays, no eager frame, {RIC_PER_FRAME * n} RIC launches")
+    return n
 
 
 def phase_bwd_vs_plain(device, reps: int = 10):

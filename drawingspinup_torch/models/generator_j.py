@@ -23,9 +23,10 @@ autograd carrying the casts.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
-from typing import List, Optional, Sequence
+from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -248,6 +249,23 @@ def _swf(h: int, w: int, device: torch.device,
                                                                  dtype)
 
 
+# The open ``tables_read`` scopes' lists.
+_READERS: List[List[torch.Tensor]] = []
+
+
+@contextlib.contextmanager
+def tables_read() -> Iterator[List[torch.Tensor]]:
+    """A list of the RIC tables the forwards inside read. A CUDA graph
+    captured there reads them at their addresses on every replay, so it
+    holds them after ``_swf``'s cache has let them go."""
+    read: List[torch.Tensor] = []
+    _READERS.append(read)
+    try:
+        yield read
+    finally:
+        _READERS.remove(read)
+
+
 class RICConv(nn.Module):
     """3×3 rotation-invariant conv, NHWC; ``kernel`` is (9, C, O)."""
 
@@ -264,6 +282,8 @@ class RICConv(nn.Module):
         # training path feeds its kernel
         wide = x.dtype if x.dtype == torch.float64 else torch.float32
         swf = _swf(x.shape[1], x.shape[2], x.device, wide)
+        for read in _READERS:
+            read.append(swf)
         out = ric_kernels.ric_conv(x.to(wide).contiguous(),
                                    self.kernel.to(wide), swf)
         return out.to(x.dtype)

@@ -11,8 +11,11 @@ The step follows the JAX one (and the reference trainer):
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import itertools
 import os
+import weakref
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -23,7 +26,7 @@ from drawingspinup_torch.core import profiling
 from drawingspinup_torch.core import weights_policy
 from drawingspinup_torch.models.generator_j import (
     DiscriminatorN_IN, GeneratorJ, GeneratorJ_RIC, PerceptualVGG19,
-    load_vgg_weights_npz,
+    load_vgg_weights_npz, tables_read,
 )
 from drawingspinup_torch.pipelines.stage3_data import (
     KeyframeData, sample_patches,
@@ -253,16 +256,14 @@ def train_step(cfg: GANConfig, state: TrainState, data: KeyframeData,
         return train_step_on_batch(cfg, state, batch)
 
 
-def full_frame_features(x_u8: np.ndarray, use_mask: bool, use_pos: bool,
-                        use_edge: bool, device: Union[str, torch.device]
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+def frame_features(xt: torch.Tensor, use_mask: bool, use_pos: bool,
+                   use_edge: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """The (H, W, 7) uint8 source stack of
-    ``stage3_data.load_full_frame_u8`` → ((1, H, W, C_in) f32 generator
-    input, (H, W) f32 alpha), on ``device``.
+    ``stage3_data.load_full_frame_u8``, already on its device → ((1, H, W,
+    C_in) f32 generator input, (H, W) f32 alpha).
 
     Same math as the JAX ``_full_frame_runner_u8``: features from u8/255,
     edge pixels (u8 < 255) blacked out, alpha is the pre-overlay alpha."""
-    xt = torch.from_numpy(np.ascontiguousarray(x_u8)).to(device)
     f = xt.to(torch.float32) / 255.0
     rgb, alpha = f[..., 0:3], f[..., 3]
     if use_edge:
@@ -275,30 +276,156 @@ def full_frame_features(x_u8: np.ndarray, use_mask: bool, use_pos: bool,
     return torch.cat(feats, dim=-1)[None], alpha
 
 
+def full_frame_features(x_u8: np.ndarray, use_mask: bool, use_pos: bool,
+                        use_edge: bool, device: Union[str, torch.device]
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``frame_features`` of the host stack ``x_u8`` copied to ``device``."""
+    xt = torch.from_numpy(np.ascontiguousarray(x_u8)).to(device)
+    return frame_features(xt, use_mask, use_pos, use_edge)
+
+
+def quantise_rgba(out: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """The generator's (H, W, 3) output in [-1, 1] and the (H, W) alpha →
+    (H, W, 4) uint8 RGBA, quantized as ``write_image`` quantizes."""
+    rgb8 = (torch.clamp((out + 1.0) * 0.5, 0.0, 1.0) * 255.0
+            + 0.5).to(torch.uint8)
+    a8 = (alpha * 255.0 + 0.5).to(torch.uint8)
+    return torch.cat([rgb8, a8[..., None]], dim=-1)
+
+
+def frame_rgba(model: Generator, xt: torch.Tensor, use_mask: bool,
+               use_pos: bool, use_edge: bool) -> torch.Tensor:
+    """A served frame's device work: the (H, W, 7) uint8 stack on the
+    model's device → (H, W, 4) uint8 RGBA there (what a frame graph
+    holds)."""
+    x, alpha = frame_features(xt, use_mask, use_pos, use_edge)
+    return quantise_rgba(model(x)[0], alpha)
+
+
+# Graphs kept per model, the least recently served key dropped first: each
+# holds its frame's activations in a private pool of the caching allocator.
+GRAPHS_PER_MODEL = 2
+# Frames of a key served eagerly before its graph is captured. They build
+# what must live outside a graph's pool: the RIC extension, the RIC tables,
+# the libraries' handles and the kernels' attributes.
+EAGER_FRAMES = 2
+
+
+class _FrameGraph:
+    """One key's served frame as a CUDA graph: a static uint8 stack on the
+    card, the captured ``frame_rgba`` and its static RGBA. ``launched``:
+    the counters the capture moved (the kernels' launch counters), which
+    each replay adds again; ``tables``: the RIC tables the graph reads, held
+    after ``generator_j``'s cache lets them go."""
+
+    def __init__(self) -> None:
+        self.eager = 0
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.x: Optional[torch.Tensor] = None
+        self.out: Optional[torch.Tensor] = None
+        self.launched: collections.Counter = collections.Counter()
+        self.tables: List[torch.Tensor] = []
+
+    def upload(self, x_u8: np.ndarray, device: torch.device) -> None:
+        xt = torch.from_numpy(np.ascontiguousarray(x_u8))
+        if self.x is None:
+            self.x = xt.to(device)
+        else:
+            self.x.copy_(xt)
+
+    def capture(self, model: Generator, flags: Tuple[bool, bool, bool]
+                ) -> None:
+        before = profiling.counters()
+        graph = torch.cuda.CUDAGraph()
+        with tables_read() as tables, torch.cuda.graph(graph):
+            out = frame_rgba(model, self.x, *flags)
+        # a capture launches nothing: its counts move to the replays
+        self.launched = profiling.counters() - before
+        for name, n in self.launched.items():
+            profiling.count(name, -n)
+        self.graph, self.out, self.tables = graph, out, tables
+        profiling.count("serve.graph.capture")
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for name, n in self.launched.items():
+            profiling.count(name, n)
+        profiling.count("serve.graph.replay")
+
+
+_GRAPHS: "weakref.WeakKeyDictionary[Generator, collections.OrderedDict]" = \
+    weakref.WeakKeyDictionary()
+
+
+def _frame_graph(model: Generator, x_u8: np.ndarray,
+                 flags: Tuple[bool, bool, bool], device: torch.device
+                 ) -> Optional[_FrameGraph]:
+    """The frame's graph, None where the frame runs eagerly: a model off
+    CUDA or in training mode, and a key's first ``EAGER_FRAMES`` frames.
+    The key: every parameter's and buffer's address (a replaced tensor
+    needs a new capture; one changed in place is read by the replay), the
+    stack's shape and dtype, the feature flags, the compute dtype and the
+    device; the model itself is held weakly."""
+    if device.type != "cuda" or model.training:
+        return None
+    key = (tuple(t.data_ptr() for t in itertools.chain(
+               model.parameters(), model.buffers())),
+           x_u8.shape, x_u8.dtype.str, flags, model.dtype, device)
+    graphs = _GRAPHS.setdefault(model, collections.OrderedDict())
+    fg = graphs.get(key)
+    if fg is None:
+        fg = graphs[key] = _FrameGraph()
+        if len(graphs) > GRAPHS_PER_MODEL:
+            graphs.popitem(last=False)
+    graphs.move_to_end(key)
+    if fg.eager < EAGER_FRAMES:
+        fg.eager += 1
+        return None
+    return fg
+
+
 def generate_full_rgba(model: Generator, x_u8: np.ndarray, use_mask: bool,
                        use_pos: bool, use_edge: bool) -> np.ndarray:
     """Stylize one full frame: the (H, W, 7) uint8 source stack →
     (H, W, 4) uint8 RGBA, quantized as ``write_image`` quantizes.
 
+    On CUDA with the model in eval mode, a key's frames after its first
+    ``EAGER_FRAMES`` replay one CUDA graph of ``frame_rgba``, captured at
+    the first of them (``_frame_graph``; a failed capture raises). A
+    replay runs the code as it was at the capture: a Python attribute or
+    function changed later is not seen. Elsewhere the frame runs eagerly.
+
     Spans: ``serve.frame`` (the frame's unit, the whole call) around
-    ``serve.upload`` (``full_frame_features``: the host-to-card copy and
-    the features), ``serve.forward`` (``model(x)``, the host's enqueueing
-    of it), ``serve.quantise`` and ``serve.readback`` (the host's wait for
-    the card, then the copy back)."""
+    ``serve.upload`` (the host-to-card copy: eagerly with the features,
+    else into the graph's static stack), ``serve.forward`` (eagerly
+    ``model(x)``, the host's enqueueing of it; else the replay, and the
+    capture before its first), eagerly ``serve.quantise``, and
+    ``serve.readback`` (the host's wait for the card, then the copy back).
+    Counters: ``serve.eager``, ``serve.graph.capture`` and
+    ``serve.graph.replay`` a frame; a replay also adds the launch counts
+    its capture saw."""
     with profiling.span("serve.frame"), torch.no_grad():
         device = next(model.parameters()).device
+        flags = (use_mask, use_pos, use_edge)
+        fg = _frame_graph(model, x_u8, flags, device)
+        if fg is None:
+            profiling.count("serve.eager")
+            with profiling.span("serve.upload"):
+                x, alpha = full_frame_features(x_u8, *flags, device)
+            with profiling.span("serve.forward"):
+                out = model(x)[0]
+            with profiling.span("serve.quantise"):
+                rgba = quantise_rgba(out, alpha)
+            with profiling.span("serve.readback"):
+                return rgba.cpu().numpy()
         with profiling.span("serve.upload"):
-            x, alpha = full_frame_features(x_u8, use_mask, use_pos,
-                                           use_edge, device)
+            fg.upload(x_u8, device)
         with profiling.span("serve.forward"):
-            out = model(x)[0]
-        with profiling.span("serve.quantise"):
-            rgb8 = (torch.clamp((out + 1.0) * 0.5, 0.0, 1.0) * 255.0
-                    + 0.5).to(torch.uint8)
-            a8 = (alpha * 255.0 + 0.5).to(torch.uint8)
-            rgba = torch.cat([rgb8, a8[..., None]], dim=-1)
+            if fg.graph is None:
+                fg.capture(model, flags)
+            fg.replay()
         with profiling.span("serve.readback"):
-            return rgba.cpu().numpy()
+            return fg.out.cpu().numpy()
 
 
 def checkpoint_path(log_dir: str, step: int) -> str:
