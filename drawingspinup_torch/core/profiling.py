@@ -15,8 +15,14 @@
   process (``UNIT_SPANS``; the outermost such span opens it), so that the
   spans the autograd engine opens on its own threads take the step that
   called ``backward``. With no profiler recording, none of this is built.
+- ``span(name, device=True)`` also times the card: while a profiler
+  records and CUDA is in use, it records a CUDA event pair on the current
+  stream around the block, resolved by ``device_times()`` (after a
+  synchronise) into the card's seconds by the record's id. Otherwise it
+  costs what any span costs.
 - ``count(name, n=1)``: integer counters, always on (``counters``).
-- ``reset()`` clears the aggregates, the counters and the store.
+- ``reset()`` clears the aggregates, the counters, the store and the
+  events.
 """
 from __future__ import annotations
 
@@ -25,14 +31,14 @@ import contextlib
 import itertools
 import threading
 import time
-from typing import Dict, Iterator, List, NamedTuple, Optional
+from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
 
 RING = 1024                 # durations kept per span name
 MAX_RECORDS = 1_000_000     # the store's cap; later records are counted
 DROPPED = "profiling.dropped_spans"
-UNIT_SPANS = frozenset({"serve.frame", "gan.step"})
+UNIT_SPANS = frozenset({"serve.frame", "gan.step", "mv.uid"})
 
 
 class SpanRecord(NamedTuple):
@@ -72,6 +78,7 @@ _LOCK = threading.Lock()
 _STATS: Dict[str, _Stat] = {}
 _COUNTERS: Dict[str, int] = {}
 _RECORDS: List[SpanRecord] = []
+_EVENTS: List[Tuple[int, object, object]] = []   # (record id, start, end)
 _IDS = itertools.count(1)
 _THREAD = threading.local()     # .stack: ids of the recorded spans open
 _UNIT: Optional[int] = None     # the unit open in the process
@@ -82,12 +89,22 @@ def _sync() -> None:
         torch.cuda.synchronize()
 
 
+def _event():
+    """A timing event recorded on the current CUDA stream, or None where
+    CUDA is not in use."""
+    if not (torch.cuda.is_available() and torch.cuda.is_initialized()):
+        return None
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
 class _Open:
     """A recorded span while it is open: its range and its place."""
     __slots__ = ("rf", "id", "parent", "unit", "opens_unit", "stack",
-                 "start_ns")
+                 "start_ns", "first")
 
-    def __init__(self, name: str) -> None:
+    def __init__(self, name: str, device: bool) -> None:
         global _UNIT
         # the range's own start is read early in its (first time slow)
         # enter: the store's start is read just before it
@@ -104,9 +121,11 @@ class _Open:
             _UNIT = self.id
         self.unit = _UNIT
         self.stack.append(self.id)
+        self.first = _event() if device else None
 
     def close(self, name: str) -> None:
         global _UNIT
+        last = _event() if self.first is not None else None
         end_ns = time.time_ns()
         self.stack.pop()
         if self.opens_unit:
@@ -115,22 +134,24 @@ class _Open:
                          self.unit, threading.get_ident())
         if len(_RECORDS) < MAX_RECORDS:
             _RECORDS.append(rec)
+            if last is not None:
+                _EVENTS.append((self.id, self.first, last))
         else:
             count(DROPPED)
         self.rf.__exit__(None, None, None)
 
 
 class _Span:
-    __slots__ = ("name", "sync", "t0", "open")
+    __slots__ = ("name", "sync", "device", "t0", "open")
 
-    def __init__(self, name: str, sync: bool) -> None:
-        self.name, self.sync = name, sync
+    def __init__(self, name: str, sync: bool, device: bool) -> None:
+        self.name, self.sync, self.device = name, sync, device
 
     def __enter__(self) -> "_Span":
         if self.sync:
             _sync()
-        self.open = _Open(self.name) if torch.autograd._profiler_enabled() \
-            else None
+        self.open = _Open(self.name, self.device) \
+            if torch.autograd._profiler_enabled() else None
         self.t0 = time.perf_counter()
         return self
 
@@ -147,12 +168,14 @@ class _Span:
             st.add(dt)
 
 
-def span(name: str, sync: bool = False) -> _Span:
+def span(name: str, sync: bool = False, device: bool = False) -> _Span:
     """Time a block under ``name``; ``sync=True`` waits for the card's
     queued work before and after, so that the time covers the device's
     execution of what the block enqueued. Under a recording profiler the
-    block is also a ``record_function`` range and a ``SpanRecord``."""
-    return _Span(name, sync)
+    block is also a ``record_function`` range and a ``SpanRecord``, and
+    with ``device=True`` a pair of CUDA events around the block's work on
+    the current stream (``device_times``)."""
+    return _Span(name, sync, device)
 
 
 def count(name: str, n: int = 1) -> None:
@@ -172,12 +195,20 @@ def spans() -> List[SpanRecord]:
     return list(_RECORDS)
 
 
+def device_times() -> Dict[int, float]:
+    """{record id: seconds on the card} of every device-timed span in the
+    store: the time between its two events. Synchronises the card first."""
+    _sync()
+    return {i: a.elapsed_time(b) * 1e-3 for i, a, b in list(_EVENTS)}
+
+
 def reset() -> None:
-    """Clear the aggregates, the counters and the store."""
+    """Clear the aggregates, the counters, the store and its events."""
     with _LOCK:
         _STATS.clear()
         _COUNTERS.clear()
         _RECORDS.clear()
+        _EVENTS.clear()
 
 
 def timings() -> Dict[str, Dict[str, float]]:

@@ -25,6 +25,10 @@ group holds some rows of the global batch. The folds that mix rows gather
 the keys and values of every rank and keep their own queries; each query
 row then attends over the rows its fold names by their global index, as
 the one-rank path folds them. Everything else is per row.
+
+Tracing (``core/profiling.py``): each core is a device-timed ``mv.attn``
+span; each attention call counts its kind, ``mv.attn.views``,
+``mv.attn.domains``, ``mv.attn.cross`` (``mv.attn.self`` without a fold).
 """
 from __future__ import annotations
 
@@ -35,7 +39,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from drawingspinup_torch.core import profiling
 from drawingspinup_torch.parallel import mesh
+
+# the counter of each kind of attention call
+_COUNTERS = {"views": "mv.attn.views", "views_sparse": "mv.attn.views",
+             "domains": "mv.attn.domains", "cross": "mv.attn.cross",
+             None: "mv.attn.self"}
 
 
 @dataclasses.dataclass
@@ -110,17 +120,19 @@ class GroupNorm(nn.GroupNorm):
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    heads: int) -> torch.Tensor:
     """(B, Sq, C) × (B, Sk, C) → (B, Sq, C) multi-head attention, scale
-    1/sqrt(C/heads), computed in f32 (float64 stays float64)."""
-    dt = q.dtype
-    wide = torch.float64 if dt == torch.float64 else torch.float32
-    b, sq, c = q.shape
-    sk = k.shape[1]
-    d = c // heads
-    q = q.reshape(b, sq, heads, d).transpose(1, 2).to(wide)
-    k = k.reshape(b, sk, heads, d).transpose(1, 2).to(wide)
-    v = v.reshape(b, sk, heads, d).transpose(1, 2).to(wide)
-    out = F.scaled_dot_product_attention(q, k, v)
-    return out.transpose(1, 2).reshape(b, sq, c).to(dt)
+    1/sqrt(C/heads), computed in f32 (float64 stays float64); the span
+    ``mv.attn``, timed on the card under a profiler."""
+    with profiling.span("mv.attn", device=True):
+        dt = q.dtype
+        wide = torch.float64 if dt == torch.float64 else torch.float32
+        b, sq, c = q.shape
+        sk = k.shape[1]
+        d = c // heads
+        q = q.reshape(b, sq, heads, d).transpose(1, 2).to(wide)
+        k = k.reshape(b, sk, heads, d).transpose(1, 2).to(wide)
+        v = v.reshape(b, sk, heads, d).transpose(1, 2).to(wide)
+        out = F.scaled_dot_product_attention(q, k, v)
+        return out.transpose(1, 2).reshape(b, sq, c).to(dt)
 
 
 class Attention(nn.Module):
@@ -144,6 +156,8 @@ class Attention(nn.Module):
         """kv_fold: None | 'views' | 'views_sparse' | 'domains'. split:
         this rank's rows of a split batch; a fold then attends over the
         keys and values its rows name, gathered from the group."""
+        profiling.count(_COUNTERS["cross" if context is not None
+                                  else kv_fold])
         ctx = x if context is None else context
         q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
         bv, s, c = q.shape

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from drawingspinup_torch.core import profiling
 from drawingspinup_torch.models.attention_mv import (
     GroupNorm, RowSplit, TransformerMV2D,
 )
@@ -192,7 +193,9 @@ class UNetMV2D(nn.Module):
         encoder_hidden_states (B, S, cross_dim) CLIP tokens; class_labels
         (B, proj_dim) camera ⊕ task sincos embeddings. All in one dtype.
         split: this rank's rows of a batch split over ranks (the B rows
-        are its own); the transformer blocks' folds gather over it."""
+        are its own); the transformer blocks' folds gather over it.
+        Counted as ``mv.unet.call``."""
+        profiling.count("mv.unet.call")
         c = self.cfg
         min_hw = 1 << (len(c.block_out_channels) - 1)
         if sample.shape[2] < min_hw or sample.shape[3] < min_hw:

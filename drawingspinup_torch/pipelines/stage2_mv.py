@@ -18,6 +18,12 @@ f32, and the decode, upscale and u8 quantisation. On the host: the masks
 noise per step) come from an explicit ``torch.Generator`` or are handed in
 (``noises``), as the parity tests hand in JAX's.
 
+``MVPipeline.images_u8`` is the unit of work: a drawing on the device to
+its 12 u8 images on the host, traced as the span ``mv.uid`` ⊃
+``mv.encode``, ``mv.step`` (one a DDIM step) and ``mv.decode``
+(``core/profiling.py``); ``generate_uid`` wraps it in the reads, the masks
+and the PNG writes.
+
 Under torchrun with W > 1 ranks the denoise loop splits its batch rows over
 the first ``dp`` ranks, ``dp`` the largest divisor of the 2·Nv images that
 is at most W (JAX's ``_mv_batch_sharding``; ``batch_split``): each holds the
@@ -53,7 +59,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from drawingspinup_torch.core import weights_policy
+from drawingspinup_torch.core import profiling, weights_policy
 from drawingspinup_torch.core.contract import VIEWS, UidPaths
 from drawingspinup_torch.core.io import read_image, write_image
 from drawingspinup_torch.models.attention_mv import (
@@ -323,17 +329,18 @@ class MVPipeline:
 
         latents = draw(0)
         for i in range(len(ts)):
-            lat_in = latents.to(cdt)
-            if do_cfg:
-                lat_in = torch.cat([lat_in, lat_in])
-            eps = unet(torch.cat([lat_in, cond_c], dim=1), t_dev[i],
-                       embeds_c, cam_c, split=split).to(self.dtype)
-            if do_cfg:
-                uncond, cond_eps = eps.chunk(2)
-                eps = uncond + guidance * (cond_eps - uncond)
-            latents = D.ddim_step(cfg.ddim, self.acp, eps, int(ts[i]),
-                                  int(ts_prev[i]), latents, eta=cfg.eta,
-                                  noise=draw(i + 1))
+            with profiling.span("mv.step"):
+                lat_in = latents.to(cdt)
+                if do_cfg:
+                    lat_in = torch.cat([lat_in, lat_in])
+                eps = unet(torch.cat([lat_in, cond_c], dim=1), t_dev[i],
+                           embeds_c, cam_c, split=split).to(self.dtype)
+                if do_cfg:
+                    uncond, cond_eps = eps.chunk(2)
+                    eps = uncond + guidance * (cond_eps - uncond)
+                latents = D.ddim_step(cfg.ddim, self.acp, eps, int(ts[i]),
+                                      int(ts_prev[i]), latents, eta=cfg.eta,
+                                      noise=draw(i + 1))
         if split is not None:
             latents = mesh.all_gather_rows(latents, split.group)
         return latents
@@ -351,6 +358,31 @@ class MVPipeline:
         out = self.cfg.out_size
         img = torch.clamp(resize(self.decode(latents), (out, out)), 0.0, 1.0)
         return torch.clamp(img * 255.0 + 0.5, 0, 255).to(torch.uint8)
+
+    def images_u8(self, image, views: Optional[List[str]] = None,
+                  generator: Optional[torch.Generator] = None,
+                  noises: Optional[Sequence[torch.Tensor]] = None
+                  ) -> Optional[torch.Tensor]:
+        """A drawing (H, W, 3) in [0, 1] on white → its (2·Nv, out_size,
+        out_size, 3) u8 images on the host, normals first: ``encode_image``
+        → ``denoise`` → ``decode_u8`` → ``.cpu()``, in the span ``mv.uid``
+        ⊃ ``mv.encode``, ``mv.step`` a DDIM step, ``mv.decode`` (encode and
+        decode wait for the card at both ends, so their spans time it).
+
+        In a process group the ranks of the split encode and denoise their
+        rows and rank 0 decodes; the other ranks return None."""
+        nv2 = 2 * len(views or VIEWS)
+        with profiling.span("mv.uid"):
+            latents = None
+            if batch_split(nv2, self.cfg.guidance_scale != 1.0)[0]:
+                with profiling.span("mv.encode", sync=True):
+                    embeds, cond = self.encode_image(image)
+                latents = self.denoise(embeds, cond, views, generator,
+                                       noises)
+            if not mesh.is_main():
+                return None
+            with profiling.span("mv.decode", sync=True):
+                return self.decode_u8(latents).cpu()
 
     def __call__(self, image, views: Optional[List[str]] = None,
                  generator: Optional[torch.Generator] = None,
@@ -496,8 +528,8 @@ def generate_uid(root: str, uid: str, pipe: MVPipeline,
                  noises: Optional[Sequence[torch.Tensor]] = None
                  ) -> List[str]:
     """The mv.py flow for one uid: read stage 1's output, sample with the
-    draws of ``seed`` (or ``noises``), write
-    ``mv/{normal,color,mask}/<view>.png`` at ``out_size``; the parts'
+    draws of ``seed`` (or ``noises``) through ``MVPipeline.images_u8``,
+    write ``mv/{normal,color,mask}/<view>.png`` at ``out_size``; the parts'
     seconds go to ``LAST_STATS`` (with ``dp``, the ranks of the split).
 
     In a process group every rank calls this alike: the ranks of the split
@@ -508,25 +540,21 @@ def generate_uid(root: str, uid: str, pipe: MVPipeline,
     nv = len(views)
     dev = pipe.device
     dp = mesh.mv_split(2 * nv, mesh.world_size())
-    t0 = t1 = t_enc = t2 = time.perf_counter()
-    latents = drawing_mask = None
+    t0 = t1 = time.perf_counter()
+    image = drawing_mask = None
     if batch_split(2 * nv, pipe.cfg.guidance_scale != 1.0)[0]:
         image, drawing_mask = load_input(paths, pipe.cfg.image_size, dev,
                                          save_name)
         _sync(dev)
         t1 = time.perf_counter()
-        embeds, cond = pipe.encode_image(image)
-        _sync(dev)
-        t_enc = time.perf_counter()
-        generator = torch.Generator(device=dev).manual_seed(int(seed))
-        latents = pipe.denoise(embeds, cond, views, generator, noises)
-        _sync(dev)
-        t2 = time.perf_counter()
+    generator = torch.Generator(device=dev).manual_seed(int(seed))
+    u8 = pipe.images_u8(image, views, generator, noises)
 
-    def decode_and_write() -> List[str]:
-        u8 = pipe.decode_u8(latents).cpu().numpy()
-        normals_u8, colors_u8 = u8[:nv], u8[nv:]
+    def masks_and_write() -> List[str]:
         t3 = time.perf_counter()
+        last = {k: st["last_s"] for k, st in profiling.timings().items()}
+        u8_np = u8.numpy()
+        normals_u8, colors_u8 = u8_np[:nv], u8_np[nv:]
         masks = derive_masks(uid, colors_u8.astype(np.float32) / 255.0,
                              normals_u8.astype(np.float32) / 255.0,
                              drawing_mask, views, device=dev)
@@ -541,13 +569,15 @@ def generate_uid(root: str, uid: str, pipe: MVPipeline,
                 written.append(p)
         t5 = time.perf_counter()
         LAST_STATS.clear()
-        LAST_STATS.update({"read_s": t1 - t0, "encode_s": t_enc - t1,
-                           "denoise_s": t2 - t_enc, "decode_u8_s": t3 - t2,
+        LAST_STATS.update({"read_s": t1 - t0, "encode_s": last["mv.encode"],
+                           "denoise_s": t3 - t1 - last["mv.encode"]
+                           - last["mv.decode"],
+                           "decode_u8_s": last["mv.decode"],
                            "masks_s": t4 - t3, "write_s": t5 - t4,
                            "dp": dp})
         return written
 
-    return mesh.on_main(decode_and_write)
+    return mesh.on_main(masks_and_write)
 
 
 def load_pretrained(cfg: MVPipelineConfig, ckpt_dir: str,

@@ -2,9 +2,10 @@
 thread and take the process's unit; with no profiler recording they only
 add to their aggregates; under ``torch.profiler`` each is a
 ``user_annotation`` range of the Chrome trace on the store's clock; the
-counters; and the spans of frame serving and of the GAN step where the
-work happens. The card-marked test holds the RIC kernels' spans and launch
-counters on CUDA. No JAX here, so that the card runs this file too."""
+counters; a device-timed span's event pair; and the spans of frame serving
+and of the GAN step where the work happens. The card-marked tests hold the
+RIC kernels' spans and launch counters, and a device-timed span's time, on
+CUDA. No JAX here, so that the card runs this file too."""
 import contextlib
 import json
 import threading
@@ -166,6 +167,42 @@ def test_counters_reset_and_the_store_cap(monkeypatch):
     assert profiling.timings() == {}
 
 
+def test_device_timed_span_only_under_a_profiler(monkeypatch):
+    """``span(name, device=True)`` makes an event pair only while a
+    profiler records (a stand-in clock here, as this host has no card), and
+    ``device_times`` resolves it by the record's id; with none it makes no
+    event and no record, and the record keeps its fields."""
+    class Clock:
+        made = 0
+
+        def __init__(self):
+            Clock.made += 1
+            self.at = Clock.made
+
+        def elapsed_time(self, end):
+            return 2.0 * (end.at - self.at)        # ms
+
+    monkeypatch.setattr(profiling, "_event", Clock)
+    with profiling.span("mv.attn", device=True):
+        pass
+    assert Clock.made == 0 and profiling.spans() == []
+    assert profiling.device_times() == {}
+    assert profiling.timings()["mv.attn"]["count"] == 1
+    with _recording():
+        with profiling.span("mv.attn", device=True):
+            with profiling.span("inner"):
+                pass
+    assert Clock.made == 2
+    r = {rec.name: rec for rec in profiling.spans()}
+    assert profiling.device_times() == {r["mv.attn"].id: 2e-3}
+    assert r["inner"].parent == r["mv.attn"].id
+    assert profiling.SpanRecord._fields == ("name", "start_ns", "end_ns",
+                                            "id", "parent", "unit",
+                                            "thread")
+    profiling.reset()
+    assert profiling.device_times() == {}
+
+
 def _frame(size, seed):
     rng = np.random.default_rng(seed)
     return rng.integers(0, 256, (size, size, 7), dtype=np.uint8)
@@ -282,3 +319,21 @@ def test_ric_spans_and_launches_on_the_card():
     assert c["ric.fwd.launch"] == len(by["ric.fwd"]) == 22
     assert c["ric.bwd.launch"] == len(by["ric.bwd"]) == 21
 
+
+
+@pytest.mark.cuda
+def test_device_timed_span_on_the_card():
+    """On CUDA a device-timed span around a matmul reads the card's time:
+    positive, and within the profiler's own record of the kernel's time
+    plus launch gaps (under 10 ms for a 2048² product)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    a = torch.randn((2048, 2048), device="cuda")
+    a @ a
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        with profiling.span("mv.attn", device=True):
+            a @ a
+    (rec,) = profiling.spans()
+    t = profiling.device_times()[rec.id]
+    assert 0 < t < 10e-3
