@@ -30,8 +30,8 @@ Phases:
 
   1. versions, and the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels (RIC conv forward and backward, hash-grid encode
-     and table gradient, row gather, pixel rays) and the native library,
-     with the build times;
+     and table gradient, row gather, pixel rays, stage-2a attention) and
+     the native library, with the build times;
   3. forward kernel (3xTF32 implicit GEMM) against its plain PyTorch twin
      at the 8 RIC layer shapes of a 512² GeneratorJ_RIC forward: max
      |kernel − plain| ≤ 1e-4 · max |plain|, within relative L2 1e-5 of the
@@ -165,8 +165,24 @@ Phases:
      loaded through DSU_ISNET_CKPT, as the mv pipeline loads them) on the
      uid's four side views of 1024^2: f32 within relative L2 1e-4 of
      float64 on the card, the u8 masks differing from float64's on < 0.1 %
-     of pixels, ms per view. Phases 14-16 launch none of the hand-written
-     kernels;
+     of pixels, ms per view. Phases 14 and 15 launch none of the
+     hand-written kernels; phase 16's bf16 UNet launches the attention
+     kernel of 16a;
+ 16a. stage 2a's attention core (``kernels/csrc/mv_attention.cu``, the
+     bf16 flash kernel) at every core shape of one bf16 UNet call of the
+     yaml's pipeline (views, domains and cross folds at head dims 40, 80
+     and 160; ``benchmark/mv_work.py``'s list): within 2 bf16 ulps of
+     max |v| of the plain version (f32 SDPA on the upcast tensors;
+     ``output_ulps`` says why 2) and within relative L2 1e-2 over the
+     whole output (``output_rel_l2`` says why); per shape
+     and summed over a uid's 75 steps the kernel's ms and device ms, the
+     plain version's, the library's (SDPA on the same bf16 tensors, the
+     backend it picked named) and the bound (its FLOPs at the bf16 peak
+     or its bytes, the larger); then one uid through
+     ``MVPipeline.images_u8`` under torch.profiler: ``mv.attn.launch``
+     equals the views, domains and cross counters and the kernels traced
+     (3600), and the uid runs no fused attention kernel of PyTorch's
+     beyond CLIP's encode's own;
  17. the sweep: two uids made from phase 15's drawings (the mv contract
      filled by the sphere fixture, since seeded Wonder3D weights give no
      usable views; a rig per uid; the second uid on the thinning list)
@@ -357,6 +373,8 @@ MV_SEED = SEED + 500
 MV_REL_L2 = 1e-4        # the f32 UNet call vs float64 (stage 1's bound)
 MV_SAME_STEPS = 6       # the bit-identity check's denoise loop
 MV_OUT = 1024
+MV_ATTN_ULPS = 2        # phase 16a: kernel vs plain, bf16 ulps of max |v|
+MV_ATTN_REL_L2 = 1e-2   # phase 16a: kernel vs plain, relative L2 (both held)
 ISNET_REL_L2 = 1e-4     # phase 16: ISNet f32 vs float64 (stage 1's bound)
 # phase 13: the export chains at mc256 (JAX's dispatch: device-smooth, or
 # the level chain under DSU_DEVICE_SMOOTH=0, band-sparse at R >= 256)
@@ -455,6 +473,10 @@ GATHER_SOURCE = "drawingspinup_torch/kernels/csrc/row_gather.cu"
 GATHER_REPLACES = "scripts/bench_pallas_gather.py:76"
 PIXEL_SOURCE = "drawingspinup_torch/kernels/csrc/pixel_rays.cu"
 PIXEL_REPLACES = GATHER_REPLACES    # the rowdma gather, at the recon step
+MV_ATTN_SOURCE = "drawingspinup_torch/kernels/csrc/mv_attention.cu"
+MV_ATTN_REPLACES = ("none: the JAX package's attention core is "
+                    "jax.nn.dot_product_attention on f32 "
+                    "(drawingspinup_tpu/models/attention_mv.py)")
 RAY_ULPS = 2            # phase 10: rays vs the twin, ulps of their terms
 TRAIN_BATCHES = (100, 20)   # --max-batches of stage 1 and stage 2
 BATCH = 40
@@ -497,6 +519,7 @@ TIMED = ("ms, plain_ms, library_ms: CUDA events around each call, the host's "
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12           # f32 outside the tensor cores
 TF32_FLOPS = 495e12         # TF32 on the tensor cores
+BF16_FLOPS = 989.4e12       # bf16 on the tensor cores
 
 
 def bound_ms(nbytes: float, flops: float, peak: float):
@@ -669,7 +692,8 @@ def phase_build() -> None:
     t1 = time.time()
     native.build()
     report(f"[2] built the CUDA kernels (RIC conv forward and backward, "
-           f"hash-grid encode and table gradient, row gather, pixel rays) "
+           f"hash-grid encode and table gradient, row gather, pixel rays, "
+           f"stage-2a attention) "
            f"in {t1 - t0:.1f} s into {_build.BUILD_DIR}, the native mesh "
            f"library "
            f"in {time.time() - t1:.1f} s into {native.BUILD_DIR}")
@@ -2891,6 +2915,173 @@ def phase_isnet(root: str, device) -> None:
            f"network's forward {fwd_ms:.2f} ms (CUDA events)")
 
 
+
+def sdpa_backend(q, k, v) -> str:
+    """The backend ``F.scaled_dot_product_attention`` picks for these
+    (B, heads, S, d) tensors (PyTorch's own dispatch rule)."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    return SDPBackend(torch._fused_sdp_choice(q, k, v)).name
+
+
+def attention_kernel_counts(fn) -> tuple:
+    """(launches of the hand-written attention kernel, of PyTorch's fused
+    attention kernels (names with fmha or flash)) over one call of
+    ``fn``, from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ours = lib = 0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.key.lower()
+        ours += e.count if "mv_attention_kernel" in name else 0
+        lib += e.count if "fmha" in name or "flash" in name else 0
+    return ours, lib
+
+
+def phase_mv_attention(device, reps: int = 10) -> dict:
+    """Stage 2a's attention core (``kernels/mv_attention.py``, the bf16
+    flash kernel) at the main path's shapes: every core of one bf16 UNet
+    call against the plain version (f32 SDPA on the upcast tensors) within
+    ``MV_ATTN_ULPS`` bf16 ulps of max |v| (``output_ulps``) and
+    ``MV_ATTN_REL_L2`` over the whole output (``output_rel_l2``), the cores
+    those of ``benchmark/mv_work.py``'s list; per shape the
+    kernel's, the plain version's and the library's times (SDPA on the same
+    bf16 tensors, with the backend it picked named) beside the bound; then
+    one uid through ``MVPipeline.images_u8``: ``mv.attn.launch`` equals the
+    views, domains and cross counters (3600 at 75 steps), the profiler
+    sees the kernel that many times, and no fused attention kernel of
+    PyTorch's beyond CLIP's own."""
+    import torch
+    import torch.nn.functional as F
+
+    from benchmark import mv_work
+    from drawingspinup_torch.core import profiling
+    from drawingspinup_torch.kernels import mv_attention as mk
+    from drawingspinup_torch.pipelines import stage2_mv as mv
+
+    cfg = mv.MVPipelineConfig()
+    pipe = mv.MVPipeline.init_random(cfg, MV_SEED, device)
+    # {(B, Sq, Sk, C): calls a UNet forward}: the list the card tests take,
+    # which a CPU test holds to the UNet's own calls at the yaml's config
+    cores: dict = {}
+    with open(os.path.join(REPO, "benchmark", "configs",
+                           "wonder3d_mv.json")) as f:
+        for a in mv_work.attention_cores(json.load(f)):
+            key = (a.b, a.sq, a.sk, a.c)
+            cores[key] = cores.get(key, 0) + 1
+    steps = cfg.num_inference_steps
+    heads = cfg.unet.attention_heads
+    rows, g = [], torch.Generator(device=device).manual_seed(MV_SEED + 4)
+    for (b, sq, sk, c), calls in sorted(cores.items()):
+        q = (2 * torch.randn((b, sq, c), generator=g, device=device)
+             ).bfloat16()
+        k = torch.randn((b, sk, c), generator=g, device=device).bfloat16()
+        v = torch.randn((b, sk, c), generator=g, device=device).bfloat16()
+        got = mk.mv_attention(q, k, v, heads)
+        want = mk.attention_reference(q, k, v, heads)
+        ulps = mk.output_ulps(got, want, v, heads)
+        rel = mk.output_rel_l2(got, want)
+        check(ulps <= MV_ATTN_ULPS and rel <= MV_ATTN_REL_L2,
+              f"[16a] mv_attention at {(b, sq, sk, c)}: {ulps} ulps "
+              f"(limit {MV_ATTN_ULPS}), relative L2 {rel:.3e} (limit "
+              f"{MV_ATTN_REL_L2:g}) from the plain version")
+        d = c // heads
+
+        def split(t, s):
+            return t.view(b, s, heads, d).transpose(1, 2)
+
+        qh, kh, vh = split(q, sq), split(k, sk), split(v, sk)
+
+        def library():
+            F.scaled_dot_product_attention(qh, kh, vh)
+
+        flops = 4.0 * b * sq * sk * c
+        nbytes = 2.0 * b * c * 2 * (sq + sk)
+        bound, by = bound_ms(nbytes, flops, BF16_FLOPS)
+        rows.append({
+            "shape": [b, sq, sk, c], "calls_per_uid": calls * steps,
+            "ulps": ulps, "rel_l2": rel,
+            "ms": cuda_ms(lambda: mk.mv_attention(q, k, v, heads), reps),
+            "device_ms": device_ms(lambda: mk.mv_attention(q, k, v, heads),
+                                   reps),
+            "plain_ms": cuda_ms(
+                lambda: mk.attention_reference(q, k, v, heads), reps),
+            "library_ms": cuda_ms(library, reps),
+            "library_device_ms": device_ms(library, reps),
+            "library_backend": sdpa_backend(qh, kh, vh),
+            "bound_ms": bound, "bound_by": by, "tflops": 0.0})
+        rows[-1]["tflops"] = flops / rows[-1]["device_ms"] / 1e9
+
+    def per_uid(key: str) -> float:
+        """ms a uid: each core's ms times its calls a uid."""
+        return sum(r["calls_per_uid"] * r[key] for r in rows)
+
+    # one uid: the counters and the profiler's kernels
+    h = w = cfg.image_size
+    yy, xx = np.mgrid[:h, :w]
+    blob = ((yy - h / 2) ** 2 + (xx - w / 2) ** 2 < (0.3 * h) ** 2)
+    rgb = np.random.default_rng(MV_SEED).uniform(0.2, 0.8, (h, w, 3))
+    drawing = torch.from_numpy(np.where(blob[..., None], rgb, 1.0)
+                               .astype(np.float32)).to(device)
+    gen = torch.Generator(device=device).manual_seed(MV_SEED + 5)
+    pipe.images_u8(drawing, generator=gen)          # warm
+    torch.cuda.synchronize()
+    _, clip_lib = attention_kernel_counts(lambda: pipe.encode_image(drawing))
+    before = profiling.counters()
+    ours, lib = attention_kernel_counts(
+        lambda: pipe.images_u8(drawing, generator=gen))
+    after = profiling.counters()
+
+    def moved(name: str) -> int:
+        return after.get(name, 0) - before.get(name, 0)
+
+    folds = sum(moved(f"mv.attn.{k}") for k in ("views", "domains",
+                                                  "cross", "self"))
+    cores_per_uid = sum(cores.values()) * steps
+    check(moved(mk.LAUNCHES) == folds == cores_per_uid == ours,
+          f"[16a] one uid: {moved(mk.LAUNCHES)} mv.attn.launch, {folds} "
+          f"attention calls, {ours} kernels in the profiler, "
+          f"{cores_per_uid} cores expected")
+    check(lib == clip_lib,
+          f"[16a] one uid ran {lib} fused attention kernels of PyTorch's, "
+          f"CLIP's encode alone {clip_lib}: the UNet reached SDPA")
+    lines = "; ".join(
+        f"{tuple(r['shape'])} x{r['calls_per_uid']}: {r['ms']:.3f} ms "
+        f"({r['device_ms']:.3f} device, {r['tflops']:.0f} TFLOP/s), plain "
+        f"{r['plain_ms']:.3f}, SDPA bf16 {r['library_ms']:.3f} "
+        f"({r['library_backend']}), "
+        f"bound {r['bound_ms']:.4f} ({r['bound_by']}), {r['ulps']} ulps, "
+        f"relative L2 {r['rel_l2']:.3e}"
+        for r in rows)
+    report(f"[16a] stage 2a attention core, bf16 flash kernel against the "
+           f"plain version (f32 SDPA) within {MV_ATTN_ULPS:g} ulps and "
+           f"relative L2 {MV_ATTN_REL_L2:g} at every core of a bf16 UNet "
+           f"call (B, Sq, Sk, C; {heads} heads; the list of "
+           f"benchmark/mv_work.py): "
+           f"{lines}; ms a uid ({steps} steps): kernel {per_uid('ms'):.1f} "
+           f"({per_uid('device_ms'):.1f} device), plain "
+           f"{per_uid('plain_ms'):.1f}, SDPA bf16 {per_uid('library_ms'):.1f}"
+           f" ({per_uid('library_device_ms'):.1f} device), bound "
+           f"{per_uid('bound_ms'):.1f}; one uid: mv.attn.launch "
+           f"{moved(mk.LAUNCHES)} = views + domains + cross {folds} = "
+           f"kernels traced {ours}; fused attention kernels of PyTorch's "
+           f"{lib} (CLIP's encode alone: {clip_lib})")
+    return {"rows": rows, "launches": moved(mk.LAUNCHES),
+            "ms": per_uid("ms"), "device_ms": per_uid("device_ms"),
+            "plain_ms": per_uid("plain_ms"),
+            "library_ms": per_uid("library_ms"),
+            "library_device_ms": per_uid("library_device_ms"),
+            "bound_ms": per_uid("bound_ms"),
+            "max_ulps": max(r["ulps"] for r in rows)}
+
+
 def phase_sweep(root: str, device) -> dict:
     """Two uids through ``run_sweep`` with ``cli/sweep.py``'s stage
     functions, drawing to GIF; returns the kernel launches of that run and
@@ -3862,7 +4053,8 @@ def phase_dp_sweep(root: str, device, tmp: str) -> dict:
                 + (RIC_PER_FRAME * n_frames if r == 0 else 0),
                 "ric_conv_bwd": BWD_PER_STEP * TRAIN_BATCHES[0],
                 "hashgrid_fwd": 2 * steps + (evals or 0),
-                "hashgrid_bwd": steps, "pixel_rays": steps, "row_gather": 0}
+                "hashgrid_bwd": steps, "pixel_rays": steps, "row_gather": 0,
+                "mv_attention": 0}
         check(o["recon_steps"] == steps and (r or evals)
               and o["launches"] == want,
               f"[20c] rank {r} launches {o['launches']}, expected {want} "
@@ -4584,7 +4776,8 @@ def launch_counts() -> dict:
             + c["hashgrid.fwd_jac.launch"],
             "hashgrid_bwd": c["hashgrid.bwd.launch"],
             "pixel_rays": c["pixel_rays.launch"],
-            "row_gather": c["row_gather.launch"]}
+            "row_gather": c["row_gather.launch"],
+            "mv_attention": c["mv.attn.launch"]}
 
 
 def judge_golden_bounds(report_: dict, what: str) -> None:
@@ -4834,14 +5027,16 @@ def phase_golden(root: str, device) -> dict:
 def kernels_line(per_shape, serving_launches, train_shapes, fwd_launches,
                  bwd_launches, hg_uniform, hg_rays, gather, gather_main,
                  pixel, recon_launches, sweep_launches, dp_launches,
-                 bf16_launches, tail_launches, golden_launches) -> dict:
+                 bf16_launches, tail_launches, golden_launches,
+                 mv_attn) -> dict:
     """The ``kernels`` JSON object from the phases' results: per kernel its
     launches on the main paths (``launches``: the stage-3 training path for
     the RIC kernels, the recon CLI for the rest; ``launches_sweep``: phase
     17's sweep of two uids; ``launches_dp_ranks``: each rank's in phase
     20's sweep over two ranks; ``launches_bf16``: phase 22's bf16 stage-1
     steps; ``launches_recon_tail``: phase 21's overlapped run of two uids;
-    ``launches_golden``: phase 24's toy golden flow on the card),
+    ``launches_golden``: phase 24's toy golden flow on the card; the
+    stage-2a attention kernel's ``launches``: phase 16a's uid),
     error, times, bound and yardstick; the hash
     grid's at the production step on its own ray-ordered points, the
     uniform points' beside; the row gather, which the recon step no longer
@@ -5011,6 +5206,19 @@ def kernels_line(per_shape, serving_launches, train_shapes, fwd_launches,
         "library_ms_main_path": gather_main["library_ms"],
         "library_device_ms_main_path": gather_main["library_device_ms"],
         "bound_ms_main_path": gather_main["bound_ms"],
+    }, {
+        "name": "mv_attention", "route": "cuda", "source": MV_ATTN_SOURCE,
+        "replaces": MV_ATTN_REPLACES, "launches": mv_attn["launches"],
+        "max_ulps": mv_attn["max_ulps"], "ms": mv_attn["ms"],
+        "plain_ms": mv_attn["plain_ms"], "bound_ms": mv_attn["bound_ms"],
+        "bound_by": "operations", "library_ms": mv_attn["library_ms"],
+        "timed": "ms a uid: every core of one bf16 UNet call at "
+                 "batch 12, times its calls a uid (75 steps), phase 16a "
+                 "medians; plain: f32 SDPA on the upcast tensors; library: "
+                 f"SDPA on the same bf16 tensors; {TIMED}",
+        "device_ms": mv_attn["device_ms"],
+        "library_device_ms": mv_attn["library_device_ms"],
+        "shapes": mv_attn["rows"],
     }]}
     for k in line["kernels"]:
         k["launches_sweep"] = sweep_launches[k["name"]]
@@ -5068,6 +5276,7 @@ def main() -> int:
         timed("15", phase_stage1, root, device)
         timed("16", phase_mv, root, device)
         timed("16i", phase_isnet, root, device)
+        mv_attn = timed("16a", phase_mv_attention, device)
         sweep_run = timed("17", phase_sweep, root, device)
         timed("18", phase_lama_train, root, device)
         timed("19", phase_lama_regular, root, device)
@@ -5085,7 +5294,8 @@ def main() -> int:
         per_shape, serving_launches, train_shapes, fwd_launches, bwd_launches,
         hg_uniform, hg_rays, gather, gather_main, pixel, recon_launches,
         sweep_run["launches"], dp_run["sweep"]["launches"],
-        bf16_run["launches"], tail_run["launches"], golden_launches)))
+        bf16_run["launches"], tail_run["launches"], golden_launches,
+        mv_attn)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -16,7 +16,7 @@ SOURCES = (_CSRC / "bindings.cpp", _CSRC / "ric_conv_fwd_gemm.cu",
            _CSRC / "ric_conv_bwd.cu", _CSRC / "ric_conv_bwd_gemm.cu",
            _CSRC / "hashgrid_fwd.cu",
            _CSRC / "hashgrid_bwd.cu", _CSRC / "row_gather.cu",
-           _CSRC / "pixel_rays.cu")
+           _CSRC / "pixel_rays.cu", _CSRC / "mv_attention.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
 _lock = threading.Lock()

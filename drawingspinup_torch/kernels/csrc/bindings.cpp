@@ -1,7 +1,8 @@
 // Python binding of the CUDA kernels' plain C interface.
 //
 // Pointers and the stream arrive as integers from the Python wrappers
-// (drawingspinup_torch/kernels/ric_conv.py, hashgrid.py, pixel_rays.py),
+// (drawingspinup_torch/kernels/ric_conv.py, hashgrid.py, pixel_rays.py,
+// mv_attention.py),
 // which check device, dtype, shape and contiguity and allocate the outputs
 // first. The binding uses no ATen API, so it includes pybind11 alone
 // (shipped with torch's headers); the full torch/extension.h would add
@@ -59,6 +60,13 @@ extern "C" int pixel_rays_launch(const long long* vi, const long long* yi,
                                  int V, int H, int W, const float* pixels,
                                  float* rays_o, float* rays_d, float* px,
                                  float* vw, void* stream);
+extern "C" int mv_attention_launch(const void* q, const void* k,
+                                   const void* v, void* out, long long q_bs,
+                                   long long q_rs, long long k_bs,
+                                   long long k_rs, long long v_bs,
+                                   long long v_rs, long long o_bs,
+                                   long long o_rs, int b, int sq, int sk,
+                                   int heads, int d, void* stream);
 
 namespace {
 
@@ -161,6 +169,17 @@ int pixel_rays(std::uintptr_t vi, std::uintptr_t yi, std::uintptr_t xi,
                            ptr<void>(stream));
 }
 
+int mv_attention(std::uintptr_t q, std::uintptr_t k, std::uintptr_t v,
+                 std::uintptr_t out, long long q_bs, long long q_rs,
+                 long long k_bs, long long k_rs, long long v_bs,
+                 long long v_rs, long long o_bs, long long o_rs, int b,
+                 int sq, int sk, int heads, int d, std::uintptr_t stream) {
+  return mv_attention_launch(ptr<const void>(q), ptr<const void>(k),
+                             ptr<const void>(v), ptr<void>(out), q_bs, q_rs,
+                             k_bs, k_rs, v_bs, v_rs, o_bs, o_rs, b, sq, sk,
+                             heads, d, ptr<void>(stream));
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -194,6 +213,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("pixel_rays", &pixel_rays,
         "Launch the fused pixel-ray kernel (rays, target rows and view "
         "weights of one NSR step); returns the cudaError_t code.");
+  m.def("mv_attention", &mv_attention,
+        "Launch the stage-2a attention core (bf16 flash attention over "
+        "strided q, k, v); returns the cudaError_t code.");
   m.def("error_string",
         [](int err) { return std::string(ric_conv_error_string(err)); },
         "cudaGetErrorString of a launch's return code.");

@@ -15,10 +15,14 @@ Wonder3D's ``mvdiffusion/models/transformer_mv2d.py``).
 Tokens are (B, S, C). The folds are reshapes: the views of a group, or the
 two halves, are stacked along the sequence, so one self-attention over the
 folded sequence is exactly each query attending over the shared keys. The
-attention core is ``F.scaled_dot_product_attention`` on f32 q/k/v, cast
-back to the compute dtype, as JAX's ``_attention`` upcasts. Parameter
-names are diffusers' (``to_q``, ``to_out.0``, ``ff.net.0.proj``, …), so a
-Wonder3D checkpoint loads strictly.
+attention core is ``kernels/mv_attention.py::attention``: on bf16 CUDA
+tensors the hand-written flash kernel (f32 softmax and accumulators, P
+rounded to bf16), which reads q, k and v where the projections and folds
+leave them; on the CPU, and for f32 and float64, the plain version,
+``F.scaled_dot_product_attention`` on f32 (or float64) q/k/v cast back, as
+JAX's ``_attention`` upcasts. Parameter names are diffusers' (``to_q``,
+``to_out.0``, ``ff.net.0.proj``, …), so a Wonder3D checkpoint loads
+strictly.
 
 Split batch (``RowSplit``, JAX's ``_mv_batch_sharding``): each rank of a
 group holds some rows of the global batch. The folds that mix rows gather
@@ -40,6 +44,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from drawingspinup_torch.core import profiling
+from drawingspinup_torch.kernels import mv_attention
 from drawingspinup_torch.parallel import mesh
 
 # the counter of each kind of attention call
@@ -120,19 +125,11 @@ class GroupNorm(nn.GroupNorm):
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    heads: int) -> torch.Tensor:
     """(B, Sq, C) × (B, Sk, C) → (B, Sq, C) multi-head attention, scale
-    1/sqrt(C/heads), computed in f32 (float64 stays float64); the span
+    1/sqrt(C/heads) (``kernels/mv_attention.py::attention``: the kernel on
+    bf16 CUDA tensors, else the plain version in f32 or float64); the span
     ``mv.attn``, timed on the card under a profiler."""
     with profiling.span("mv.attn", device=True):
-        dt = q.dtype
-        wide = torch.float64 if dt == torch.float64 else torch.float32
-        b, sq, c = q.shape
-        sk = k.shape[1]
-        d = c // heads
-        q = q.reshape(b, sq, heads, d).transpose(1, 2).to(wide)
-        k = k.reshape(b, sk, heads, d).transpose(1, 2).to(wide)
-        v = v.reshape(b, sk, heads, d).transpose(1, 2).to(wide)
-        out = F.scaled_dot_product_attention(q, k, v)
-        return out.transpose(1, 2).reshape(b, sq, c).to(dt)
+        return mv_attention.attention(q, k, v, heads)
 
 
 class Attention(nn.Module):
