@@ -144,10 +144,10 @@ Phases:
      the reflect pads' one path: ms per drawing at batch 8, device busy
      and launches per forward with models/ffc.py's reflect_pad2d and with
      PyTorch's reflection pad in its place, in one call; then the CLI on
-     24 drawings at batch 8 in the overlapped order (batch k+1's forward
-     enqueued before batch k's Telea) and with --serial, twice each in
-     turns: the PNGs byte-equal, both walls, and the host seconds of
-     threshold + Telea + PNG write per drawing inside the CLI;
+     24 drawings at batch 8 (batch k+1's forward enqueued before batch k's
+     Telea), twice: the PNGs byte-equal, both walls (``stage1.predict``),
+     and the host seconds of threshold + Telea + PNG write per drawing
+     inside the CLI (``stage1.post``);
  16. stage 2a: the mv CLI at full width (UNet 320/640/1280/1280 with joint
      mid attention, SD VAE, CLIP ViT-L/14; 256² input, 12 images of 32²
      latents, 75 DDIM steps in bf16, eta 1, 1024² output), seeded weights,
@@ -346,6 +346,11 @@ import time
 
 import numpy as np
 
+from benchmark.work import (
+    F32_FLOPS, HBM_BYTES_PER_S, RIC_SHAPES, TF32_FLOPS, TRAIN_SHAPES,
+    bound_ms, ric_bounds, ric_bwd_work, ric_fwd_work,
+)
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 FRAME = 512
@@ -430,7 +435,7 @@ TP_GRAD_FLOOR = 1e-5            # (b): the floor of test_torch_lama.py's rule
 # (the plain f32 distance the larger of its two row orders, the factor
 # 1.25 or the plain step's own spread between them, if larger)
 TP_STAT_TOL = 1e-5              # (b): running statistics vs float64
-# phase 15: the overlapped order against --serial
+# phase 15: the predict CLI's overlapped order, twice
 OVERLAP_DRAWINGS = 24
 OVERLAP_BATCH = 8
 # phase 24: the toy golden flow, judged at tests/test_goldens.py's bounds
@@ -481,31 +486,8 @@ RAY_ULPS = 2            # phase 10: rays vs the twin, ulps of their terms
 TRAIN_BATCHES = (100, 20)   # --max-batches of stage 1 and stage 2
 BATCH = 40
 
-# (H = W, C, O, launches per 512² GeneratorJ_RIC forward)
-RIC_SHAPES = (
-    (512, 6, 32, 1),        # conv0
-    (256, 32, 64, 1),       # conv1
-    (128, 64, 128, 1),      # conv2
-    (128, 128, 128, 14),    # res{0..6}_conv{0,1}
-    (256, 256, 128, 1),     # upconv2
-    (512, 192, 128, 1),     # upconv1
-    (512, 166, 64, 1),      # conv_11
-    (512, 64, 64, 1),       # smooth1
-)
 RIC_PER_FRAME = sum(s[3] for s in RIC_SHAPES)
 
-# (H = W, C, O, forward launches, backward launches) per training step on
-# 40 × 32² patches: conv0 needs no dx; smooth0 runs forward only
-TRAIN_SHAPES = (
-    (32, 6, 32, 1, 1),      # conv0
-    (16, 32, 64, 1, 1),     # conv1
-    (8, 64, 128, 1, 1),     # conv2
-    (8, 128, 128, 14, 14),  # res{0..6}_conv{0,1}
-    (16, 256, 128, 1, 1),   # upconv2
-    (32, 192, 128, 1, 1),   # upconv1
-    (32, 166, 64, 1, 1),    # conv_11
-    (32, 64, 64, 2, 1),     # smooth0, smooth1
-)
 FWD_PER_STEP = sum(s[3] for s in TRAIN_SHAPES)
 BWD_PER_STEP = sum(s[4] for s in TRAIN_SHAPES)
 
@@ -515,37 +497,9 @@ TIMED = ("ms, plain_ms, library_ms: CUDA events around each call, the host's "
          "enqueueing included; device_ms: the kernel's calls queued behind a "
          "sleep kernel, the device's work alone")
 
-# an H100 SXM's published peaks (NVIDIA's data sheet, dense): the bounds
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12           # f32 outside the tensor cores
-TF32_FLOPS = 495e12         # TF32 on the tensor cores
+# an H100 SXM's published bf16 peak (NVIDIA's data sheet, dense); the other
+# peaks and the bounds are benchmark/work.py's
 BF16_FLOPS = 989.4e12       # bf16 on the tensor cores
-
-
-def bound_ms(nbytes: float, flops: float, peak: float):
-    """(least ms for ``nbytes`` of device memory traffic and ``flops`` at
-    ``peak`` FLOP/s, "bytes" or "operations": which of the two sets it)."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
-def ric_fwd_work(n: int, hw: int, c: int, o: int):
-    """(bytes, FLOPs) of one RIC conv forward: x, wk, swf read and the
-    output written once; the channel products, 2·9·C·O per pixel (the
-    tap sampling's ≤ 73·min(C, O) multiply-adds per pixel left out)."""
-    px = n * hw * hw
-    return 4 * (px * (c + o) + 9 * c * o + 81 * hw * hw), 2 * 9 * c * o * px
-
-
-def ric_bwd_work(n: int, hw: int, c: int, o: int, need_dx: bool):
-    """(bytes, FLOPs) of one RIC conv backward: x, g, wk, swf read and dx
-    (if needed) and dwk written once; the two products, 2·9·C·O FLOPs per
-    pixel each (the sampling of dz, 73·O multiply-adds, left out)."""
-    px = n * hw * hw
-    nbytes = 4 * (px * (c + o + (c if need_dx else 0)) + 2 * 9 * c * o
-                  + 81 * hw * hw)
-    return nbytes, 2 * 9 * c * o * px * (2 if need_dx else 1)
 
 
 def report(msg: str) -> None:
@@ -602,14 +556,6 @@ def device_ms(fn, reps: int, warmup: int = 2) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
-
-
-def ric_bounds(nbytes: float, flops: float):
-    """(bound ms, what sets it, bound ms at f32 outside the tensor cores)
-    of RIC conv work of ``nbytes`` and ``flops`` f32 FLOPs: the card's
-    fastest f32-accurate products are 3xTF32, three TF32 products each."""
-    ms, by = bound_ms(nbytes, 3 * flops, TF32_FLOPS)
-    return ms, by, bound_ms(nbytes, flops, F32_FLOPS)[0]
 
 
 def rna_tf32(t):
@@ -1264,37 +1210,17 @@ def phase_training(root: str, device):
 
 def profile_step(cfg, state, batch, steps: int = 5) -> None:
     """Where one training step's device time goes (torch.profiler)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     from drawingspinup_torch.train import gan
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        for _ in range(steps):
-            gan.train_step_on_batch(cfg, state, batch)
-        torch.cuda.synchronize()
-        wall = 1e3 * (time.time() - t0) / steps
-    # kernels only: a user annotation (the optimizer's step range) spans
-    # kernels that are counted already
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.is_user_annotation]
-    total = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    total, launches, wall, kernels = kernel_profile(
+        lambda: gan.train_step_on_batch(cfg, state, batch), steps)
     if total <= 0:
         report("[8] profile: the profiler saw no device time (not measured)")
         return
-    kernels.sort(key=lambda e: -e.self_device_time_total)
-    top = "; ".join(
-        f"{e.key[:48]} {e.self_device_time_total / 1e3 / steps:.3f} ms "
-        f"x{e.count // steps}" for e in kernels[:8])
-    launches = sum(e.count for e in kernels) / steps
     report(f"[8] profile of {steps} kernel-path steps: device busy {total:.2f}"
            f" ms of {wall:.2f} ms wall per step ({total / wall:.1%}, the "
            f"profiler's overhead included), {launches:.0f} kernel launches per"
-           f" step; by kernel, per step: {top}")
+           f" step; by kernel, per step: {top_kernels(kernels, steps)}")
 
 
 def phase_step_vs_plain(root: str, device) -> None:
@@ -1889,33 +1815,53 @@ def phase_recon(root: str, device):
     from drawingspinup_torch.core import profiling
     from drawingspinup_torch.core.io import read_obj
     from drawingspinup_torch.pipelines import stage2_recon
+    from drawingspinup_torch.train import nsr
     from drawingspinup_torch.utils.synthetic import write_sphere_mv
 
     paths = write_sphere_mv(root, RECON_UID, size=RECON_SIZE)
     cfg = recon_config()
     steps = cfg.max_steps
+    # the NSR step's losses at the CLI's logged steps (every 100th), kept
+    # on the card until the run ends
+    losses, train_step = [], nsr.train_step
+
+    def logged(*args, **kwargs):
+        out = train_step(*args, **kwargs)
+        losses.append([out[k].detach().clone() for k in
+                       ("loss", "loss_mask", "inv_s")]
+                      if len(losses) % 100 == 0 else None)
+        return out
+
     zero_launches()
+    nsr.train_step = logged
     t0 = time.time()
-    recon.main(["--uid", RECON_UID, "--root", root, "--device", str(device),
-                *RECON_OVERRIDES])
-    torch.cuda.synchronize()
+    try:
+        recon.main(["--uid", RECON_UID, "--root", root, "--device",
+                    str(device), *RECON_OVERRIDES])
+        torch.cuda.synchronize()
+    finally:
+        nsr.train_step = train_step
     wall = time.time() - t0
+    log = [(i, *(float(v) for v in row)) for i, row in enumerate(losses)
+           if row is not None]
+    t = profiling.timings()
+    bands = [(n, 1e3 * sec / (end - first)) for (n, first, end), sec in zip(
+        stage2_recon.band_phases(cfg.sdf.grid, 0, steps),
+        profiling.samples("recon.band"))]
     c = profiling.counters()
     enc, enc_jac = c["hashgrid.fwd.launch"], c["hashgrid.fwd_jac.launch"]
     grad, rays = c["hashgrid.bwd.launch"], c["pixel_rays.launch"]
     gather = c["row_gather.launch"]
     launches = {"hashgrid_fwd": enc + enc_jac, "hashgrid_bwd": grad,
                 "row_gather": gather, "pixel_rays": rays}
-    stats = stage2_recon.LAST_STATS
-    evals = stats["export"]["field_evals"]
-    check(enc_jac == steps and grad == steps and enc == steps + evals
-          and rays == steps and gather == 0,
-          f"recon launches: encode {enc}, with jacobian {enc_jac}, table "
-          f"gradient {grad}, pixel rays {rays}, row gather {gather}; "
-          f"expected "
+    evals = c["export.field_eval"]
+    check(c["recon.step"] == steps and enc_jac == steps and grad == steps
+          and enc == steps + evals and rays == steps and gather == 0,
+          f"recon launches: {c['recon.step']} steps, encode {enc}, with "
+          f"jacobian {enc_jac}, table gradient {grad}, pixel rays {rays}, "
+          f"row gather {gather}; expected "
           f"{steps} + {evals} export evaluations, {steps}, {steps}, {steps}, "
           f"0")
-    log = stats["log"]
     check(all(math.isfinite(v) for row in log for v in row[1:]),
           f"non-finite recon log: {log}")
     check(log[-1][1] < log[0][1] and log[-1][3] > log[0][3],
@@ -1931,7 +1877,6 @@ def phase_recon(root: str, device):
           and abs(radius - want) / want < 0.35,
           f"{name}: {len(v)} vertices, {len(f)} faces, median radius "
           f"{radius:.4f} (sphere {want:.4f})")
-    ex = stats["export"]
     report(f"[11] recon CLI, {steps} steps on six {RECON_SIZE}^2 views: "
            f"launches per step: 1 encode, 1 encode with jacobian, 1 table "
            f"gradient, 1 pixel rays, no row gather (+{evals} export "
@@ -1939,13 +1884,14 @@ def phase_recon(root: str, device):
            f"{log[0][1]:.4f} (step {log[0][0]}) -> {log[-1][1]:.4f} (step "
            f"{log[-1][0]}), inv_s {log[0][3]:.1f} -> {log[-1][3]:.1f}; ms per"
            f" step (host synchronised, first step included) "
-           + ", ".join(f"{k} levels {ms:.2f}"
-                      for k, ms in stats["phase_ms"].items())
+           + ", ".join(f"{k} levels {ms:.2f}" for k, ms in bands)
            + f"; export s: " + ", ".join(
-              f"{k} {ex[k]:.2f}" for k in ("bbox", "band_eval", "smooth_pack",
-                                          "march", "remesh", "save"))
-           + f"; data+hull {stats['data_s']:.2f} s, checkpoint "
-           f"{stats['ckpt_s']:.2f} s, CLI wall {wall:.1f} s; {name}: "
+              f"{k} {t['export.' + k]['last_s']:.2f}"
+              for k in ("bbox", "band_eval", "smooth_pack", "march",
+                        "remesh", "save"))
+           + f"; data+hull {t['recon.data']['last_s']:.2f} s, checkpoint "
+           f"{t['recon.ckpt']['last_s']:.2f} s, CLI wall {wall:.1f} s; "
+           f"{name}: "
            f"{len(v)} vertices, {len(f)} faces, median radius {radius:.4f} "
            f"(sphere {want:.4f})")
     return launches
@@ -1974,26 +1920,11 @@ def profile_nsr_step(run, label: str, steps: int = 5):
     """Where one NSR step's device time goes (torch.profiler), and the hash
     grid kernels' share of it; returns (device busy ms, kernel launches)
     per step, or None when the profiler saw no device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        for _ in range(steps):
-            run()
-        torch.cuda.synchronize()
-        wall = 1e3 * (time.time() - t0) / steps
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.is_user_annotation]
-    total = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    total, launches, wall, kernels = kernel_profile(run, steps)
     if total <= 0:
         report(f"[12] profile ({label}): the profiler saw no device time "
                f"(not measured)")
         return None
-    kernels.sort(key=lambda e: -e.self_device_time_total)
     hg = sum(e.self_device_time_total for e in kernels
              if "hashgrid" in e.key) / 1e3 / steps
     parts = {}
@@ -2004,17 +1935,13 @@ def profile_nsr_step(run, label: str, steps: int = 5):
             parts[m.group(0)] = (t + e.self_device_time_total, n + e.count)
     hg_parts = ", ".join(f"{k} {t / 1e3 / steps:.4f} ms x{n // steps}"
                          for k, (t, n) in parts.items())
-    top = "; ".join(
-        f"{e.key[:48]} {e.self_device_time_total / 1e3 / steps:.3f} ms "
-        f"x{e.count // steps}" for e in kernels[:8])
-    launches = sum(e.count for e in kernels) / steps
     report(f"[12] profile of {steps} production steps (bf16, {label}): "
            f"device busy {total:.2f} ms of {wall:.2f} ms wall per step "
            f"({total / wall:.1%}, the profiler's overhead included), "
            f"hash-grid kernels {hg:.3f} ms ({hg / total:.1%} of device time: "
            f"{hg_parts}), "
            f"{launches:.0f} kernel launches per step; by kernel, per step: "
-           f"{top}")
+           f"{top_kernels(kernels, steps)}")
     return total, launches
 
 
@@ -2230,36 +2157,52 @@ def export_chains(cfg, params, front, device) -> None:
     with its device and host seconds."""
     import torch
 
+    from drawingspinup_torch.core import profiling
     from drawingspinup_torch.pipelines import stage2_export as ex
+
+    def parts(run):
+        """run() and the seconds of each export.* span it closed."""
+        before = {k: st["count"] for k, st in profiling.timings().items()}
+        out = run()
+        return out, {k[len("export."):]: st["last_s"]
+                     for k, st in profiling.timings().items()
+                     if k.startswith("export.")
+                     and st["count"] > before.get(k, 0)}
+
+    def export():
+        out = ex.export_field(cfg, params, CHAIN_MC, cfg.max_steps, device,
+                              front)
+        return out["chain"], ex.export_host(out, CHAIN_MC, front,
+                                            RECON_FACES)
 
     device_parts = ("bbox", "band_eval", "smooth_pack", "grid_eval")
     host_parts = ("carve_smooth", "march", "remesh")
-    rows = []
+    rows, chains = [], []
     old = os.environ.get("DSU_DEVICE_SMOOTH")
     try:
         for label, env in (("device-smooth", "1"),
                            ("level (DSU_DEVICE_SMOOTH=0)", "0")):
             os.environ["DSU_DEVICE_SMOOTH"] = env
             torch.cuda.synchronize()
-            v, f, times = ex.export_mesh(cfg, params, CHAIN_MC,
-                                         cfg.max_steps, device, front,
-                                         RECON_FACES)
+            (chain, (v, f)), times = parts(export)
+            chains.append(chain)
             rows.append((label, v, f, times))
     finally:
         if old is None:
             os.environ.pop("DSU_DEVICE_SMOOTH", None)
         else:
             os.environ["DSU_DEVICE_SMOOTH"] = old
-    check(rows[0][3]["chain"] == "device_smooth"
-          and rows[1][3]["chain"] == "level",
-          f"export chains at mc{CHAIN_MC}: "
-          f"{[r[3]['chain'] for r in rows]}")
-    ev = ex.FieldEvaluator(cfg, params, cfg.max_steps, device)
-    times = {}
-    level, vmin, vmax = ex.isosurface_level(ev, CHAIN_MC, cfg.radius,
-                                            sparse=False, times=times)
-    v, f = ex.isosurface_from_level(level, vmin, vmax, CHAIN_MC, front,
-                                    RECON_FACES, times=times)
+    check(chains == ["device_smooth", "level"],
+          f"export chains at mc{CHAIN_MC}: {chains}")
+
+    def dense():
+        ev = ex.FieldEvaluator(cfg, params, cfg.max_steps, device)
+        level, vmin, vmax = ex.isosurface_level(ev, CHAIN_MC, cfg.radius,
+                                                sparse=False)
+        return ex.isosurface_from_level(level, vmin, vmax, CHAIN_MC, front,
+                                        RECON_FACES)
+
+    (v, f), times = parts(dense)
     rows.append(("level, dense grid", v, f, times))
     out = []
     for label, v, f, times in rows:
@@ -2574,36 +2517,38 @@ def phase_stage1(root: str, device) -> None:
 def phase_stage1_overlap(root: str, device, yaml: str, ckpt: str,
                          fwd_ms: float) -> None:
     """Phase 15's second part: the predict CLI on OVERLAP_DRAWINGS drawings
-    at batch OVERLAP_BATCH in the overlapped order (the default) and with
-    --serial, in turns (overlap, serial, serial, overlap), each on its own
-    copy of the drawings: every PNG byte-equal across the four runs; the
-    walls of ``predict_uids`` and its host seconds of threshold + Telea +
-    PNG write per drawing. ``fwd_ms``: ms of the forward per drawing at
-    batch DRAWINGS (CUDA events)."""
+    at batch OVERLAP_BATCH in two turns, each on its own copy of the
+    drawings: every PNG byte-equal across the turns; the walls of
+    ``predict_uids`` (``stage1.predict``) and its host seconds of threshold
+    + Telea + PNG write per drawing (``stage1.post``). ``fwd_ms``: ms of
+    the forward per drawing at batch DRAWINGS (CUDA events)."""
     from drawingspinup_torch.cli import predict
+    from drawingspinup_torch.core import profiling
     from drawingspinup_torch.core.contract import UidPaths
-    from drawingspinup_torch.pipelines import stage1
 
-    runs = {"overlap": [], "serial": []}
-    pngs = []
-    for turn, order in enumerate(("overlap", "serial", "serial", "overlap")):
-        sub = os.path.join(root, f"stage1_{order}_{turn}")
+    walls, post, pngs = [], [], []
+    for turn in range(2):
+        sub = os.path.join(root, f"stage1_overlap_{turn}")
         uids = write_drawings(sub, OVERLAP_DRAWINGS, DRAWING_SIZE,
                               SEED + 410)
         lst = os.path.join(sub, "uids.json")
         with open(lst, "w") as f:
             json.dump(uids, f)
+        drawn = profiling.counters()["stage1.drawing"]
+        post0 = profiling.total("stage1.post")
         with contextlib.redirect_stdout(sys.stderr):
             rc = predict.main([yaml, f"pretrained.path={ckpt}",
                                f"uid_json={lst}", "--root", sub,
                                "--device", str(device), "--batch-size",
                                str(OVERLAP_BATCH), "--size",
-                               str(DRAWING_SIZE)]
-                              + (["--serial"] if order == "serial" else []))
-        check(rc == 0, f"predict {order}: exit code {rc}")
-        check(stage1.LAST_STATS["drawings"] == OVERLAP_DRAWINGS,
-              f"predict {order}: {stage1.LAST_STATS}")
-        runs[order].append(dict(stage1.LAST_STATS))
+                               str(DRAWING_SIZE)])
+        check(rc == 0, f"predict turn {turn}: exit code {rc}")
+        drawn = profiling.counters()["stage1.drawing"] - drawn
+        check(drawn == OVERLAP_DRAWINGS,
+              f"predict turn {turn}: {drawn} drawings")
+        walls.append(profiling.timings()["stage1.predict"]["last_s"])
+        post.append((profiling.total("stage1.post") - post0)
+                    / OVERLAP_DRAWINGS)
         blobs = []
         for u in uids:
             with open(UidPaths(sub, u).inpainted, "rb") as f:
@@ -2612,27 +2557,18 @@ def phase_stage1_overlap(root: str, device, yaml: str, ckpt: str,
     differ = [i for i in range(OVERLAP_DRAWINGS)
               if len({run[i] for run in pngs}) != 1]
     check(not differ, f"stage 1 overlap: the PNGs of drawings {differ} "
-                      f"differ between the orders or the turns")
+                      f"differ between the turns")
     batches = -(-OVERLAP_DRAWINGS // OVERLAP_BATCH)
-    walls = {k: [r["wall_s"] for r in v] for k, v in runs.items()}
-    post = {k: [r["post_s"] / OVERLAP_DRAWINGS for r in v]
-            for k, v in runs.items()}
-    telea_batch = np.mean(post["serial"]) * OVERLAP_BATCH
+    telea_batch = np.mean(post) * OVERLAP_BATCH
     fwd_batch = fwd_ms / 1e3 * OVERLAP_BATCH
-    predicted = min(telea_batch, fwd_batch) * (batches - 1)
-    saved = np.mean(walls["serial"]) - np.mean(walls["overlap"])
     report(f"[15] stage 1 overlap: predict on {OVERLAP_DRAWINGS} drawings "
            f"of {DRAWING_SIZE}^2 at batch {OVERLAP_BATCH} ({batches} "
-           f"batches), turns overlap, serial, serial, overlap: every PNG "
-           f"byte-equal across the four runs; predict_uids wall overlapped "
-           f"{', '.join(f'{w:.3f}' for w in walls['overlap'])} s, serial "
-           f"{', '.join(f'{w:.3f}' for w in walls['serial'])} s (saved "
-           f"{saved:.3f} s; predicted min(Telea a batch {telea_batch:.3f} "
-           f"s, forward a batch {fwd_batch:.3f} s) x {batches - 1} = "
-           f"{predicted:.3f} s); threshold + Telea + PNG write host s per "
-           f"drawing overlapped "
-           f"{', '.join(f'{t:.4f}' for t in post['overlap'])}, serial "
-           f"{', '.join(f'{t:.4f}' for t in post['serial'])}")
+           f"batches), two turns: every PNG byte-equal across them; "
+           f"predict_uids wall {', '.join(f'{w:.3f}' for w in walls)} s "
+           f"(Telea a batch {telea_batch:.3f} s, forward a batch "
+           f"{fwd_batch:.3f} s: the overlap hides the smaller of the two "
+           f"for {batches - 1} batches); threshold + Telea + PNG write host "
+           f"s per drawing {', '.join(f'{t:.4f}' for t in post)}")
 
 
 def count_flops(model, *args) -> float:
@@ -2680,9 +2616,9 @@ def phase_mv(root: str, device) -> None:
     import dataclasses
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from drawingspinup_torch.cli import mv as cli_mv
+    from drawingspinup_torch.core import profiling
     from drawingspinup_torch.core.contract import VIEWS, UidPaths
     from drawingspinup_torch.core.io import read_image_u8
     from drawingspinup_torch.ops import diffusion as D
@@ -2710,7 +2646,12 @@ def phase_mv(root: str, device) -> None:
     finally:
         mv.MVPipeline.decode = decode
     wall = time.time() - t0
-    stats = dict(mv.LAST_STATS)
+    t = {k: st["last_s"] for k, st in profiling.timings().items()
+         if k.startswith("mv.")}
+    stats = {"read_s": t["mv.read"], "encode_s": t["mv.encode"],
+             "denoise_s": t["mv.uid"] - t["mv.encode"] - t["mv.decode"],
+             "decode_u8_s": t["mv.decode"], "masks_s": t["mv.masks"],
+             "write_s": t["mv.write"]}
     check(finite == [True], f"stage 2a: decoded images finite: {finite}")
     for kind in ("normal", "color", "mask"):
         for v in VIEWS:
@@ -2792,25 +2733,13 @@ def phase_mv(root: str, device) -> None:
                         pipe.unet, pipe.vae, pipe.clip)
     gen = torch.Generator(device=device).manual_seed(MV_SEED + 3)
     one.denoise(embeds, cond, views, gen)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        one.denoise(embeds, cond, views, gen)
-        torch.cuda.synchronize()
-        step_wall = 1e3 * (time.time() - t0)
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.is_user_annotation]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    launches = sum(e.count for e in kernels)
-    kernels.sort(key=lambda e: -e.self_device_time_total)
-    top = "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f} ms "
-                    f"x{e.count}" for e in kernels[:6])
+    busy, launches, step_wall, kernels = kernel_profile(
+        lambda: one.denoise(embeds, cond, views, gen), 1)
     step_note = (f"one denoise step under the profiler: device busy "
                  f"{busy:.2f} ms of {step_wall:.2f} ms wall "
                  f"({busy / step_wall:.1%}, the profiler's overhead "
-                 f"included), {launches} kernel launches; top: {top}"
+                 f"included), {launches:.0f} kernel launches; top: "
+                 f"{top_kernels(kernels, 1, 6)}"
                  if busy > 0 else "one denoise step: the profiler saw no "
                  "device time (not measured)")
     n_params = sum(p.numel() for p in pipe.unet.parameters())
@@ -3239,23 +3168,46 @@ def check_drawings(root: str, uids, what: str) -> None:
               f"from the input's")
 
 
-def device_profile(run, steps: int, logdir: str):
-    """(device busy ms, kernel launches) per call of ``run`` over
-    ``steps`` calls, from core/profiling.py's torch.profiler trace."""
+def kernel_profile(run, steps: int, logdir: str = None):
+    """``steps`` calls of ``run`` under torch.profiler (core/profiling.py's
+    trace, written to ``logdir`` where one is given) → (device busy ms,
+    kernel launches and wall ms, each a call, and the CUDA kernels' key
+    averages, the busiest first). Kernels only: a user annotation (a span,
+    an optimizer's step range) spans kernels counted already."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from drawingspinup_torch.core import profiling
 
     torch.cuda.synchronize()
-    with profiling.trace(logdir) as prof:
+    scope = profiling.trace(logdir) if logdir else profile(
+        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    with scope as prof:
+        t0 = time.time()
         for _ in range(steps):
             run()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.is_user_annotation]
+        wall = 1e3 * (time.time() - t0) / steps
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not e.is_user_annotation),
+                     key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
-    return busy, sum(e.count for e in kernels) / steps
+    return busy, sum(e.count for e in kernels) / steps, wall, kernels
+
+
+def top_kernels(kernels, steps: int, n: int = 8) -> str:
+    """The ``n`` busiest of ``kernel_profile``'s kernels: ms and launches
+    a call."""
+    return "; ".join(
+        f"{e.key[:48]} {e.self_device_time_total / 1e3 / steps:.3f} ms "
+        f"x{e.count // steps}" for e in kernels[:n])
+
+
+def device_profile(run, steps: int, logdir: str):
+    """(device busy ms, kernel launches) per call of ``run`` over
+    ``steps`` calls, from core/profiling.py's torch.profiler trace."""
+    return kernel_profile(run, steps, logdir)[:2]
 
 
 @contextlib.contextmanager
@@ -3764,7 +3716,8 @@ def dp_rank_sweep(root: str, device, rank: int, world: int) -> dict:
     import torch
 
     from drawingspinup_torch.cli import sweep as sweep_cli
-    from drawingspinup_torch.pipelines import stage2_recon, sweep
+    from drawingspinup_torch.core import profiling
+    from drawingspinup_torch.pipelines import sweep
     from drawingspinup_torch.train import gan, nsr
 
     dp_root = os.path.join(root, "dp")
@@ -3791,10 +3744,10 @@ def dp_rank_sweep(root: str, device, rank: int, world: int) -> dict:
                              {s: fns[s] for s in DP_SWEEP_STAGES})
     torch.cuda.synchronize()
     wall = time.time() - t0
-    stats = stage2_recon.LAST_STATS
+    c = profiling.counters()
     return {"result": result, "launches": launch_counts(),
-            "field_evals": stats.get("export", {}).get("field_evals"),
-            "recon_steps": stats["steps"], "wall": wall,
+            "field_evals": c["export.field_eval"],
+            "recon_steps": c["recon.step"], "wall": wall,
             "nsr": {n: host_copy(p)
                     for n, p in nsr.named_leaves(seen["train_step"].params)},
             "gan": gan_snapshot(seen["train_step_on_batch"]),

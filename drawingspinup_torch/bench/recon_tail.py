@@ -74,6 +74,7 @@ def run_turn(root: str, uids: Sequence[str], ycfg, cfg, device,
     {wall, step_ms, tail_s, hidden_s, futures, objs (bytes), paths}."""
     import torch
 
+    from drawingspinup_torch.core import profiling
     from drawingspinup_torch.pipelines import stage2_export, stage2_recon
     from drawingspinup_torch.render import mesh_post
 
@@ -99,14 +100,16 @@ def run_turn(root: str, uids: Sequence[str], ycfg, cfg, device,
         outs, step_ms, calls = [], [], []
         for uid in uids:
             tc = time.time()
+            steps0 = profiling.counters()["recon.step"]
             outs.append(stage2_recon.recon_uid(
                 root, uid, cfg, device=device, tail_executor=executor,
                 mc_resolution=mc, face_count=faces,
                 thinning=uid == uids[-1], seed=ycfg.get("seed", 123456),
                 im_size=im_size))
             calls.append((tc, time.time()))
-            st = stage2_recon.LAST_STATS
-            step_ms.append(1e3 * st["train_s"] / max(st["steps"], 1))
+            train = profiling.timings()["recon.train"]["last_s"]
+            steps = profiling.counters()["recon.step"] - steps0
+            step_ms.append(1e3 * train / max(steps, 1))
         paths = [o.result() if isinstance(o, Future) else o for o in outs]
         if cuda:
             torch.cuda.synchronize()

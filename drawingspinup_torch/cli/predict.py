@@ -2,12 +2,9 @@
 
 ``python -m drawingspinup_torch.cli.predict [config.yaml] [key=value ...]
 [--uid <uid>] [--root <root>] [--batch-size 8] [--size 512]
-[--device cuda|cpu] [--seed N] [--serial]``: the flags and config knobs of
+[--device cuda|cpu] [--seed N]``: the flags and config knobs of
 ``drawingspinup_tpu/cli/predict.py`` (``indir``, ``uid_json``,
-``generator.*``, ``pretrained.*``) plus ``--device``, ``--seed`` and
-``--serial`` (post-process each batch before the next forward is
-enqueued, instead of while it runs; the same PNGs, for timing the
-overlap).
+``generator.*``, ``pretrained.*``) plus ``--device`` and ``--seed``.
 
 The generator is ``generator.kind``'s: LaMa's FFC ResNet
 (``configs/lama-fourier.yaml``, the default) or pix2pixHD's
@@ -100,7 +97,6 @@ def main(argv=None) -> int:
     ap.add_argument("--size", type=int, default=512)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=None)
-    ap.add_argument("--serial", action="store_true")
     args = ap.parse_args(argv)
     device = device_setup.setup(args.device)
 
@@ -112,7 +108,7 @@ def main(argv=None) -> int:
                  cfg.get("seed", 0) if args.seed is None else args.seed)
     written = stage1.predict_uids(root, uids, model.to(device),
                                   batch_size=min(args.batch_size, len(uids)),
-                                  size=args.size, overlap=not args.serial)
+                                  size=args.size)
     print(json.dumps({"written": written}))
     return 0
 

@@ -11,10 +11,11 @@
   ``SpanRecord`` to an in-memory store (``spans``) with its start and end
   on the trace's clock: ``time.time_ns()``, which the exported trace's
   ``ts`` (µs) plus its ``baseTimeNanoseconds`` reads. A record's parent is
-  the span open on its thread; its unit is the frame or step open in the
-  process (``UNIT_SPANS``; the outermost such span opens it), so that the
-  spans the autograd engine opens on its own threads take the step that
-  called ``backward``. With no profiler recording, none of this is built.
+  the span open on its thread; its unit is the frame, step or uid open in
+  the process (a span its caller opened with ``unit=True``; the outermost
+  such span opens it), so that the spans the autograd engine opens on its
+  own threads take the step that called ``backward``. With no profiler
+  recording, none of this is built.
 - ``span(name, device=True)`` also times the card: while a profiler
   records and CUDA is in use, it records a CUDA event pair on the current
   stream around the block, resolved by ``device_times()`` (after a
@@ -38,13 +39,12 @@ import torch
 RING = 1024                 # durations kept per span name
 MAX_RECORDS = 1_000_000     # the store's cap; later records are counted
 DROPPED = "profiling.dropped_spans"
-UNIT_SPANS = frozenset({"serve.frame", "gan.step", "mv.uid"})
 
 
 class SpanRecord(NamedTuple):
     """One span recorded under a profiler: start and end in ns since the
     epoch (the trace's clock), its id, the id of the span open on its
-    thread when it opened, and the id of the unit (the ``UNIT_SPANS`` span)
+    thread when it opened, and the id of the unit (the ``unit=True`` span)
     open in the process, None where there was none."""
     name: str
     start_ns: int
@@ -104,7 +104,7 @@ class _Open:
     __slots__ = ("rf", "id", "parent", "unit", "opens_unit", "stack",
                  "start_ns", "first")
 
-    def __init__(self, name: str, device: bool) -> None:
+    def __init__(self, name: str, device: bool, unit: bool) -> None:
         global _UNIT
         # the range's own start is read early in its (first time slow)
         # enter: the store's start is read just before it
@@ -116,7 +116,7 @@ class _Open:
             self.stack = _THREAD.stack = []
         self.id = next(_IDS)
         self.parent = self.stack[-1] if self.stack else None
-        self.opens_unit = name in UNIT_SPANS and _UNIT is None
+        self.opens_unit = unit and _UNIT is None
         if self.opens_unit:
             _UNIT = self.id
         self.unit = _UNIT
@@ -142,15 +142,17 @@ class _Open:
 
 
 class _Span:
-    __slots__ = ("name", "sync", "device", "t0", "open")
+    __slots__ = ("name", "sync", "device", "unit", "t0", "open")
 
-    def __init__(self, name: str, sync: bool, device: bool) -> None:
+    def __init__(self, name: str, sync: bool, device: bool,
+                 unit: bool) -> None:
         self.name, self.sync, self.device = name, sync, device
+        self.unit = unit
 
     def __enter__(self) -> "_Span":
         if self.sync:
             _sync()
-        self.open = _Open(self.name, self.device) \
+        self.open = _Open(self.name, self.device, self.unit) \
             if torch.autograd._profiler_enabled() else None
         self.t0 = time.perf_counter()
         return self
@@ -168,14 +170,16 @@ class _Span:
             st.add(dt)
 
 
-def span(name: str, sync: bool = False, device: bool = False) -> _Span:
+def span(name: str, sync: bool = False, device: bool = False,
+         unit: bool = False) -> _Span:
     """Time a block under ``name``; ``sync=True`` waits for the card's
     queued work before and after, so that the time covers the device's
     execution of what the block enqueued. Under a recording profiler the
-    block is also a ``record_function`` range and a ``SpanRecord``, and
-    with ``device=True`` a pair of CUDA events around the block's work on
-    the current stream (``device_times``)."""
-    return _Span(name, sync, device)
+    block is also a ``record_function`` range and a ``SpanRecord``, with
+    ``device=True`` a pair of CUDA events around the block's work on the
+    current stream (``device_times``), and with ``unit=True`` the
+    process's unit (a frame, a step, a uid) when none is open."""
+    return _Span(name, sync, device, unit)
 
 
 def count(name: str, n: int = 1) -> None:

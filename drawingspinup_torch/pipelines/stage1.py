@@ -19,12 +19,12 @@ and is not needed here.
 from __future__ import annotations
 
 import os
-import time
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from drawingspinup_torch.core import profiling
 from drawingspinup_torch.core.config import Config
 from drawingspinup_torch.core.contract import UidPaths
 from drawingspinup_torch.core.io import read_image, write_image
@@ -35,11 +35,6 @@ from drawingspinup_torch.ops.inpaint import telea_inpaint
 
 CONTOUR_THRESHOLD = 0.2  # the reference's predict.py
 INPAINT_RADIUS = 3       # the reference's predict.py
-
-# the last predict_uids call: its wall and host post-processing seconds
-# (threshold, Telea, PNG write) and the number of drawings
-LAST_STATS: Dict[str, float] = {}
-
 
 def build_generator(cfg: Optional[Config] = None
                     ) -> Union[FFCResNetGenerator, GlobalGenerator]:
@@ -142,43 +137,36 @@ def collect_probs(flight: Tuple[torch.Tensor, Optional[torch.cuda.Event]]
 
 def predict_uids(root: str, uids: Sequence[str], model: torch.nn.Module,
                  batch_size: int = 8, size: int = 512,
-                 save_name: str = "ffc_resnet",
-                 overlap: bool = True) -> List[str]:
+                 save_name: str = "ffc_resnet") -> List[str]:
     """Contour removal for a list of uids, ``batch_size`` drawings per
-    forward; returns the written paths. With ``overlap`` batch k+1's
-    forward is enqueued before batch k is post-processed on the host;
-    without it each batch is post-processed before the next is read."""
+    forward; returns the written paths. Batch k+1's forward is enqueued
+    before batch k is post-processed on the host. Spans: ``stage1.predict``
+    around the call, ``stage1.post`` around a batch's host work (threshold,
+    Telea, PNG write); counter ``stage1.drawing``, one a PNG written."""
     written: List[str] = []
-    post_s = 0.0
-    t0 = time.perf_counter()
 
     def drain(flight) -> None:
-        nonlocal post_s
         items, pending = flight
         probs = collect_probs(pending)
-        t = time.perf_counter()
-        for (paths, rgb, alpha), prob in zip(items, probs):
-            out_path = os.path.join(paths.char_dir,
-                                    f"{save_name}_inpainted.png")
-            write_image(out_path, postprocess_one(rgb, alpha, prob))
-            written.append(out_path)
-        post_s += time.perf_counter() - t
+        with profiling.span("stage1.post"):
+            for (paths, rgb, alpha), prob in zip(items, probs):
+                out_path = os.path.join(paths.char_dir,
+                                        f"{save_name}_inpainted.png")
+                write_image(out_path, postprocess_one(rgb, alpha, prob))
+                written.append(out_path)
+                profiling.count("stage1.drawing")
 
-    in_flight = None
-    for i in range(0, len(uids), batch_size):
-        batch = [UidPaths(root, uid) for uid in uids[i:i + batch_size]]
-        items = [(paths, *load_input(paths, size)) for paths in batch]
-        nxt = (items, dispatch_probs(model, np.stack([it[1] for it in items]),
-                                     np.stack([it[2] for it in items])))
+    with profiling.span("stage1.predict"):
+        in_flight = None
+        for i in range(0, len(uids), batch_size):
+            batch = [UidPaths(root, uid) for uid in uids[i:i + batch_size]]
+            items = [(paths, *load_input(paths, size)) for paths in batch]
+            nxt = (items, dispatch_probs(
+                model, np.stack([it[1] for it in items]),
+                np.stack([it[2] for it in items])))
+            if in_flight is not None:
+                drain(in_flight)
+            in_flight = nxt
         if in_flight is not None:
             drain(in_flight)
-        in_flight = nxt
-        if not overlap:
-            drain(in_flight)
-            in_flight = None
-    if in_flight is not None:
-        drain(in_flight)
-    LAST_STATS.clear()
-    LAST_STATS.update(wall_s=time.perf_counter() - t0, post_s=post_s,
-                      drawings=len(written))
     return written

@@ -34,17 +34,21 @@ every other case:
 Every field evaluation runs through ``FieldEvaluator`` (the hash-grid
 encode kernel on the card) at the export's band state, and its values go
 through bf16, as JAX's export evaluators round them.
+
+Each part is a span of ``core/profiling.py`` (``PARTS`` names them by
+chain; ``export.save`` is ``recon_uid``'s), and each field evaluation
+counts ``export.field_eval``.
 """
 from __future__ import annotations
 
 import os
-import time
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from drawingspinup_torch.core import profiling
 from drawingspinup_torch.models.fields import sdf_forward
 from drawingspinup_torch.models.hashgrid import progressive_mask
 from drawingspinup_torch.render import mesh_post
@@ -55,11 +59,11 @@ from drawingspinup_torch.render.marching import (
 BLOCK = 4
 BAND_CELLS = 2.0
 EVAL_CHUNK = 1 << 20          # points per field evaluation
-
-
-def _sync(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
+# each chain's parts on the device and on the host, in the order they run
+PARTS = {"device_smooth": (("bbox", "band_eval", "smooth_pack"),
+                           ("march", "remesh")),
+         "level": (("bbox", "grid_eval"),
+                   ("carve_smooth", "march", "remesh"))}
 
 
 def xla_linspace(lo: float, hi: float, res: int, device) -> torch.Tensor:
@@ -80,14 +84,13 @@ def xla_linspace(lo: float, hi: float, res: int, device) -> torch.Tensor:
 class FieldEvaluator:
     """The trained SDF at the export's band state (level mask and active
     levels of ``step``), evaluated in chunks without autograd, values
-    rounded through bf16. ``launches`` counts its field evaluations."""
+    rounded through bf16; each chunk counts ``export.field_eval``."""
 
     def __init__(self, cfg, params, step: int, device):
         self.cfg, self.params, self.device = cfg, params, device
         grid = cfg.sdf.grid
         self.level_mask = progressive_mask(grid, step, device)
         self.n_active = min(grid.current_level(step), grid.n_levels)
-        self.launches = 0
 
     @torch.no_grad()
     def __call__(self, pts: torch.Tensor) -> torch.Tensor:
@@ -97,7 +100,7 @@ class FieldEvaluator:
                                  pts[i:i + EVAL_CHUNK].contiguous(),
                                  self.level_mask, self.n_active)
             out.append(sdf.to(torch.bfloat16).float())
-            self.launches += 1
+            profiling.count("export.field_eval")
         return torch.cat(out) if out else pts.new_zeros((0,))
 
     def grid(self, vmin: np.ndarray, vmax: np.ndarray, res: int
@@ -155,16 +158,18 @@ def bbox_pass(ev: FieldEvaluator, resolution: int, radius: float,
     """Fine-grid extent: the smoothed negative region of a coarse grid over
     the AABB, + 10 % margin. The grid is (R/4+1)³ when ``sparse``, else
     min(R, 128)³, spaced as the fine blocks (``use_blocks``) or as the
-    slabs."""
+    slabs. Span ``export.bbox``."""
     from scipy.ndimage import gaussian_filter
 
     lo = np.array([-radius] * 3, np.float32)
     hi = np.array([radius] * 3, np.float32)
     coarse_res = resolution // 4 + 1 if sparse else min(resolution, 128)
-    level = (ev.grid if use_blocks else ev.dense_grid)(lo, hi, coarse_res)
-    level = level.cpu().numpy()
-    neg = np.argwhere(gaussian_filter((level <= 0).astype(np.float32),
-                                      1.0) > 0.5)
+    with profiling.span("export.bbox"):
+        level = (ev.grid if use_blocks else ev.dense_grid)(lo, hi,
+                                                           coarse_res)
+        level = level.cpu().numpy()
+        neg = np.argwhere(gaussian_filter((level <= 0).astype(np.float32),
+                                          1.0) > 0.5)
     if len(neg) == 0:
         raise RuntimeError("empty isosurface (no negative SDF region)")
     v_lo = neg.min(0) / (coarse_res - 1) * 2 * radius - radius
@@ -264,48 +269,45 @@ def smooth_pack(coarse: torch.Tensor, ids: torch.Tensor, vals: torch.Tensor,
 
 
 def smoothed_field(ev: FieldEvaluator, vmin: np.ndarray, vmax: np.ndarray,
-                   resolution: int, front_mask: Optional[np.ndarray] = None,
-                   times: Optional[Dict[str, float]] = None) -> torch.Tensor:
+                   resolution: int, front_mask: Optional[np.ndarray] = None
+                   ) -> torch.Tensor:
     """The carved, smoothed, quantized occupancy (R, R, R) u8 on the
-    device; ``times`` gets the band evaluation's and the smoothing's
-    seconds."""
+    device; spans ``export.band_eval`` and ``export.smooth_pack``, each
+    waiting for the card at its end."""
     R = resolution
     if R % BLOCK:
         raise ValueError(f"export resolution {R} is not a multiple of {BLOCK}")
-    t0 = time.time()
-    coarse = ev.grid(vmin, vmax, R // BLOCK + 1)
-    ids = band_blocks(coarse, vmin, vmax)
-    vals = ev.blocks(ids, vmin, vmax, R)
-    _sync(ev.device)
-    t1 = time.time()
-    crop = front_crop(front_mask, vmin, vmax, R) / 255.0 \
-        if front_mask is not None else np.ones((R, R), np.float32)
-    out = smooth_pack(coarse, ids, vals,
-                      torch.as_tensor(crop, device=ev.device), R)
-    _sync(ev.device)
-    if times is not None:
-        times["band_eval"] = t1 - t0
-        times["smooth_pack"] = time.time() - t1
-    return out
+    with profiling.span("export.band_eval", sync=True):
+        coarse = ev.grid(vmin, vmax, R // BLOCK + 1)
+        ids = band_blocks(coarse, vmin, vmax)
+        vals = ev.blocks(ids, vmin, vmax, R)
+    with profiling.span("export.smooth_pack", sync=True):
+        crop = front_crop(front_mask, vmin, vmax, R) / 255.0 \
+            if front_mask is not None else np.ones((R, R), np.float32)
+        return smooth_pack(coarse, ids, vals,
+                           torch.as_tensor(crop, device=ev.device), R)
 
 
 def isosurface_from_smoothed(smoothed_u8: np.ndarray, vmin: np.ndarray,
                              vmax: np.ndarray, resolution: int,
-                             face_count: int = 50000, remeshing: bool = True,
-                             times: Optional[Dict[str, float]] = None
+                             face_count: int = 50000, remeshing: bool = True
                              ) -> Tuple[np.ndarray, np.ndarray]:
     """March the u8 field at 0.5, move the vertices to world coordinates,
-    remesh to ``face_count``."""
-    t0 = time.time()
-    verts, faces = marching_tetrahedra(smoothed_u8, 0.5)
-    verts = verts / (resolution - 1)
-    verts = vmin[None, :] + verts * (vmax - vmin)[None, :]
-    t1 = time.time()
-    if remeshing and len(faces) > face_count:
-        verts, faces = mesh_post.remesh(verts, faces, face_count)
-    if times is not None:
-        times["march"] = t1 - t0
-        times["remesh"] = time.time() - t1
+    remesh to ``face_count``; spans ``export.march``, ``export.remesh``."""
+    with profiling.span("export.march"):
+        verts, faces = marching_tetrahedra(smoothed_u8, 0.5)
+        verts = verts / (resolution - 1)
+        verts = vmin[None, :] + verts * (vmax - vmin)[None, :]
+    return _remesh(verts, faces, face_count, remeshing)
+
+
+def _remesh(verts: np.ndarray, faces: np.ndarray, face_count: int,
+            remeshing: bool) -> Tuple[np.ndarray, np.ndarray]:
+    """Remesh to ``face_count`` where there are more faces, in the span
+    ``export.remesh`` either way."""
+    with profiling.span("export.remesh"):
+        if remeshing and len(faces) > face_count:
+            verts, faces = mesh_post.remesh(verts, faces, face_count)
     return verts, faces
 
 
@@ -338,52 +340,41 @@ def sparse_level(ev: FieldEvaluator, vmin: np.ndarray, vmax: np.ndarray,
 
 
 def isosurface_level(ev: FieldEvaluator, resolution: int, radius: float,
-                     sparse: Optional[bool] = None,
-                     times: Optional[Dict[str, float]] = None
+                     sparse: Optional[bool] = None
                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """The level chain's device half: bbox, then the SDF on the R³ grid,
-    band-sparse where R ≥ 256 and R % 4 == 0 unless ``sparse`` says →
-    (level (R, R, R) f32 on the host, vmin, vmax)."""
+    """The level chain's device half: bbox, then the SDF on the R³ grid
+    (span ``export.grid_eval``), band-sparse where R ≥ 256 and R % 4 == 0
+    unless ``sparse`` says → (level (R, R, R) f32 on the host, vmin,
+    vmax)."""
     if sparse is None:
         sparse = resolution >= 256 and resolution % BLOCK == 0
-    t0 = time.time()
     vmin, vmax = bbox_pass(ev, resolution, radius, sparse, use_blocks=False)
-    t1 = time.time()
-    level = sparse_level(ev, vmin, vmax, resolution) if sparse \
-        else ev.dense_grid(vmin, vmax, resolution)
-    level = level.cpu().numpy()
-    if times is not None:
-        times["bbox"] = t1 - t0
-        times["grid_eval"] = time.time() - t1
+    with profiling.span("export.grid_eval"):
+        level = sparse_level(ev, vmin, vmax, resolution) if sparse \
+            else ev.dense_grid(vmin, vmax, resolution)
+        level = level.cpu().numpy()
     return level, vmin, vmax
 
 
 def isosurface_from_level(level: np.ndarray, vmin: np.ndarray,
                           vmax: np.ndarray, resolution: int,
                           front_mask: Optional[np.ndarray] = None,
-                          face_count: int = 50000, remeshing: bool = True,
-                          times: Optional[Dict[str, float]] = None
+                          face_count: int = 50000, remeshing: bool = True
                           ) -> Tuple[np.ndarray, np.ndarray]:
-    """The level chain's host half: front-mask carve, binary smoothing,
-    marching tetrahedra at 0.5, remesh."""
-    t0 = time.time()
-    binary = level <= 0
-    if front_mask is not None:
-        crop = front_crop(front_mask, vmin, vmax, resolution)
-        binary = binary & (crop[:, None, :] > 127)
-    smoothed = smooth_binary(binary.astype(np.float32), 1.0)
-    t1 = time.time()
-    verts, faces = marching_tetrahedra(smoothed, 0.5)
-    verts = verts / (resolution - 1)
-    verts = vmin[None, :] + verts * (vmax - vmin)[None, :]
-    t2 = time.time()
-    if remeshing and len(faces) > face_count:
-        verts, faces = mesh_post.remesh(verts, faces, face_count)
-    if times is not None:
-        times["carve_smooth"] = t1 - t0
-        times["march"] = t2 - t1
-        times["remesh"] = time.time() - t2
-    return verts, faces
+    """The level chain's host half: front-mask carve and binary smoothing
+    (span ``export.carve_smooth``), marching tetrahedra at 0.5
+    (``export.march``), remesh (``export.remesh``)."""
+    with profiling.span("export.carve_smooth"):
+        binary = level <= 0
+        if front_mask is not None:
+            crop = front_crop(front_mask, vmin, vmax, resolution)
+            binary = binary & (crop[:, None, :] > 127)
+        smoothed = smooth_binary(binary.astype(np.float32), 1.0)
+    with profiling.span("export.march"):
+        verts, faces = marching_tetrahedra(smoothed, 0.5)
+        verts = verts / (resolution - 1)
+        verts = vmin[None, :] + verts * (vmax - vmin)[None, :]
+    return _remesh(verts, faces, face_count, remeshing)
 
 
 def export_field(cfg, params, resolution: int, step: int, device,
@@ -392,49 +383,27 @@ def export_field(cfg, params, resolution: int, step: int, device,
     """The export's device half, by the chain ``use_device_smooth`` picks:
     the bbox and the smoothed u8 field (device-smooth chain) or the level
     field (level chain), copied to the host → {"chain", "field", "vmin",
-    "vmax", "times"}; ``times`` holds each part's seconds and
-    ``field_evals``, the field evaluations it ran."""
-    times: Dict[str, Any] = {}
+    "vmax"}."""
     ev = FieldEvaluator(cfg, params, step, device)
     if use_device_smooth(resolution):
-        times["chain"] = "device_smooth"
-        t0 = time.time()
+        chain = "device_smooth"
         vmin, vmax = bbox_pass(ev, resolution, cfg.radius)
-        times["bbox"] = time.time() - t0
-        field = smoothed_field(ev, vmin, vmax, resolution, front_mask,
-                               times).cpu().numpy()
+        field = smoothed_field(ev, vmin, vmax, resolution,
+                               front_mask).cpu().numpy()
     else:
-        times["chain"] = "level"
-        field, vmin, vmax = isosurface_level(ev, resolution, cfg.radius,
-                                             times=times)
-    times["field_evals"] = ev.launches
-    return {"chain": times["chain"], "field": field, "vmin": vmin,
-            "vmax": vmax, "times": times}
+        chain = "level"
+        field, vmin, vmax = isosurface_level(ev, resolution, cfg.radius)
+    return {"chain": chain, "field": field, "vmin": vmin, "vmax": vmax}
 
 
 def export_host(out: Dict[str, Any], resolution: int,
                 front_mask: Optional[np.ndarray] = None,
                 face_count: int = 50000) -> Tuple[np.ndarray, np.ndarray]:
     """The export's host half on ``export_field``'s output: march and
-    remesh → (verts, faces); adds its parts' seconds to ``out["times"]``.
-    Reads nothing on the device."""
+    remesh → (verts, faces). Reads nothing on the device."""
     if out["chain"] == "device_smooth":
         return isosurface_from_smoothed(out["field"], out["vmin"],
-                                        out["vmax"], resolution, face_count,
-                                        times=out["times"])
+                                        out["vmax"], resolution, face_count)
     return isosurface_from_level(out["field"], out["vmin"], out["vmax"],
-                                 resolution, front_mask, face_count,
-                                 times=out["times"])
+                                 resolution, front_mask, face_count)
 
-
-def export_mesh(cfg, params, resolution: int, step: int, device,
-                front_mask: Optional[np.ndarray] = None,
-                face_count: int = 50000
-                ) -> Tuple[np.ndarray, np.ndarray, Dict[str, Any]]:
-    """The chain ``use_device_smooth`` picks, bbox to remesh; returns
-    (verts, faces, times), times holding each part's seconds, ``chain``
-    ("device_smooth" or "level") and ``field_evals``, the field
-    evaluations it ran."""
-    out = export_field(cfg, params, resolution, step, device, front_mask)
-    verts, faces = export_host(out, resolution, front_mask, face_count)
-    return verts, faces, out["times"]

@@ -22,7 +22,7 @@ noise per step) come from an explicit ``torch.Generator`` or are handed in
 its 12 u8 images on the host, traced as the span ``mv.uid`` ⊃
 ``mv.encode``, ``mv.step`` (one a DDIM step) and ``mv.decode``
 (``core/profiling.py``); ``generate_uid`` wraps it in the reads, the masks
-and the PNG writes.
+and the PNG writes (spans ``mv.read``, ``mv.masks``, ``mv.write``).
 
 Under torchrun with W > 1 ranks the denoise loop splits its batch rows over
 the first ``dp`` ranks, ``dp`` the largest divisor of the 2·Nv images that
@@ -52,7 +52,6 @@ import copy
 import dataclasses
 import math
 import os
-import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -95,10 +94,6 @@ NORMAL_MASK_UIDS = {"5269932f55b5456c9b76cacfe0477c36",
                     "ff97c4c2e4d34790ad4d9cfae2c9b37b",
                     "8cb0a6123ffb4ea5b2dd7ba0cb98ac61",
                     "1b39b2d2a6cb4a72a452b2bdcd7c0590"}
-
-# stage timings of the last generate_uid call, in seconds (the device
-# synchronised at each part's end)
-LAST_STATS: Dict[str, float] = {}
 
 
 def camera_task_embeddings(views: List[str]) -> np.ndarray:
@@ -372,7 +367,7 @@ class MVPipeline:
         In a process group the ranks of the split encode and denoise their
         rows and rank 0 decodes; the other ranks return None."""
         nv2 = 2 * len(views or VIEWS)
-        with profiling.span("mv.uid"):
+        with profiling.span("mv.uid", unit=True):
             latents = None
             if batch_split(nv2, self.cfg.guidance_scale != 1.0)[0]:
                 with profiling.span("mv.encode", sync=True):
@@ -494,11 +489,6 @@ def derive_masks(uid: str, colors: np.ndarray, normals: np.ndarray,
     return np.stack(out)
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def load_input(paths: UidPaths, size: int, device,
                save_name: str = "ffc_resnet"
                ) -> Tuple[torch.Tensor, np.ndarray]:
@@ -529,8 +519,9 @@ def generate_uid(root: str, uid: str, pipe: MVPipeline,
                  ) -> List[str]:
     """The mv.py flow for one uid: read stage 1's output, sample with the
     draws of ``seed`` (or ``noises``) through ``MVPipeline.images_u8``,
-    write ``mv/{normal,color,mask}/<view>.png`` at ``out_size``; the parts'
-    seconds go to ``LAST_STATS`` (with ``dp``, the ranks of the split).
+    write ``mv/{normal,color,mask}/<view>.png`` at ``out_size``. Spans
+    ``mv.read`` (the card waited for at its end), ``images_u8``'s
+    ``mv.uid``, ``mv.masks`` and ``mv.write``.
 
     In a process group every rank calls this alike: the ranks of the split
     read, encode and denoise their rows, rank 0 decodes and writes, the
@@ -539,42 +530,30 @@ def generate_uid(root: str, uid: str, pipe: MVPipeline,
     views = list(views or VIEWS)
     nv = len(views)
     dev = pipe.device
-    dp = mesh.mv_split(2 * nv, mesh.world_size())
-    t0 = t1 = time.perf_counter()
     image = drawing_mask = None
     if batch_split(2 * nv, pipe.cfg.guidance_scale != 1.0)[0]:
-        image, drawing_mask = load_input(paths, pipe.cfg.image_size, dev,
-                                         save_name)
-        _sync(dev)
-        t1 = time.perf_counter()
+        with profiling.span("mv.read", sync=True):
+            image, drawing_mask = load_input(paths, pipe.cfg.image_size, dev,
+                                             save_name)
     generator = torch.Generator(device=dev).manual_seed(int(seed))
     u8 = pipe.images_u8(image, views, generator, noises)
 
     def masks_and_write() -> List[str]:
-        t3 = time.perf_counter()
-        last = {k: st["last_s"] for k, st in profiling.timings().items()}
-        u8_np = u8.numpy()
-        normals_u8, colors_u8 = u8_np[:nv], u8_np[nv:]
-        masks = derive_masks(uid, colors_u8.astype(np.float32) / 255.0,
-                             normals_u8.astype(np.float32) / 255.0,
-                             drawing_mask, views, device=dev)
-        t4 = time.perf_counter()
+        with profiling.span("mv.masks"):
+            u8_np = u8.numpy()
+            normals_u8, colors_u8 = u8_np[:nv], u8_np[nv:]
+            masks = derive_masks(uid, colors_u8.astype(np.float32) / 255.0,
+                                 normals_u8.astype(np.float32) / 255.0,
+                                 drawing_mask, views, device=dev)
         written = []
-        for i, v in enumerate(views):
-            for kind, img in (("normal", normals_u8[i]),
-                              ("color", colors_u8[i]),
-                              ("mask", masks[i][..., None])):
-                p = paths.mv(kind, v)
-                write_image(p, img)
-                written.append(p)
-        t5 = time.perf_counter()
-        LAST_STATS.clear()
-        LAST_STATS.update({"read_s": t1 - t0, "encode_s": last["mv.encode"],
-                           "denoise_s": t3 - t1 - last["mv.encode"]
-                           - last["mv.decode"],
-                           "decode_u8_s": last["mv.decode"],
-                           "masks_s": t4 - t3, "write_s": t5 - t4,
-                           "dp": dp})
+        with profiling.span("mv.write"):
+            for i, v in enumerate(views):
+                for kind, img in (("normal", normals_u8[i]),
+                                  ("color", colors_u8[i]),
+                                  ("mask", masks[i][..., None])):
+                    p = paths.mv(kind, v)
+                    write_image(p, img)
+                    written.append(p)
         return written
 
     return mesh.on_main(masks_and_write)

@@ -11,19 +11,25 @@ thinning, smoothing, color back-projection, shear →
 
 A finished uid resumes from its checkpoint and re-exports. The data part
 lives in ``stage2_data.py`` and the export in ``stage2_export.py``.
+
+Spans of ``core/profiling.py``: ``recon.data`` (views and hull to the
+device), ``recon.train`` ⊃ ``recon.band`` (one a band phase: the steps
+at one ``current_level``, the card waited for at its ends), ``recon.ckpt``
+and the export's ``export.*``; counter ``recon.step``, one a training
+step.
 """
 from __future__ import annotations
 
 import functools
 import os
-import time
 from concurrent.futures import Future
-from typing import Any, Callable, Dict, Union
+from typing import Callable, Dict, Iterator, Tuple, Union
 
 import numpy as np
 import torch
 
 from drawingspinup_torch.core import checkpoint as ckpt
+from drawingspinup_torch.core import profiling
 from drawingspinup_torch.core.config import Config
 from drawingspinup_torch.core.contract import UidPaths
 from drawingspinup_torch.core.io import read_image
@@ -35,12 +41,6 @@ from drawingspinup_torch.parallel import mesh
 from drawingspinup_torch.pipelines import stage2_data, stage2_export
 from drawingspinup_torch.render import mesh_post
 from drawingspinup_torch.train import nsr, nsr_parallel
-
-# Timings and counts of the last ``recon_uid`` run in this process: ms per
-# step of each band phase (host synchronised at the phase boundaries), the
-# export's parts in seconds, the export's field evaluations, and the logged
-# (step, loss, loss_mask, inv_s).
-LAST_STATS: Dict[str, Any] = {}
 
 
 def export_name(max_steps: int, mc_res: int, face_count: int, cutting: bool,
@@ -60,9 +60,22 @@ def export_name(max_steps: int, mc_res: int, face_count: int, cutting: bool,
     return name
 
 
-def _sync(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
+def band_phases(grid: HashGridConfig, start: int, stop: int
+                ) -> Iterator[Tuple[int, int, int]]:
+    """The training steps ``start`` to ``stop`` by band phase: (active
+    levels, first step, end step) of each run of steps at one
+    ``current_level``."""
+    first = start
+    for step in range(start, stop):
+        n_active = grid.current_level(step)
+        if step + 1 == stop or grid.current_level(step + 1) != n_active:
+            yield n_active, first, step + 1
+            first = step + 1
+
+
+def _last(name: str) -> float:
+    """The seconds of the span ``name`` that closed last."""
+    return profiling.timings()[name]["last_s"]
 
 
 def _host_params(params):
@@ -109,14 +122,13 @@ def recon_uid(root: str, uid: str, cfg: nsr.NSRConfig, *,
     uid's training. The field and the masks it reads are on the host by
     then."""
     device = torch.device(device)
-    t_entry = time.time()
     paths = UidPaths(root, uid)
-    data = stage2_data.load_ortho_data(paths, im_size=im_size,
-                                       hull_trange=cfg.hull_trange,
-                                       radius=cfg.radius, device=device)
-    front_mask = stage2_data.load_front_mask(paths)
-    _sync(device)
-    t_data = time.time() - t_entry
+    with profiling.span("recon.data", sync=True):
+        data = stage2_data.load_ortho_data(paths, im_size=im_size,
+                                           hull_trange=cfg.hull_trange,
+                                           radius=cfg.radius, device=device)
+        front_mask = stage2_data.load_front_mask(paths)
+    t_data = _last("recon.data")
 
     opt = nsr.make_optimizer(cfg)
     state = nsr.init_state(cfg, seed, device)
@@ -145,32 +157,22 @@ def recon_uid(root: str, uid: str, cfg: nsr.NSRConfig, *,
         for _ in range(start_step):
             nsr.make_draws(draw_cfg, v, h, w, gen, device)
     phase_ms: Dict[int, float] = {}
-    history = []                      # (step, loss, loss_mask, inv_s)
-    t0 = t_phase = time.time()
-    phase_start = start_step
-    for step in range(start_step, cfg.max_steps):
-        n_active = cfg.sdf.grid.current_level(step)
-        draws = nsr.make_draws(draw_cfg, v, h, w, gen, device)
-        logs = step_fn(state, data, draws, n_active=n_active)
-        if log_every and step % log_every == 0:
-            loss, mask, s = (float(logs[k])
-                             for k in ("loss", "loss_mask", "inv_s"))
-            history.append((step, loss, mask, s))
-            mesh.print_main(f"[recon {uid}] step {step}: loss={loss:.4f} "
+    with profiling.span("recon.train", sync=True):
+        for n_active, first, end in band_phases(cfg.sdf.grid, start_step,
+                                                cfg.max_steps):
+            with profiling.span("recon.band", sync=True):
+                for step in range(first, end):
+                    draws = nsr.make_draws(draw_cfg, v, h, w, gen, device)
+                    logs = step_fn(state, data, draws, n_active=n_active)
+                    profiling.count("recon.step")
+                    if log_every and step % log_every == 0:
+                        loss, mask, s = (float(logs[k]) for k in
+                                         ("loss", "loss_mask", "inv_s"))
+                        mesh.print_main(
+                            f"[recon {uid}] step {step}: loss={loss:.4f} "
                             f"mask={mask:.4f} inv_s={s:.1f}")
-        last = step + 1 == cfg.max_steps
-        if last or cfg.sdf.grid.current_level(step + 1) != n_active:
-            _sync(device)
-            now = time.time()
-            phase_ms[n_active] = 1e3 * (now - t_phase) / (step + 1
-                                                          - phase_start)
-            t_phase, phase_start = now, step + 1
-    _sync(device)
-    train_time = time.time() - t0
-    LAST_STATS.clear()
-    LAST_STATS.update({"phase_ms": phase_ms, "log": history,
-                       "train_s": train_time, "data_s": t_data,
-                       "steps": cfg.max_steps - start_step, "world": world})
+            phase_ms[n_active] = 1e3 * _last("recon.band") / (end - first)
+    train_time = _last("recon.train")
     # the checkpoint, the export and the OBJ are rank 0's; the other ranks
     # wait for its path (for the export's device half, when its host half
     # is deferred to ``tail_executor``)
@@ -178,17 +180,20 @@ def recon_uid(root: str, uid: str, cfg: nsr.NSRConfig, *,
     deferred: Dict[str, Callable[[], str]] = {}
 
     def save_and_export() -> str:
-        t0 = time.time()
-        if cfg.max_steps > start_step:
-            ckpt.save(os.path.join(ckpt_root, f"step_{cfg.max_steps}.pt"),
-                      {"params": _host_params(state.params)})
-        t_ckpt = time.time() - t0
+        with profiling.span("recon.ckpt"):
+            if cfg.max_steps > start_step:
+                ckpt.save(os.path.join(ckpt_root,
+                                       f"step_{cfg.max_steps}.pt"),
+                          {"params": _host_params(state.params)})
+        t_ckpt = _last("recon.ckpt")
 
         crop = front_mask if front_cutting else None
         field = stage2_export.export_field(cfg, state.params, mc_resolution,
                                            cfg.max_steps, device, crop)
-        times = field["times"]
-        LAST_STATS.update({"export": times, "ckpt_s": t_ckpt})
+        dev_parts, host_parts = stage2_export.PARTS[field["chain"]]
+        # read on this thread: a deferred tail runs beside the next uid's
+        # spans
+        parts = {k: _last(f"export.{k}") for k in dev_parts}
         front_color = read_image(paths.mv("color", "front"))[..., :3] \
             if color_back_projection else None
         back_color = read_image(paths.mv("color", "back"))[..., :3] \
@@ -225,24 +230,24 @@ def recon_uid(root: str, uid: str, cfg: nsr.NSRConfig, *,
                     vert_colors = radiance_forward(
                         cfg.radiance, state.params["texture"], feat, -n,
                         n).cpu().numpy()
-            t0 = time.time()
-            mesh_post.save_mesh(
-                out_path, verts, faces, vert_colors=vert_colors,
-                front_mask=drawing_mask, front_color=front_color,
-                back_color=back_color, thinning=thinning,
-                thinning_type=thinning_type, smoothing=smoothing,
-                color_back_projection=color_back_projection,
-                shearing=shearing, ortho_scale=ortho_scale,
-                export_uv=export_uv)
-            times["save"] = time.time() - t0
+            with profiling.span("export.save"):
+                mesh_post.save_mesh(
+                    out_path, verts, faces, vert_colors=vert_colors,
+                    front_mask=drawing_mask, front_color=front_color,
+                    back_color=back_color, thinning=thinning,
+                    thinning_type=thinning_type, smoothing=smoothing,
+                    color_back_projection=color_back_projection,
+                    shearing=shearing, ortho_scale=ortho_scale,
+                    export_uv=export_uv)
+            parts.update({k: _last(f"export.{k}")
+                          for k in (*host_parts, "save")})
             phases = ", ".join(f"{k} levels {ms:.2f} ms/step"
                                for k, ms in phase_ms.items())
-            parts = "  ".join(f"{k} {v:.2f}s" for k, v in times.items()
-                              if isinstance(v, float))
+            secs = "  ".join(f"{k} {v:.2f}s" for k, v in parts.items())
             print(f"[recon {uid}] trained {cfg.max_steps} steps in "
                   f"{train_time:.1f}s → {out_path}\n"
                   f"[recon {uid}] phases: data+hull {t_data:.1f}s  ckpt "
-                  f"{t_ckpt:.1f}s  {times['chain']} export: {parts}  "
+                  f"{t_ckpt:.1f}s  {field['chain']} export: {secs}  "
                   f"({phases or 'no training'})")
             return out_path
 

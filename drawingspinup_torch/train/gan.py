@@ -249,7 +249,7 @@ def train_step(cfg: GANConfig, state: TrainState, data: KeyframeData,
     """Sample a patch batch with ``generator``, then one D and one G
     update: the span ``gan.step``, the step's unit, around ``gan.sample``
     and ``train_step_on_batch``'s spans."""
-    with profiling.span("gan.step"):
+    with profiling.span("gan.step", unit=True):
         with profiling.span("gan.sample"):
             batch = sample_patches(data, generator, cfg.batch_size,
                                    cfg.patch_size)
@@ -404,7 +404,7 @@ def generate_full_rgba(model: Generator, x_u8: np.ndarray, use_mask: bool,
     Counters: ``serve.eager``, ``serve.graph.capture`` and
     ``serve.graph.replay`` a frame; a replay also adds the launch counts
     its capture saw."""
-    with profiling.span("serve.frame"), torch.no_grad():
+    with profiling.span("serve.frame", unit=True), torch.no_grad():
         device = next(model.parameters()).device
         flags = (use_mask, use_pos, use_edge)
         fg = _frame_graph(model, x_u8, flags, device)

@@ -47,7 +47,7 @@ class TrainStepDP:
     def __call__(self, state: gan.TrainState, data: KeyframeData,
                  generator: torch.Generator) -> Dict[str, torch.Tensor]:
         """One step under the spans of ``gan.train_step``."""
-        with profiling.span("gan.step"):
+        with profiling.span("gan.step", unit=True):
             with profiling.span("gan.sample"):
                 batch = self.batch(data, generator)
             return self.on_batch(state, batch)

@@ -298,7 +298,8 @@ def test_mv_cli_on_two_ranks(tmp_path, monkeypatch):
         write_drawing_uid(r, "toy", size=64)
     send({"root": root, "argv": ["--root", root, *argv], "float64": True})
     outs = collect()
-    assert outs[0]["dp"] == 2 and outs[1]["dp"] is None   # rank 0 wrote
+    assert outs[0]["dp"] == outs[1]["dp"] == 2
+    assert [o["wrote"] for o in outs] == [1, 0]             # rank 0 wrote
     assert outs[1]["attempts"] == [] and outs[1]["decoded"] == []
     decoded = []
     torch_dp_worker.mv_float64(monkeypatch.setattr, decoded)

@@ -60,7 +60,7 @@ def test_spans_nest_by_thread_and_take_the_unit(monkeypatch):
 
     with profiling.span("outside"):
         pass
-    with profiling.span("serve.frame"):
+    with profiling.span("serve.frame", unit=True):
         with profiling.span("a"):
             with profiling.span("a.b"):
                 pass
@@ -68,7 +68,7 @@ def test_spans_nest_by_thread_and_take_the_unit(monkeypatch):
             t.start()
             t.join(timeout=30)
             seen["alive"] = t.is_alive()
-        with profiling.span("serve.frame"):     # inner: opens no unit
+        with profiling.span("serve.frame", unit=True):  # inner: no unit
             pass
     with profiling.span("after"):
         pass
@@ -92,6 +92,24 @@ def test_spans_nest_by_thread_and_take_the_unit(monkeypatch):
         assert rec.start_ns <= rec.end_ns
 
 
+@pytest.mark.parametrize("name, unit", [("serve.frame", False),
+                                        ("recon.anything", True)])
+def test_the_caller_declares_the_unit(name, unit, monkeypatch):
+    """A span opens the process's unit by its ``unit`` flag, never by its
+    name: ``serve.frame`` without the flag is a plain span, any name with
+    it is a unit."""
+    monkeypatch.setattr(torch.autograd, "_profiler_enabled", lambda: True)
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda name: contextlib.nullcontext())
+    with profiling.span(name, unit=unit):
+        with profiling.span("inner"):
+            pass
+    r = {rec.name: rec for rec in profiling.spans()}
+    want = r[name].id if unit else None
+    assert r[name].unit == want and r["inner"].unit == want
+    assert r["inner"].parent == r[name].id
+
+
 @pytest.mark.parametrize("sync", [False, True])
 def test_aggregate_and_ring_with_the_profiler_off(sync, monkeypatch):
     """Count, total, min, max, last and a ring of the last RING durations;
@@ -104,7 +122,7 @@ def test_aggregate_and_ring_with_the_profiler_off(sync, monkeypatch):
     for _ in range(n):
         with profiling.span("x", sync=sync):
             pass
-    with profiling.span("serve.frame"):
+    with profiling.span("serve.frame", unit=True):
         pass
     st = profiling.timings()["x"]
     ring = profiling.samples("x")
@@ -122,7 +140,7 @@ def test_spans_are_ranges_of_the_chrome_trace(tmp_path):
     """Each record is a user_annotation of the exported trace, of the same
     name, starting within 1 ms of the store's start."""
     with _recording() as prof:
-        with profiling.span("gan.step"):
+        with profiling.span("gan.step", unit=True):
             with profiling.span("gan.d_update"):
                 torch.ones(64).sum()
             with profiling.span("gan.d_opt"):

@@ -35,6 +35,7 @@ from drawingspinup_tpu.utils.synthetic import write_sphere_mv as j_sphere
 from drawingspinup_torch.cli import recon as trecon
 from drawingspinup_torch.core import config as tconfig
 from drawingspinup_torch.core import contract as tcontract
+from drawingspinup_torch.core import profiling
 from drawingspinup_torch.core import io as tio
 from drawingspinup_torch.pipelines import stage2_data as tdata
 from drawingspinup_torch.pipelines import stage2_export as texport
@@ -341,7 +342,10 @@ def test_recon_cli_on_cpu(tmp_path, capsys):
     paths = write_sphere_mv(tmp_path, "sphere_uid")
     argv = ["--uid", "sphere_uid", "--root", str(tmp_path), "--device", "cpu",
             *TINY_OVERRIDES]
+    profiling.reset()
+    capsys.readouterr()
     assert trecon.main(argv) == 0
+    out = capsys.readouterr().out
     name = "it120-mc64-f3000_c_r_s_cbp.obj"
     obj = os.path.join(paths.mesh_dir, name)
     assert sorted(os.listdir(paths.mesh_dir)) == ["ckpt", name]
@@ -351,14 +355,15 @@ def test_recon_cli_on_cpu(tmp_path, capsys):
     expected = 0.45 * 0.5 * 1.35
     r = float(np.median(np.linalg.norm(v, axis=1)))
     assert abs(r - expected) / expected < 0.35, (r, expected)
-    stats = ts2.LAST_STATS
-    assert stats["steps"] == 120 and list(stats["phase_ms"]) == [4]
+    # one band phase (every level active from the start), 120 steps
+    assert profiling.counters()["recon.step"] == 120
+    assert profiling.timings()["recon.band"]["count"] == 1
+    assert "(4 levels " in out and "ms/step)" in out
     # the resume re-exports, here with the radiance field's colors in place
     # of the back-projected ones: the same geometry under the other name
-    capsys.readouterr()
     assert trecon.main(argv + ["export.color_back_projection=false"]) == 0
     assert "resumed from step 120" in capsys.readouterr().out
-    assert ts2.LAST_STATS["steps"] == 0
+    assert profiling.counters()["recon.step"] == 120
     v2, f2, c2 = tio.read_obj(os.path.join(
         paths.mesh_dir, "it120-mc64-f3000_c_r_s.obj"))
     np.testing.assert_array_equal(v2, v)
@@ -451,6 +456,49 @@ def test_recon_cli_multi_uid_tail(tmp_path, capsys, monkeypatch):
         lists[pkg] = {k: [os.path.relpath(p, root) if k == "written" else p
                           for p in v] for k, v in line.items()}
     assert lists["port"] == lists["jax"]
+
+
+def test_overlapped_tails_keep_every_uids_times(tmp_path, capsys):
+    """``cli/recon.py`` over two uids, each export tail on the CLI's
+    one-worker thread beside the next uid's training: both tails' save
+    times are in the registry (``export.save`` twice), the step counter
+    holds both uids' steps, and each uid prints its export line with its
+    save time."""
+    root = str(tmp_path)
+    for i, uid in enumerate(("s0", "s1")):
+        write_sphere_mv(root, uid, radius=0.4 + 0.05 * i)
+    with open(os.path.join(root, "uids.json"), "w") as f:
+        f.write('["s0", "s1"]')
+    profiling.reset()
+    capsys.readouterr()
+    assert trecon.main(["--root", root, "--device", "cpu", *TINY_OVERRIDES,
+                        "trainer.max_steps=30",
+                        f"dataset.uid_list_file={root}/uids.json"]) == 0
+    out = capsys.readouterr().out
+    assert len(profiling.samples("export.save")) == 2
+    assert profiling.counters()["recon.step"] == 2 * 30
+    assert profiling.counters()["export.field_eval"] > 0
+    for uid in ("s0", "s1"):
+        (line,) = [x for x in out.splitlines()
+                   if x.startswith(f"[recon {uid}] phases:")]
+        assert " save " in line and "level export: bbox " in line, line
+
+
+def test_band_phases_follow_current_level():
+    """``band_phases`` cuts the steps where ``current_level`` changes, as
+    the step loop's band spans do."""
+    grid = ts2.nsr_config_from_yaml(
+        tconfig.load_config(trecon.DEFAULT_CFG, [])).sdf.grid
+    phases = list(ts2.band_phases(grid, 0, 3000))
+    assert [first for _, first, _ in phases][0] == 0
+    assert phases[-1][2] == 3000
+    for (n, first, end), nxt in zip(phases, phases[1:] + [None]):
+        assert {grid.current_level(s) for s in range(first, end)} == {n}
+        if nxt is not None:
+            assert nxt[1] == end and nxt[0] != n
+    assert list(ts2.band_phases(grid, 3000, 3000)) == []
+    assert list(ts2.band_phases(grid, 2990, 3000)) == [
+        (grid.current_level(2990), 2990, 3000)]
 
 
 def test_recon_tail_bench_turns_on_cpu(tmp_path):

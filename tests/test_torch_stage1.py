@@ -38,6 +38,7 @@ from drawingspinup_tpu.pipelines import stage1 as js1
 from drawingspinup_tpu.utils.torch_port import invert_to_torch_names
 from drawingspinup_torch.cli import predict
 from drawingspinup_torch.core import contract as tcontract
+from drawingspinup_torch.core import profiling
 from drawingspinup_torch.core.io import read_image_u8
 from drawingspinup_torch.models import ffc as tffc
 from drawingspinup_torch.ops import fourier as tfourier
@@ -489,37 +490,31 @@ def _lama_ckpt(tmp_path):
     return cfg, v, ckpt
 
 
-def test_overlapped_predict_equals_serial_and_tracks_jax(tmp_path):
-    """Five drawings at batch 2 (the last batch partial): the overlapped
-    order (the default) writes the serial order's PNGs byte for byte, and
-    each is JAX's ``predict_uids`` output on the same drawings within ±1 on
-    < 1 % of the u8 values."""
+def test_overlapped_predict_tracks_jax(tmp_path):
+    """Five drawings at batch 2 (the last batch partial) through the CLI:
+    one PNG counted a drawing, and each is JAX's ``predict_uids`` output on
+    the same drawings within ±1 on < 1 % of the u8 values."""
     cfg, v, ckpt = _lama_ckpt(tmp_path)
     uids = [f"d{s}" for s in OVERLAP_SIZES]
-    roots = {k: str(tmp_path / k) for k in ("overlap", "serial", "jax")}
+    roots = {k: str(tmp_path / k) for k in ("overlap", "jax")}
     for root in roots.values():
         for uid, s in zip(uids, OVERLAP_SIZES):
             write_drawing_uid(root, uid, size=s)
     lst = tmp_path / "uids.json"
     lst.write_text(str(uids).replace("'", '"'))
-    for order in ("overlap", "serial"):
-        rc = predict.main([YAML, *TINY_OVERRIDES, f"pretrained.path={ckpt}",
-                           f"uid_json={lst}", "--root", roots[order],
-                           "--size", "64", "--batch-size", "2",
-                           "--device", "cpu"]
-                          + (["--serial"] if order == "serial" else []))
-        assert rc == 0
-        assert ts1.LAST_STATS["drawings"] == len(uids)
+    before = profiling.counters()["stage1.drawing"]
+    rc = predict.main([YAML, *TINY_OVERRIDES, f"pretrained.path={ckpt}",
+                       f"uid_json={lst}", "--root", roots["overlap"],
+                       "--size", "64", "--batch-size", "2",
+                       "--device", "cpu"])
+    assert rc == 0
+    assert profiling.counters()["stage1.drawing"] - before == len(uids)
     want = js1.predict_uids(roots["jax"], uids, v, cfg, batch_size=2,
                             size=64)
     for uid, ref in zip(uids, want):
-        paths = [os.path.join(roots[k], uid, "char",
-                              "ffc_resnet_inpainted.png")
-                 for k in ("overlap", "serial")]
-        with open(paths[0], "rb") as f, open(paths[1], "rb") as g:
-            assert f.read() == g.read(), uid
-        got = read_image_u8(paths[0]).astype(int)
-        ref = read_image_u8(ref).astype(int)
+        got = read_image_u8(os.path.join(roots["overlap"], uid, "char",
+                                         "ffc_resnet_inpainted.png"))
+        got, ref = got.astype(int), read_image_u8(ref).astype(int)
         assert got.shape == ref.shape == (64, 64, 4)
         diff = np.abs(got - ref)
         assert diff.max() <= 1 and (diff > 0).mean() < 0.01, uid
@@ -538,11 +533,9 @@ class _Recording(torch.nn.Module):
         return torch.sigmoid(self.w * (x[:, :1] - 0.5))
 
 
-@pytest.mark.parametrize("overlap", [True, False])
-def test_next_batch_dispatched_before_post_processing(tmp_path, overlap,
-                                                      monkeypatch):
+def test_next_batch_dispatched_before_post_processing(tmp_path, monkeypatch):
     """Batch k+1's forward is enqueued before batch k is post-processed
-    (five drawings at batch 2); ``overlap=False`` keeps the serial order."""
+    (five drawings at batch 2)."""
     root = str(tmp_path)
     uids = [f"d{s}" for s in OVERLAP_SIZES]
     for uid, s in zip(uids, OVERLAP_SIZES):
@@ -556,11 +549,7 @@ def test_next_batch_dispatched_before_post_processing(tmp_path, overlap,
 
     monkeypatch.setattr(ts1, "postprocess_one", recorded)
     written = ts1.predict_uids(root, uids, _Recording(log), batch_size=2,
-                               size=32, overlap=overlap)
+                               size=32)
     assert len(written) == 5 and all(os.path.exists(p) for p in written)
     f, p = ("forward", 2), ("post", 1)
-    if overlap:
-        want = [f, f, p, p, ("forward", 1), p, p, p]
-    else:
-        want = [f, p, p, f, p, p, ("forward", 1), p]
-    assert log == want
+    assert log == [f, f, p, p, ("forward", 1), p, p, p]

@@ -24,8 +24,8 @@ import torch
 import torch.distributed as dist
 
 from chip_smoke import forbid_writes
+from drawingspinup_torch.core import profiling
 from drawingspinup_torch.parallel import mesh
-from drawingspinup_torch.pipelines import stage2_recon
 from drawingspinup_torch.pipelines import sweep as sweep_mod
 from drawingspinup_torch.train import gan, gan_parallel, nsr, nsr_parallel
 
@@ -141,13 +141,15 @@ def world1_task(inputs: Dict[str, Any], rank: int, world: int) -> Dict:
 def sweep_task(inputs: Dict[str, Any], rank: int, world: int) -> Dict:
     """``run_sweep`` of recon and train_style over the ranks through the
     stage CLIs, then the same sweep resumed and the recon CLI resumed; on
-    ranks other than 0 every write under the root raises."""
+    ranks other than 0 every write under the root raises. The recon steps
+    are the counter ``recon.step``'s, its losses every NSR step's."""
     from drawingspinup_torch.cli import recon as recon_cli
     from drawingspinup_torch.cli import sweep as sweep_cli
 
     root = inputs["root"]
     attempts = forbid_writes(root) if rank else []
     seen: Dict[str, Any] = {}
+    losses = []
 
     def spy(module, name: str, key: str, index: int):
         fn = getattr(module, name)
@@ -155,7 +157,11 @@ def sweep_task(inputs: Dict[str, Any], rank: int, world: int) -> Dict:
         @functools.wraps(fn)
         def wrapped(*args, **kwargs):
             seen[key] = args[index]
-            return fn(*args, **kwargs)
+            out = fn(*args, **kwargs)
+            if key == "nsr":
+                losses.append(tuple(float(out[k]) for k in
+                                    ("loss", "loss_mask", "inv_s")))
+            return out
         setattr(module, name, wrapped)
 
     spy(nsr, "train_step", "nsr", 2)
@@ -164,20 +170,23 @@ def sweep_task(inputs: Dict[str, Any], rank: int, world: int) -> Dict:
         root, "cpu", recon_overrides=inputs["recon_overrides"],
         train_args=inputs["train_args"], allow_degraded=True)
     stages = {s: fns[s] for s in ("recon", "train_style")}
+    steps = profiling.counters()["recon.step"]
     out: Dict[str, Any] = {"first": sweep_mod.run_sweep(
         root, inputs["uids"], stages)}
     out["recon_params"] = _named(seen["nsr"].params)
-    out["recon_stats"] = {k: stage2_recon.LAST_STATS[k]
-                          for k in ("steps", "world", "log")}
+    out["recon_stats"] = {
+        "steps": profiling.counters()["recon.step"] - steps,
+        "world": mesh.world_size(), "log": list(losses)}
     gstate = seen["gan"]
     out["gan"] = {k: v.clone() for k, v in gstate.gen.state_dict().items()}
     out["gan"].update({f"disc.{k}": v.clone()
                        for k, v in gstate.disc.state_dict().items()})
     out["resumed_sweep"] = sweep_mod.run_sweep(root, inputs["uids"], stages)
     seen.clear()
+    steps = profiling.counters()["recon.step"]
     recon_cli.main(["--uid", inputs["uid"], "--root", root, "--device",
                     "cpu", *inputs["recon_overrides"]])
-    out["resumed_recon_steps"] = stage2_recon.LAST_STATS["steps"]
+    out["resumed_recon_steps"] = profiling.counters()["recon.step"] - steps
     out["resumed_recon_trained"] = "nsr" in seen
     out["attempts"] = attempts
     return out
@@ -299,17 +308,19 @@ def mv_float64(patch, decoded: list) -> None:
 def mvcli_task(inputs: Dict[str, Any], rank: int, world: int) -> Dict:
     """The mv CLI over the ranks (in float64 with ``inputs["float64"]``:
     ``mv_float64``); on ranks other than 0 every write under the root
-    raises."""
+    raises. ``dp``: the ranks of the split; ``wrote``: the uids this rank
+    wrote (its ``mv.write`` spans)."""
     from drawingspinup_torch.cli import mv as mv_cli
-    from drawingspinup_torch.pipelines import stage2_mv
+    from drawingspinup_torch.core.contract import VIEWS
 
     decoded: list = []
     if inputs.get("float64"):
         mv_float64(setattr, decoded)
     attempts = forbid_writes(inputs["root"]) if rank else []
     assert mv_cli.main(inputs["argv"]) == 0
-    return {"attempts": attempts, "dp": stage2_mv.LAST_STATS.get("dp"),
-            "decoded": decoded}
+    wrote = profiling.timings().get("mv.write", {}).get("count", 0)
+    return {"attempts": attempts, "dp": mesh.mv_split(2 * len(VIEWS), world),
+            "wrote": wrote, "decoded": decoded}
 
 
 TASKS = {"nsr": nsr_task, "gan": gan_task, "world1": world1_task,
