@@ -21,9 +21,16 @@
   stream around the block, resolved by ``device_times()`` (after a
   synchronise) into the card's seconds by the record's id. Otherwise it
   costs what any span costs.
+- Inside ``capturing()`` (around a CUDA graph's capture) a device-timed
+  span records its event pair into the graph instead, whether a profiler
+  records or not, and lists it with the capture. After each replay of
+  the graph, ``replayed`` gives each listed span, while a profiler
+  records, a ``SpanRecord`` with the unit and the parent open at the
+  replay and, after a synchronise, its seconds on the card of that replay
+  (the next replay records the same events again).
 - ``count(name, n=1)``: integer counters, always on (``counters``).
-- ``reset()`` clears the aggregates, the counters, the store and the
-  events.
+- ``reset()`` clears the aggregates, the counters, the store, the events
+  and the replays' times.
 """
 from __future__ import annotations
 
@@ -79,6 +86,8 @@ _STATS: Dict[str, _Stat] = {}
 _COUNTERS: Dict[str, int] = {}
 _RECORDS: List[SpanRecord] = []
 _EVENTS: List[Tuple[int, object, object]] = []   # (record id, start, end)
+_TIMES: Dict[int, float] = {}   # record id → seconds, the replays' spans
+_CAPTURE: Optional[List[Tuple[str, object, object]]] = None   # capturing()
 _IDS = itertools.count(1)
 _THREAD = threading.local()     # .stack: ids of the recorded spans open
 _UNIT: Optional[int] = None     # the unit open in the process
@@ -95,6 +104,14 @@ def _event():
     if not (torch.cuda.is_available() and torch.cuda.is_initialized()):
         return None
     ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+def _graph_event():
+    """A timing event recorded into the CUDA graph that the current stream
+    captures: a node of the graph, recorded again by every replay."""
+    ev = torch.cuda.Event(enable_timing=True, external=True)
     ev.record()
     return ev
 
@@ -142,7 +159,8 @@ class _Open:
 
 
 class _Span:
-    __slots__ = ("name", "sync", "device", "unit", "t0", "open")
+    __slots__ = ("name", "sync", "device", "unit", "t0", "open", "capture",
+                 "first")
 
     def __init__(self, name: str, sync: bool, device: bool,
                  unit: bool) -> None:
@@ -152,12 +170,17 @@ class _Span:
     def __enter__(self) -> "_Span":
         if self.sync:
             _sync()
-        self.open = _Open(self.name, self.device, self.unit) \
+        self.capture = _CAPTURE if self.device else None
+        self.open = _Open(self.name, self.device and self.capture is None,
+                          self.unit) \
             if torch.autograd._profiler_enabled() else None
+        self.first = _graph_event() if self.capture is not None else None
         self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc) -> None:
+        if self.capture is not None:
+            self.capture.append((self.name, self.first, _graph_event()))
         if self.sync:
             _sync()
         dt = time.perf_counter() - self.t0
@@ -201,18 +224,64 @@ def spans() -> List[SpanRecord]:
 
 def device_times() -> Dict[int, float]:
     """{record id: seconds on the card} of every device-timed span in the
-    store: the time between its two events. Synchronises the card first."""
+    store: the time between its two events, or for a replayed span what
+    ``replayed`` read. Synchronises the card first."""
     _sync()
-    return {i: a.elapsed_time(b) * 1e-3 for i, a, b in list(_EVENTS)}
+    times = dict(_TIMES)
+    times.update((i, a.elapsed_time(b) * 1e-3) for i, a, b in list(_EVENTS))
+    return times
+
+
+@contextlib.contextmanager
+def capturing() -> Iterator[List[Tuple[str, object, object]]]:
+    """Around a CUDA graph's capture: yields the list to which each
+    device-timed span opened inside adds (name, start event, end event),
+    its pair recorded into the graph. Hand it to ``replayed`` after each
+    replay."""
+    global _CAPTURE
+    if _CAPTURE is not None:
+        raise RuntimeError("profiling.capturing: a capture is open already")
+    _CAPTURE = []
+    try:
+        yield _CAPTURE
+    finally:
+        _CAPTURE = None
+
+
+def replayed(captured: List[Tuple[str, object, object]],
+             start_ns: int) -> None:
+    """After a replay, launched at ``start_ns`` (``time.time_ns()``), of a
+    graph whose capture listed ``captured``: while a profiler records, one
+    record per listed span, from ``start_ns`` to the end of this call, with
+    the unit and the parent open now, and, after a synchronise, its
+    seconds on the card in this replay, read now because the next replay
+    records the same events again. Does nothing otherwise."""
+    if not captured or not torch.autograd._profiler_enabled():
+        return
+    _sync()
+    end_ns = time.time_ns()
+    stack = getattr(_THREAD, "stack", None)
+    parent = stack[-1] if stack else None
+    tid = threading.get_ident()
+    for name, first, last in captured:
+        if len(_RECORDS) >= MAX_RECORDS:
+            count(DROPPED)
+            continue
+        rec = SpanRecord(name, start_ns, end_ns, next(_IDS), parent, _UNIT,
+                         tid)
+        _RECORDS.append(rec)
+        _TIMES[rec.id] = first.elapsed_time(last) * 1e-3
 
 
 def reset() -> None:
-    """Clear the aggregates, the counters, the store and its events."""
+    """Clear the aggregates, the counters, the store, its events and the
+    replays' times."""
     with _LOCK:
         _STATS.clear()
         _COUNTERS.clear()
         _RECORDS.clear()
         _EVENTS.clear()
+        _TIMES.clear()
 
 
 def timings() -> Dict[str, Dict[str, float]]:

@@ -24,6 +24,12 @@ its 12 u8 images on the host, traced as the span ``mv.uid`` ⊃
 (``core/profiling.py``); ``generate_uid`` wraps it in the reads, the masks
 and the PNG writes (spans ``mv.read``, ``mv.masks``, ``mv.write``).
 
+On CUDA each DDIM step's UNet call after a key's first ``EAGER_CALLS``
+replays one CUDA graph of the call (``unet_noise``), so that the host
+enqueues a handful of operations a step instead of the UNet's ~1900
+launches; the noise draws, the cast of the noise and the DDIM update stay
+eager. The CPU, a split batch and grad mode call the UNet eagerly.
+
 Under torchrun with W > 1 ranks the denoise loop splits its batch rows over
 the first ``dp`` ranks, ``dp`` the largest divisor of the 2·Nv images that
 is at most W (JAX's ``_mv_batch_sharding``; ``batch_split``): each holds the
@@ -48,10 +54,14 @@ dependency of the port.
 """
 from __future__ import annotations
 
+import collections
 import copy
 import dataclasses
+import itertools
 import math
 import os
+import time
+import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -204,6 +214,119 @@ def batch_split(nv2: int, guidance: bool
                           nv2 * (2 if guidance else 1))
 
 
+# Graphs kept per UNet, the least recently used key dropped first: each
+# holds a call's activations in a private pool of the caching allocator.
+GRAPHS_PER_UNET = 2
+# Calls of a key made eagerly before its graph is captured. They build what
+# must live outside a graph's pool: the attention kernel's extension, the
+# cuDNN and cuBLAS handles and their workspaces.
+EAGER_CALLS = 2
+
+
+class _UNetGraph:
+    """One key's UNet call as a CUDA graph: static inputs (the latents ⊕
+    condition latents in the compute dtype, the timestep as a device
+    tensor, the CLIP tokens, the camera/task embeddings), the captured call
+    and its static noise. ``launched``: the counters the capture moved
+    (calls, attention folds, kernel launches), which each replay adds
+    again; ``spans``: the device-timed spans the capture recorded into the
+    graph (``profiling.capturing``), recorded per replay under a
+    profiler."""
+
+    def __init__(self) -> None:
+        self.eager = 0
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.inputs: Tuple[torch.Tensor, ...] = ()
+        self.out: Optional[torch.Tensor] = None
+        self.launched: collections.Counter = collections.Counter()
+        self.spans: List[tuple] = []
+
+    def capture(self, unet: UNetMV2D, args: Tuple[torch.Tensor, ...]
+                ) -> None:
+        self.inputs = tuple(a.clone() for a in args)
+        before = profiling.counters()
+        graph = torch.cuda.CUDAGraph()
+        with profiling.capturing() as spans, torch.cuda.graph(graph):
+            out = unet(*self.inputs)
+        # a capture launches nothing: its counts move to the replays
+        self.launched = profiling.counters() - before
+        for name, n in self.launched.items():
+            profiling.count(name, -n)
+        self.graph, self.out, self.spans = graph, out, spans
+        profiling.count("mv.unet.graph.capture")
+
+    def replay(self, args: Tuple[torch.Tensor, ...]) -> torch.Tensor:
+        """The static noise of the call on ``args``, copied in first."""
+        for static, a in zip(self.inputs, args):
+            static.copy_(a)
+        start = time.time_ns()
+        self.graph.replay()
+        profiling.replayed(self.spans, start)
+        for name, n in self.launched.items():
+            profiling.count(name, n)
+        profiling.count("mv.unet.graph.replay")
+        return self.out
+
+
+_GRAPHS: "weakref.WeakKeyDictionary[UNetMV2D, collections.OrderedDict]" = \
+    weakref.WeakKeyDictionary()
+
+
+def weights_key(unet: UNetMV2D) -> Tuple[int, ...]:
+    """Every parameter's and buffer's address: the weights' part of a
+    graph's key (a replaced tensor needs a new capture; one changed in
+    place is read by the replay). Walking the UNet's ~800 tensors takes
+    milliseconds of host, so ``denoise`` reads it once a call."""
+    return tuple(t.data_ptr() for t in itertools.chain(unet.parameters(),
+                                                       unet.buffers()))
+
+
+def _unet_graph(unet: UNetMV2D, args: Tuple[torch.Tensor, ...],
+                device: torch.device, split: Optional[RowSplit],
+                weights: Tuple[int, ...]) -> Optional[_UNetGraph]:
+    """The call's graph, None where it runs eagerly: off CUDA, on a split
+    batch (its folds gather across ranks), in grad mode, and a key's first
+    ``EAGER_CALLS`` calls. The key: ``weights`` (``weights_key``), the
+    inputs' shapes and dtypes and the device; the UNet itself is held
+    weakly."""
+    if device.type != "cuda" or split is not None \
+            or torch.is_grad_enabled():
+        return None
+    key = (weights, tuple((tuple(a.shape), a.dtype) for a in args), device)
+    graphs = _GRAPHS.setdefault(unet, collections.OrderedDict())
+    ug = graphs.get(key)
+    if ug is None:
+        ug = graphs[key] = _UNetGraph()
+        if len(graphs) > GRAPHS_PER_UNET:
+            graphs.popitem(last=False)
+    graphs.move_to_end(key)
+    if ug.eager < EAGER_CALLS:
+        ug.eager += 1
+        return None
+    return ug
+
+
+def unet_noise(unet: UNetMV2D, args: Tuple[torch.Tensor, ...],
+               device: torch.device, split: Optional[RowSplit],
+               weights: Tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
+    """The UNet's noise on ``args`` = (latents ⊕ condition latents,
+    timestep, CLIP tokens, camera/task embeddings), cast to ``dtype``: the
+    replay of the key's CUDA graph (``_unet_graph``; captured before its
+    first replay, a failed capture raises), else the eager call. The result is never a
+    graph's static buffer. A replay runs the code as it was at the
+    capture: a Python attribute, hook or function changed later is not
+    seen. Counted ``mv.unet.eager``, ``mv.unet.graph.capture`` and
+    ``mv.unet.graph.replay``; a replay also adds the counts its capture
+    saw (``mv.unet.call``, ``mv.attn.*``, ``mv.attn.launch``)."""
+    ug = _unet_graph(unet, args, device, split, weights)
+    if ug is None:
+        profiling.count("mv.unet.eager")
+        return unet(*args, split=split).to(dtype)
+    if ug.graph is None:
+        ug.capture(unet, args)
+    return ug.replay(args).to(dtype, copy=True)
+
+
 def build_modules(cfg: MVPipelineConfig, device
                   ) -> Tuple[UNetMV2D, AutoencoderKL,
                              CLIPVisionModelWithProjection]:
@@ -312,7 +435,10 @@ class MVPipeline:
 
         cdt = getattr(torch, cfg.compute_dtype)
         unet = self.unet_in(cdt)
-        embeds_c = embeds.expand(n, -1, -1).to(cdt)
+        weights = weights_key(unet)
+        # dense, as a graph's static copy of it is: both paths read one
+        # layout
+        embeds_c = embeds.expand(n, -1, -1).to(cdt).contiguous()
         cond_c = cond.expand(n, -1, -1, -1).to(cdt)
         cam_c = torch.as_tensor(sincos(camera_task_embeddings(views)),
                                 device=dev)[lo:lo + n].to(cdt)
@@ -328,8 +454,9 @@ class MVPipeline:
                 lat_in = latents.to(cdt)
                 if do_cfg:
                     lat_in = torch.cat([lat_in, lat_in])
-                eps = unet(torch.cat([lat_in, cond_c], dim=1), t_dev[i],
-                           embeds_c, cam_c, split=split).to(self.dtype)
+                eps = unet_noise(unet, (torch.cat([lat_in, cond_c], dim=1),
+                                        t_dev[i], embeds_c, cam_c), dev,
+                                 split, weights, self.dtype)
                 if do_cfg:
                     uncond, cond_eps = eps.chunk(2)
                     eps = uncond + guidance * (cond_eps - uncond)
