@@ -1375,29 +1375,29 @@ def ulp_bf16(x) -> float:
 
 def hashgrid_work(x, tables, spec, n_active: int, with_jac: bool):
     """(bytes, FLOPs) of one encode and of one table gradient at the points
-    x: the encode reads x and the table rows the points' corners touch and
-    writes enc (and denc); the gradient reads x, g_enc and g_denc's active
-    columns and writes the active tables' gradients in the tables' dtype,
-    as the step's backward asks for them. Per (point, level,
-    corner): 2 products for the weight and 2·F ops for the features, four
-    times with the jacobian; the gradient 8 + 8·F."""
+    x, as ``benchmark/nsr_work.py`` counts them: the encode reads x and the
+    table rows the points' corners touch and writes enc (and denc); the
+    gradient reads x, g_enc and g_denc's active columns and writes the
+    active tables' gradients in the tables' dtype, as the step's backward
+    asks for them. Per (point, level, corner): 2 products for the weight
+    and 2·F ops for the features, four times with the jacobian; the
+    gradient 8 + 8·F."""
     import torch
 
-    from drawingspinup_torch.kernels import hashgrid as hk
+    from benchmark import nsr_work
 
+    levels = list(zip(spec.res, spec.dense))
     p, nf = x.shape[0], spec.n_features
-    lf = len(spec.res) * nf
-    rows = sum(int(torch.unique(hk._corners(
-        x, spec.res[lvl], spec.dense[lvl], spec.cell_rows,
-        spec.table_size)[0]).numel()) for lvl in range(n_active))
     cs = torch.empty((), dtype=spec.cdt).element_size()
     ts = tables[0].element_size()
-    outs = 4 if with_jac else 1
-    fwd = (12 * p + rows * nf * ts + outs * p * lf * cs,
-           outs * p * n_active * 8 * (2 + 2 * nf))
-    grads = sum(tables[lvl].shape[0] for lvl in range(n_active)) * nf * ts
-    bwd = (12 * p + outs * p * n_active * nf * cs + grads,
-           p * n_active * 8 * (8 + 8 * nf))
+    rows = nsr_work.touched_rows(x, levels, n_active, spec.cell_rows,
+                                 spec.table_size)
+    fwd = nsr_work.encode_work(p, rows, len(levels), nf, n_active, ts, cs,
+                               with_jac)
+    grads = nsr_work.table_grad_work(
+        p, sum(t.shape[0] for t in tables[:n_active]), nf, n_active, ts, cs,
+        with_jac)
+    bwd = tuple(sum(kernel[i] for kernel in grads.values()) for i in (0, 1))
     return fwd, bwd
 
 

@@ -19,6 +19,13 @@ What differs from JAX, by design of the port:
     moment, the second moment in the parameter's dtype (bf16 for bf16
     tables), updates added in f32 and cast to the parameter's dtype, and a
     per-group constant-then-exponential learning rate.
+
+Spans of ``core/profiling.py``: ``nsr.step`` (the step's unit, opened by
+``train_step``) ⊃ ``nsr.rays`` (the pixel-ray fetch), ``nsr.coarse`` (the
+no-grad coarse pass and the resampling), ``nsr.fine`` (the full evaluation
+with gradients and the compositing), ``nsr.loss``, ``nsr.backward`` and
+``nsr.update`` (the written-out Adam); counter ``nsr.band.<n>``, one a step
+at ``n`` active levels.
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ from typing import (
 import numpy as np
 import torch
 
+from drawingspinup_torch.core import profiling
 from drawingspinup_torch.kernels import pixel_rays
 from drawingspinup_torch.models.fields import (
     RadianceConfig, SDFFieldConfig, init_radiance, init_sdf_field,
@@ -283,7 +291,7 @@ def render_rays(cfg: NSRConfig, params, rays_o: torch.Tensor,
         t_near, t_far = t_range[:, 0], t_range[:, 1]
     t_far = torch.maximum(t_far, t_near + 1e-4)
 
-    with torch.no_grad():
+    with profiling.span("nsr.coarse"), torch.no_grad():
         t_c = neus.stratified_samples(t_near, t_far, cfg.n_coarse,
                                       draws.strat if jitter else None)
         pos_c = rays_o[:, None, :] + rays_d[:, None, :] * t_c[..., None]
@@ -298,52 +306,53 @@ def render_rays(cfg: NSRConfig, params, rays_o: torch.Tensor,
         dists = torch.cat([dists, dists[..., -1:]], dim=-1)
         pos = rays_o[:, None, :] + rays_d[:, None, :] * t_all[..., None]
 
-    n_main = pos.shape[0] * pos.shape[1]
-    if train:
-        probe = draws.probe_pts
-        eval_pts = torch.cat([pos.reshape(-1, 3), probe,
-                              probe + draws.probe_noise * 1e-2], dim=0)
-    else:
-        eval_pts = pos.reshape(-1, 3)
-    sdf_all, grad_all, feat_all = sdf_with_grad_analytic(
-        cfg.sdf, params["geometry"], eval_pts, level_mask, n_active)
-    S = cfg.n_samples
-    sdf = sdf_all[:n_main].reshape(-1, S)
-    grad_flat = grad_all[:n_main]
-    grad = grad_flat.reshape(-1, S, 3)
-    feature = feat_all[:n_main]
-    normal = grad / torch.clamp(torch.linalg.norm(grad, dim=-1, keepdim=True),
-                                min=1e-9)
-    dirs = rays_d[:, None, :].expand(pos.shape)
+    with profiling.span("nsr.fine"):
+        n_main = pos.shape[0] * pos.shape[1]
+        if train:
+            probe = draws.probe_pts
+            eval_pts = torch.cat([pos.reshape(-1, 3), probe,
+                                  probe + draws.probe_noise * 1e-2], dim=0)
+        else:
+            eval_pts = pos.reshape(-1, 3)
+        sdf_all, grad_all, feat_all = sdf_with_grad_analytic(
+            cfg.sdf, params["geometry"], eval_pts, level_mask, n_active)
+        S = cfg.n_samples
+        sdf = sdf_all[:n_main].reshape(-1, S)
+        grad_flat = grad_all[:n_main]
+        grad = grad_flat.reshape(-1, S, 3)
+        feature = feat_all[:n_main]
+        normal = grad / torch.clamp(
+            torch.linalg.norm(grad, dim=-1, keepdim=True), min=1e-9)
+        dirs = rays_d[:, None, :].expand(pos.shape)
 
-    alpha = neus.neus_alpha(sdf, normal, dirs, dists, s, cos_anneal)
-    alpha = alpha * hit[:, None]
-    rgb = radiance_forward(cfg.radiance, params["texture"],
-                           feature.reshape(-1, S, feature.shape[-1]),
-                           dirs, normal)
-    comp = neus.composite(alpha, {"rgb": rgb, "normal": normal,
-                                  "depth": t_all[..., None]})
-    cn = comp["comp_normal"]
-    out = {
-        "comp_rgb": comp["comp_rgb"],
-        "comp_normal": cn / torch.clamp(
-            torch.linalg.norm(cn, dim=-1, keepdim=True), min=1e-9),
-        "opacity": comp["opacity"],
-        "depth": comp["comp_depth"],
-        "inv_s": s,
-        "num_samples": (alpha.detach() > 1e-4).sum(),
-    }
-    if train:
-        n_r = cfg.n_random_pts
-        out.update({
-            "sdf_samples": sdf.reshape(-1),
-            "sdf_grad_samples": grad_flat,
-            "weights": comp["weights"].reshape(-1),
-            "random_sdf": sdf_all[n_main:n_main + n_r],
-            "random_sdf_grad": grad_all[n_main:n_main + n_r],
-            "normal_perturb": grad_all[n_main + n_r:],
-        })
-    return out
+        alpha = neus.neus_alpha(sdf, normal, dirs, dists, s, cos_anneal)
+        alpha = alpha * hit[:, None]
+        rgb = radiance_forward(cfg.radiance, params["texture"],
+                               feature.reshape(-1, S, feature.shape[-1]),
+                               dirs, normal)
+        comp = neus.composite(alpha, {"rgb": rgb, "normal": normal,
+                                      "depth": t_all[..., None]})
+        cn = comp["comp_normal"]
+        out = {
+            "comp_rgb": comp["comp_rgb"],
+            "comp_normal": cn / torch.clamp(
+                torch.linalg.norm(cn, dim=-1, keepdim=True), min=1e-9),
+            "opacity": comp["opacity"],
+            "depth": comp["comp_depth"],
+            "inv_s": s,
+            "num_samples": (alpha.detach() > 1e-4).sum(),
+        }
+        if train:
+            n_r = cfg.n_random_pts
+            out.update({
+                "sdf_samples": sdf.reshape(-1),
+                "sdf_grad_samples": grad_flat,
+                "weights": comp["weights"].reshape(-1),
+                "random_sdf": sdf_all[n_main:n_main + n_r],
+                "random_sdf_grad": grad_all[n_main:n_main + n_r],
+                "normal_perturb": grad_all[n_main + n_r:],
+            })
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -436,15 +445,18 @@ def loss_and_grads(cfg: NSRConfig, state: TrainState,
                    n_active: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """Forward and backward of one step: the leaves' ``.grad`` hold the
     step's gradients (None for locked levels); returns the detached logs."""
-    rays_o, rays_d, targets = sample_pixel_rays(data, draws)
+    with profiling.span("nsr.rays"):
+        rays_o, rays_d, targets = sample_pixel_rays(data, draws)
     t_range = targets.pop("t_range", None)
     for _, p in named_leaves(state.params):
         p.grad = None
     out = render_rays(cfg, state.params, rays_o, rays_d, draws, state.step,
                       train=True, n_active=n_active, t_range=t_range)
     out["rays_d"] = rays_d
-    loss, logs = compute_losses(cfg, out, targets)
-    loss.backward()
+    with profiling.span("nsr.loss"):
+        loss, logs = compute_losses(cfg, out, targets)
+    with profiling.span("nsr.backward"):
+        loss.backward()
     return {k: v.detach() for k, v in logs.items()}
 
 
@@ -461,11 +473,16 @@ def train_step(cfg: NSRConfig, opt: NSROptimizer, state: TrainState,
     leaves' gradients (None for locked levels) followed by the logs, to
     average them in place over data-parallel ranks
     (``train/nsr_parallel.py``)."""
-    logs = loss_and_grads(cfg, state, data, draws, n_active)
-    if reduce is not None:
-        reduce([p.grad for _, p in named_leaves(state.params)]
-               + list(logs.values()))
-    opt.step(state.params, state.opt_state)
+    band = cfg.sdf.grid.current_level(state.step) if n_active is None \
+        else n_active
+    profiling.count(f"nsr.band.{band}")
+    with profiling.span("nsr.step", unit=True):
+        logs = loss_and_grads(cfg, state, data, draws, n_active)
+        if reduce is not None:
+            reduce([p.grad for _, p in named_leaves(state.params)]
+                   + list(logs.values()))
+        with profiling.span("nsr.update"):
+            opt.step(state.params, state.opt_state)
     state.step += 1
     return logs
 
